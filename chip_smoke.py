@@ -8,12 +8,15 @@ so that a fault surfaces in the phase that caused it:
 
 1. env      torch, CUDA and nvcc versions; the card's name and power limit.
 2. build    the kernel library from ``paddle_tpu_torch/csrc`` (nvcc, sm_90a).
-3. kernel   each kernel against its plain PyTorch version on the card, at
-            the serving path's shapes, in bf16: max abs error within the
-            stated tolerance, device time per call (a CUDA graph of many
-            calls, so host launch cost is excluded), the plain version's
-            and a PyTorch library call's time, and the bound (the larger
-            of bytes over the memory rate and flops over the bf16 peak).
+3. kernel   each kernel against its plain PyTorch version on the card, in
+            bf16: the serving kernels at the serving path's shapes, the
+            training path's backward kernels and the forward kernels at
+            the training shape, (4, 1536) tokens of the 438M model, plus a
+            GQA case for flash dK/dV. Max abs error within the stated
+            tolerance, device time per call (a CUDA graph of many calls,
+            so host launch cost is excluded), the plain version's and a
+            PyTorch library call's time, and the bound (the larger of
+            bytes over the memory rate and flops over the bf16 peak).
 4. model    the 438M LLaMA (random N(0, 0.02) weights from a seed) in bf16
             on the card against the same weights in f32 on the CPU through
             the plain versions: one bucket-128 prefill of 2 prompts and 4
@@ -23,7 +26,21 @@ so that a fault surfaces in the phase that caused it:
             tokens from np.random.RandomState(7), 64 new tokens each,
             greedy, segments of 32. Launch counts are zeroed just before
             this run and read just after it; every kernel must have run.
-6. kernels  one JSON line listing every ported kernel.
+6. grad     a 2-layer model at the 438M widths, bf16 on the card against
+            f32 on the CPU, batch 1 x seq 256 through
+            LlamaPretrainingCriterion: the loss and every parameter's
+            gradient within stated tolerances; the labels= loss equals the
+            criterion's on the card.
+7. train    the slice itself: the 438M model in bf16, AdamW(lr 1e-4,
+            multi_precision) and TrainStep over the criterion, batch 4 x
+            seq 1536 ids from np.random.RandomState(0), 1 warm-up step and
+            5 timed steps on the same batch: step ms, tokens/s, MFU, peak
+            memory, losses (finite, falling, the first near ln 32000), and
+            the launches of the path's seven kernels in one step, zeroed
+            just before it and read just after.
+8. kernels  one JSON line listing every ported kernel, with the serving
+            path's launches for the serving kernels and the training
+            step's for the backward kernels.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
@@ -50,6 +67,12 @@ RTOL, ATOL = 2.0 ** -7, 1e-3
 # ~2^-9 relative per op, over 12 layers of ~10 rounded ops and a
 # 32000-wide head; a wrong kernel gives errors of order 1
 MODEL_REL_L2 = 5e-2
+# the grad phase, bf16 card vs f32 CPU: the loss (a mean of 255 f32
+# log-softmaxes of bf16 logits) to 1e-2 relative; each gradient to 5e-2
+# relative L2, the model phase's bound for the same rounding carried
+# back through two layers; the labels= loss (f32 block logits of the
+# same bf16 operands) against the criterion's (bf16 logits) to 2e-3
+GRAD_LOSS_REL, GRAD_REL_L2, LABELS_REL = 1e-2, 5e-2, 2e-3
 
 CFG_438M = dict(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
                 num_hidden_layers=12, num_attention_heads=12,
@@ -78,16 +101,18 @@ def peaks_for(name):
     raise PhaseFailed(f"no peak figures for {name!r}")
 
 
-def graph_ms(fn, calls=20, replays=10):
+def graph_ms(fn, calls=20, replays=10, stream=None):
     """Device time per call: ``calls`` calls captured in one CUDA graph,
-    replayed ``replays`` times between CUDA events (warm L2)."""
-    side = torch.cuda.Stream()
+    replayed ``replays`` times between CUDA events (warm L2). A backward
+    is captured on ``stream``, the stream its forward ran on, as
+    ``torch.cuda.make_graphed_callables`` captures one."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, stream=side):
         for _ in range(calls):
             fn()
     g.replay()
@@ -309,47 +334,385 @@ def model_phase():
     return card
 
 
-def serving_phase(model, name, smi):
+SERVE_NEW_TOKENS, SERVE_SEGMENT = 64, 32
+
+
+def serving_workload(model):
+    """The e2 serving run on ``model``: the engine (8 slots, max_len 512,
+    page 128, buckets (32, 128)), warmed on two requests, and the 24
+    prompts of 8-119 tokens from np.random.RandomState(7). Returns
+    (engine, prompts); run them with ``engine.run(prompts,
+    max_new_tokens=SERVE_NEW_TOKENS, segment=SERVE_SEGMENT)``."""
     from paddle_tpu_torch.models import ContinuousBatchingEngine
-    from paddle_tpu_torch.ops.cuda import launch_counts
 
     vocab = model.config.vocab_size
     eng = ContinuousBatchingEngine(model, max_slots=8, max_len=512,
                                    page_size=128, prompt_buckets=(32, 128))
     rng = np.random.RandomState(7)
     warm = [rng.randint(0, vocab, (n,)).astype(np.int32) for n in (12, 60)]
-    eng.run(warm, max_new_tokens=2, segment=32)
+    eng.run(warm, max_new_tokens=2, segment=SERVE_SEGMENT)
     lens = rng.randint(8, 120, 24)
-    prompts = [rng.randint(0, vocab, (int(n),)).astype(np.int32)
-               for n in lens]
+    return eng, [rng.randint(0, vocab, (int(n),)).astype(np.int32)
+                 for n in lens]
+
+
+def serving_phase(model, name, smi):
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    vocab = model.config.vocab_size
+    eng, prompts = serving_workload(model)
     torch.cuda.synchronize()
     launch_counts.clear()
-    outs, stats = eng.run(prompts, max_new_tokens=64, segment=32)
+    outs, stats = eng.run(prompts, max_new_tokens=SERVE_NEW_TOKENS,
+                          segment=SERVE_SEGMENT)
     torch.cuda.synchronize()
     counts = dict(launch_counts)
-    ok = all(len(o) == 64 and o.min() >= 0 and o.max() < vocab
+    ok = all(len(o) == SERVE_NEW_TOKENS and o.min() >= 0 and o.max() < vocab
              for o in outs)
     finite = all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
-    emit("serving", requests=len(outs), new_tokens=64,
+    emit("serving", requests=len(outs), new_tokens=SERVE_NEW_TOKENS,
          tokens_per_sec=stats["tokens_per_sec"], wall_s=stats["wall_s"],
          useful_tokens=stats["useful_tokens"], segments=stats["segments"],
          mean_occupancy=stats["mean_occupancy"], launches=counts,
          kv_finite=finite, card=name, nvidia_smi=smi)
-    if not ok or not finite or stats["useful_tokens"] != 24 * 64:
+    if (not ok or not finite
+            or stats["useful_tokens"] != len(prompts) * SERVE_NEW_TOKENS):
         raise PhaseFailed(f"serving: outputs ok={ok}, kv finite={finite}, "
                           f"tokens {stats['useful_tokens']}")
     return counts
 
 
-KERNELS = [  # name, source, the Pallas kernel it replaces
+def train_kernel_phase(peaks):
+    """The training path's kernels at the training shape: (4, 1536) tokens
+    of the 438M model, 12 heads of 128, causal."""
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
+    from paddle_tpu_torch.ops.cuda import rms_norm as rn
+
+    dev, bf16 = "cuda", torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    b, s, heads, hd, hidden = 4, 1536, 12, 128, 1536
+    n = b * s
+    results = {}
+
+    # RMSNorm forward, then its backward, over the (6144, 1536) rows of
+    # one norm
+    w = (1.0 + 0.1 * randn(hidden, dtype=torch.float32)).to(bf16)
+    x, g = randn(n, hidden), randn(n, hidden)
+    y, r = rn.rms_norm(x, w, 1e-6)
+    py, pr = rn.rms_norm_plain(x, w, 1e-6)
+    err = compare("rms_norm(train)", y, py)
+    if (r - pr).abs().max().item() > 1e-5 * pr.abs().max().item():
+        raise PhaseFailed("rms_norm(train): per-row r disagrees")
+    bms, by = bound_ms(2 * n * hidden * 2 + hidden * 2 + n * 4,
+                       4 * n * hidden, peaks)
+    emit("kernel", name="rms_norm", case="train_shape", shape=[n, hidden],
+         max_abs_err=err, ms=graph_ms(lambda: rn.rms_norm(x, w, 1e-6),
+                                      calls=10),
+         plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, 1e-6), calls=10),
+         library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
+             x, (hidden,), w, 1e-6), calls=10),
+         bound_ms=bms, bound_by=by)
+    err = max(compare(f"rms_norm_bwd {nm}", got, want) for nm, got, want in
+              zip(("dx", "dw", "db"), rn.rms_norm_bwd(x, w, r, g),
+                  rn.rms_norm_bwd_plain(x, w, r, g)))
+    nb = 3 * n * hidden * 2 + hidden * 2 + n * 4 + 2 * hidden * 2
+    bms, by = bound_ms(nb, 11 * n * hidden, peaks)
+    side = torch.cuda.Stream()  # the library's forward, and its backward
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+        yl = torch.nn.functional.rms_norm(xl, (hidden,), wl, 1e-6)
+    results["rms_norm_bwd"] = rec = dict(
+        shape=[n, hidden], max_abs_err=err,
+        ms=graph_ms(lambda: rn.rms_norm_bwd(x, w, r, g), calls=10),
+        plain_ms=graph_ms(lambda: rn.rms_norm_bwd_plain(x, w, r, g),
+                          calls=10),
+        library_ms=graph_ms(lambda: torch.autograd.grad(
+            yl, (xl, wl), g, retain_graph=True), calls=10, stream=side),
+        eager_ms=eager_ms(lambda: rn.rms_norm_bwd(x, w, r, g), calls=20),
+        bound_ms=bms, bound_by=by)
+    emit("kernel", name="rms_norm_bwd", **rec)
+    torch.cuda.synchronize()
+
+    # RoPE forward of (q, k), then its adjoint of (dq, dk), at the
+    # training step's arange positions 0..1535
+    cos, sin = _rope_tables(hd, CFG_438M["max_position_embeddings"], 10000.0,
+                            dev)
+    dq, dk = randn(b, s, heads, hd), randn(b, s, heads, hd)
+    pos = torch.arange(s, device=dev, dtype=torch.int32).expand(
+        b, s).contiguous()
+    pairs = n * 2 * heads * hd // 2
+    nb = 2 * 2 * dq.numel() * 2 + pos.numel() * 4 + 2 * s * hd * 4
+    bms, by = bound_ms(nb, 6 * pairs, peaks)
+    err = max(compare("fused_rope(train)", got, want) for got, want in zip(
+        fo.fused_rope(dq, dk, cos, sin, pos),
+        fo.fused_rope_plain(dq, dk, cos, sin, pos)))
+    emit("kernel", name="fused_rope", case="train_shape",
+         shape=list(dq.shape), max_abs_err=err,
+         ms=graph_ms(lambda: fo.fused_rope(dq, dk, cos, sin, pos), calls=10),
+         plain_ms=graph_ms(lambda: fo.fused_rope_plain(dq, dk, cos, sin, pos),
+                           calls=10),
+         library_ms=None, bound_ms=bms, bound_by=by)
+    err = max(compare("fused_rope_bwd", got, want) for got, want in zip(
+        fo.fused_rope(dq, dk, cos, sin, pos, inverse=True),
+        fo.fused_rope_plain(dq, dk, cos, sin, pos, inverse=True)))
+    rope = lambda: fo.fused_rope(dq, dk, cos, sin, pos,  # noqa: E731
+                                 inverse=True)
+    results["fused_rope_bwd"] = rec = dict(
+        shape=list(dq.shape), max_abs_err=err, ms=graph_ms(rope, calls=10),
+        plain_ms=graph_ms(lambda: fo.fused_rope_plain(
+            dq, dk, cos, sin, pos, inverse=True), calls=10),
+        library_ms=None, eager_ms=eager_ms(rope, calls=20),
+        bound_ms=bms, bound_by=by)
+    emit("kernel", name="fused_rope_bwd", **rec)
+    torch.cuda.synchronize()
+
+    # flash forward, then dK/dV and dQ, at the training shape (MHA), and
+    # dK/dV and dQ on a GQA case (12 heads on 4 kv heads, S = 512), which
+    # the 438M model does not exercise
+    for case, (bb, ss, kvh) in (("train", (b, s, heads)),
+                                ("gqa", (2, 512, 4))):
+        q = randn(bb, ss, heads, hd)
+        k, v = randn(bb, ss, kvh, hd), randn(bb, ss, kvh, hd)
+        do = randn(bb, ss, heads, hd)
+        out, lse = fa.flash_attention(q, k, v, causal=True)
+        pairs = bb * heads * ss * (ss + 1) // 2
+        if case == "train":
+            pout, plse = fa.flash_attention_plain(q, k, v, causal=True)
+            err = compare("flash_attention(S=1536)", out, pout)
+            lse_err = (lse - plse).abs().max().item()
+            if lse_err > 1e-3:
+                raise PhaseFailed(f"flash_attention(S=1536): lse off by "
+                                  f"{lse_err:.3g}")
+            bms, by = bound_ms(4 * q.numel() * 2 + lse.numel() * 4,
+                               4 * hd * pairs, peaks)
+            emit("kernel", name="flash_attention", case="train_shape",
+                 shape=list(q.shape), max_abs_err=err, lse_err=lse_err,
+                 ms=graph_ms(lambda: fa.flash_attention(q, k, v, True),
+                             calls=3, replays=3),
+                 plain_ms=graph_ms(lambda: fa.flash_attention_plain(
+                     q, k, v, True), calls=3, replays=3),
+                 library_ms=graph_ms(
+                     lambda: torch.nn.functional.scaled_dot_product_attention(
+                         *(t.transpose(1, 2) for t in (q, k, v)),
+                         is_causal=True), calls=3, replays=3),
+                 eager_ms=eager_ms(lambda: fa.flash_attention(q, k, v, True),
+                                   calls=5),
+                 bound_ms=bms, bound_by=by)
+            torch.cuda.synchronize()
+        delta = fa._delta(out, do)
+        want_dq, want_dk, want_dv = fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, True)
+        got_dk, got_dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta)
+        got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        errs = {"flash_attention_bwd_dkdv": max(
+                    compare(f"dk ({case})", got_dk, want_dk),
+                    compare(f"dv ({case})", got_dv, want_dv)),
+                "flash_attention_bwd_dq": compare(f"dq ({case})", got_dq,
+                                                  want_dq)}
+        io = (q.numel() + 2 * k.numel() + do.numel()) * 2 + 2 * lse.numel() * 4
+        if case == "train":  # one library time for the dK/dV + dQ pair
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
+                              for t in (q, k, v))
+                ol = torch.nn.functional.scaled_dot_product_attention(
+                    ql, kl, vl, is_causal=True)
+            dol = do.transpose(1, 2)
+            lib = graph_ms(lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), dol, retain_graph=True), calls=3,
+                replays=3, stream=side)
+            plain = graph_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, out, lse, do, True), calls=3, replays=3)
+        kernels = {
+            "flash_attention_bwd_dkdv": (
+                lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta),
+                8 * hd * pairs, io + 2 * k.numel() * 2),
+            "flash_attention_bwd_dq": (
+                lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
+                6 * hd * pairs, io + q.numel() * 2)}
+        for kname, (fn, flops, nb) in kernels.items():
+            bms, by = bound_ms(nb, flops, peaks)
+            rec = dict(case=case, shape=list(q.shape), kv_heads=kvh,
+                       max_abs_err=errs[kname],
+                       ms=graph_ms(fn, calls=3, replays=3),
+                       eager_ms=eager_ms(fn, calls=5), bound_ms=bms,
+                       bound_by=by)
+            if case == "train":
+                rec.update(plain_ms=plain, library_ms=lib)
+                results[kname] = rec
+            emit("kernel", name=kname, **rec)
+        torch.cuda.synchronize()
+    return results
+
+
+def grad_phase():
+    """Gradients of a 2-layer model at the 438M widths, bf16 on the card
+    through the kernels against f32 on the CPU through the plain
+    versions."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        LlamaPretrainingCriterion,
+    )
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    cfg = LlamaConfig(**{**CFG_438M, "num_hidden_layers": 2})
+    card = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                            generator=seed(2, "cuda"))
+    cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
+                           generator=seed(3, "cpu"))
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in card.state_dict().items()})
+    ids = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 256))
+    crit = LlamaPretrainingCriterion()
+    t0 = time.monotonic()
+    launch_counts.clear()
+    losses = {}
+    for tag, model in (("card", card), ("cpu", cpu)):
+        t = torch.tensor(ids, device=model.device)
+        loss = crit(model(t), t)
+        loss.backward()
+        losses[tag] = float(loss.detach())
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    t = torch.tensor(ids, device="cuda")
+    with torch.no_grad():
+        labels_loss = float(card(t, labels=t))
+    cpu_params = dict(cpu.named_parameters())
+    rel = {name: float((p.grad.float().cpu() - cpu_params[name].grad).norm()
+                       / cpu_params[name].grad.norm())
+           for name, p in card.named_parameters()}
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    labels_rel = abs(labels_loss - losses["card"]) / abs(losses["card"])
+    worst = max(rel, key=rel.get)
+    emit("grad", losses=losses, loss_rel=loss_rel,
+         loss_tolerance=GRAD_LOSS_REL, grad_rel_l2=rel,
+         grad_rel_l2_max=[worst, rel[worst]], grad_tolerance=GRAD_REL_L2,
+         labels_loss=labels_loss, labels_rel=labels_rel,
+         labels_tolerance=LABELS_REL, launches=counts,
+         seconds=time.monotonic() - t0)
+    if (loss_rel > GRAD_LOSS_REL or rel[worst] > GRAD_REL_L2
+            or not np.isfinite(rel[worst]) or labels_rel > LABELS_REL):
+        raise PhaseFailed(f"grad: loss rel {loss_rel:.3g}, worst gradient "
+                          f"{worst} rel L2 {rel[worst]:.3g}, labels= rel "
+                          f"{labels_rel:.3g}")
+
+
+TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope", "fused_rope_bwd",
+                 "flash_attention", "flash_attention_bwd_dkdv",
+                 "flash_attention_bwd_dq")
+
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1536, 5
+
+
+def train_workload():
+    """bench.py section (b)'s training step on the card: the 438M model
+    in bf16 (random weights from seed 0), AdamW(learning_rate=1e-4,
+    multi_precision=True), TrainStep over LlamaPretrainingCriterion, and
+    one batch of TRAIN_BATCH x TRAIN_SEQ ids from np.random.RandomState(0).
+    Returns (model, optimizer, step, ids)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        LlamaPretrainingCriterion,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig(**CFG_438M)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=seed(0, "cuda"))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True)
+    step = TrainStep(model, LlamaPretrainingCriterion(), opt)
+    ids = torch.tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)), device="cuda")
+    return model, opt, step, ids
+
+
+def timed_steps(step, ids, steps=TRAIN_STEPS):
+    """``steps`` steps on ``ids``, each timed with CUDA events: returns
+    (losses, step ms)."""
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    events[0].record()
+    for i in range(steps):
+        losses.append(step(ids, labels=ids))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return ([float(x) for x in losses],
+            [events[i].elapsed_time(events[i + 1]) for i in range(steps)])
+
+
+def train_phase(name, smi, peaks):
+    """The training slice: TrainStep on the 438M model at batch 4 x seq
+    1536, bench.py section (b)'s configuration."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    model, _, step, ids = train_workload()
+    cfg, (batch, seqlen), steps = model.config, ids.shape, TRAIN_STEPS
+    n_params = sum(p.numel() for p in model.parameters())
+    # the warm-up step, with the launch counts zeroed just before it and
+    # read just after it: every step launches the same kernels
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    losses = [float(step(ids, labels=ids))]
+    torch.cuda.synchronize()
+    counts = {k: launch_counts[k] for k in TRAIN_KERNELS}
+    timed, step_ms = timed_steps(step, ids, steps)
+    losses += timed
+    steady = float(np.median(step_ms))
+    tokens_per_sec = batch * seqlen / (steady / 1e3)
+    flops_per_token = (6 * n_params
+                       + 12 * cfg.num_hidden_layers * cfg.hidden_size * seqlen)
+    mfu = tokens_per_sec * flops_per_token / peaks[1]
+    emit("train", params=n_params, batch=batch, seq=seqlen, steps=steps,
+         step_ms=step_ms, step_ms_median=steady,
+         tokens_per_sec=tokens_per_sec, flops_per_token=flops_per_token,
+         mfu=mfu, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         losses=losses, launches_per_step=counts, card=name, nvidia_smi=smi)
+    first, last = losses[0], losses[-1]
+    if not all(np.isfinite(losses)):
+        raise PhaseFailed(f"train: a loss is not finite: {losses}")
+    if abs(first - np.log(cfg.vocab_size)) > 1.0:
+        raise PhaseFailed(f"train: first loss {first:.4f} is more than 1.0 "
+                          f"from ln {cfg.vocab_size}")
+    if not last < first:
+        raise PhaseFailed(f"train: loss did not fall: {losses}")
+    missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
+    if missing:
+        raise PhaseFailed(f"train: {missing} not launched in a step")
+    return counts
+
+
+KERNELS = [  # name, source, the Pallas kernel it replaces, the path
     ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
-     "paddle_tpu/ops/pallas/rms_norm.py:59"),
+     "paddle_tpu/ops/pallas/rms_norm.py:59", "serving"),
     ("fused_rope", "paddle_tpu_torch/csrc/rope.cu",
-     "paddle_tpu/ops/pallas/fused_ops.py:47"),
+     "paddle_tpu/ops/pallas/fused_ops.py:47", "serving"),
     ("flash_attention", "paddle_tpu_torch/csrc/flash_attention.cu",
-     "paddle_tpu/ops/pallas/flash_attention.py:86"),
+     "paddle_tpu/ops/pallas/flash_attention.py:86", "serving"),
     ("paged_attention", "paddle_tpu_torch/csrc/decode_attention.cu",
-     "paddle_tpu/ops/pallas/decode_attention.py:58"),
+     "paddle_tpu/ops/pallas/decode_attention.py:58", "serving"),
+    ("rms_norm_bwd", "paddle_tpu_torch/csrc/rms_norm.cu",
+     "paddle_tpu/ops/pallas/rms_norm.py:100", "train"),
+    ("fused_rope_bwd", "paddle_tpu_torch/csrc/rope.cu",
+     "paddle_tpu/ops/pallas/fused_ops.py:47", "train"),
+    ("flash_attention_bwd_dkdv", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:181", "train"),
+    ("flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:245", "train"),
 ]
 
 
@@ -382,18 +745,26 @@ def main():
     torch.cuda.synchronize()
 
     results = kernel_phase(peaks)
+    results.update(train_kernel_phase(peaks))
     model = model_phase()
     torch.cuda.synchronize()
-    counts = serving_phase(model, name, smi)
+    counts = {"serving": serving_phase(model, name, smi)}
+    del model
+    torch.cuda.empty_cache()
+    grad_phase()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counts["train"] = train_phase(name, smi, peaks)
     torch.cuda.synchronize()
 
     line = []
-    for kname, source, replaces in KERNELS:
+    for kname, source, replaces, path in KERNELS:
         r = results[kname]
-        if counts.get(kname, 0) <= 0:
-            raise PhaseFailed(f"{kname} was not launched on the serving path")
+        launches = counts[path].get(kname, 0)
+        if launches <= 0:
+            raise PhaseFailed(f"{kname} was not launched on the {path} path")
         line.append({"name": kname, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counts[kname],
+                     "replaces": replaces, "launches": launches,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

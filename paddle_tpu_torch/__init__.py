@@ -2,12 +2,16 @@
 Hopper (H100).
 
 The JAX package ``paddle_tpu`` stays the reference; this package imports
-neither it nor JAX. Its first slice is the serving path: the LLaMA model
+neither it nor JAX. Its slices so far: serving, the LLaMA model
 (``models.llama``) behind a continuous-batching engine over a paged KV
-pool (``models.serving``), carried by four hand-written kernels under
-``ops/cuda`` (RMSNorm, RoPE, flash-attention forward, paged decode
-attention). Entry points run on the GPU unless given ``device="cpu"``.
+pool (``models.serving``); and training, the model's ``labels=`` loss and
+``LlamaPretrainingCriterion``, ``optimizer.AdamW`` with f32 master
+weights, and ``jit.TrainStep``. Eight hand-written kernels under
+``ops/cuda`` carry them: RMSNorm forward and backward, RoPE and its
+adjoint, flash attention forward, dK/dV and dQ, and paged decode
+attention. Entry points run on the GPU unless given ``device="cpu"``.
 """
+from . import jit, optimizer
 from .core.place import resolve_device, seed
 
-__all__ = ["resolve_device", "seed"]
+__all__ = ["jit", "optimizer", "resolve_device", "seed"]

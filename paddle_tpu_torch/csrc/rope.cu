@@ -1,9 +1,13 @@
 // Neox rotate-half rotary embedding of q and k in one launch:
 //   out = x * cos[pos] + rot(x) * sin[pos],  rot(x) = [-x2, x1],
-// with the math in f32.
+// with the math in f32; with kInverse the adjoint rotation
+// rot(x) = [x2, -x1], which carries the output gradients (dq, dk) back.
 //
 // Replaces the Pallas kernel paddle_tpu/ops/pallas/fused_ops.py:47
-// (_rope_kernel, forward, inverse=False; called from _rope_apply at :60).
+// (_rope_kernel, called from _rope_apply at :60), both directions: the
+// forward (inverse=False) and the adjoint that _rope_one_bwd (:91) runs
+// (inverse=True). The tables hold the same angle in both halves, so the
+// inverse rotation is the exact transpose of the forward's.
 // The Pallas kernel takes the (S, D) tables cropped to the sequence, so
 // it serves only position_ids=None; decode's per-slot positions take the
 // jnp gather in paddle_tpu/ops/nn_kernels.py:828-846. This kernel reads
@@ -15,13 +19,15 @@
 // writes two, plus the gathered f32 table entries (cached in L1/L2, as
 // every head of a token reads the same row), for 6 flops per pair. One
 // thread per pair keeps neighbouring threads on neighbouring addresses,
-// so every load and store is coalesced.
+// so every load and store is coalesced. At the training shape, q and k
+// of (4, 1536, 12, 128), either direction moves 75.5 MB (22.5 us).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kInverse>
 __global__ void __launch_bounds__(kThreads)
 rope_kernel(const __nv_bfloat16* __restrict__ q,
             const __nv_bfloat16* __restrict__ k,
@@ -52,8 +58,34 @@ rope_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* orow = out + row * d;
   const float x1 = __bfloat162float(xr[i]);
   const float x2 = __bfloat162float(xr[i + half]);
-  orow[i] = __float2bfloat16(x1 * c[i] - x2 * s[i]);
-  orow[i + half] = __float2bfloat16(x2 * c[i + half] + x1 * s[i + half]);
+  if (kInverse) {
+    orow[i] = __float2bfloat16(x1 * c[i] + x2 * s[i]);
+    orow[i + half] = __float2bfloat16(x2 * c[i + half] - x1 * s[i + half]);
+  } else {
+    orow[i] = __float2bfloat16(x1 * c[i] - x2 * s[i]);
+    orow[i + half] = __float2bfloat16(x2 * c[i + half] + x1 * s[i + half]);
+  }
+}
+
+template <bool kInverse>
+int launch_rope(const void* q, const void* k, void* q_out, void* k_out,
+                const void* positions, const void* cos_table,
+                const void* sin_table, long long tokens, int q_heads,
+                int k_heads, int d, int table_rows, void* stream) {
+  const int half = d / 2;
+  const long long q_pairs = tokens * q_heads * half;
+  const long long total = q_pairs + tokens * k_heads * half;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  rope_kernel<kInverse><<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<__nv_bfloat16*>(q_out), static_cast<__nv_bfloat16*>(k_out),
+      static_cast<const int*>(positions),
+      static_cast<const float*>(cos_table),
+      static_cast<const float*>(sin_table), q_pairs, total, q_heads, k_heads,
+      half, table_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -65,18 +97,18 @@ PTT_EXPORT int ptt_rope_fwd(const void* q, const void* k, void* q_out,
                             const void* cos_table, const void* sin_table,
                             long long tokens, int q_heads, int k_heads,
                             int d, int table_rows, void* stream) {
-  const int half = d / 2;
-  const long long q_pairs = tokens * q_heads * half;
-  const long long total = q_pairs + tokens * k_heads * half;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  rope_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<__nv_bfloat16*>(q_out), static_cast<__nv_bfloat16*>(k_out),
-      static_cast<const int*>(positions),
-      static_cast<const float*>(cos_table),
-      static_cast<const float*>(sin_table), q_pairs, total, q_heads, k_heads,
-      half, table_rows);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rope<false>(q, k, q_out, k_out, positions, cos_table,
+                            sin_table, tokens, q_heads, k_heads, d,
+                            table_rows, stream);
+}
+
+// The adjoint rotation of (dq, dk), with the forward's arguments.
+PTT_EXPORT int ptt_rope_bwd(const void* dq, const void* dk, void* dq_out,
+                            void* dk_out, const void* positions,
+                            const void* cos_table, const void* sin_table,
+                            long long tokens, int q_heads, int k_heads,
+                            int d, int table_rows, void* stream) {
+  return launch_rope<true>(dq, dk, dq_out, dk_out, positions, cos_table,
+                           sin_table, tokens, q_heads, k_heads, d,
+                           table_rows, stream);
 }

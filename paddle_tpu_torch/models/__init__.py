@@ -1,8 +1,15 @@
 from .convert import params_from_paddle_tpu
 from .generation import generate
 from .kv_pool import PagePool
-from .llama import LlamaConfig, LlamaForCausalLM, PagedKVCache
+from .llama import (
+    LlamaConfig,
+    LlamaForCausalLM,
+    LlamaPretrainingCriterion,
+    PagedKVCache,
+    causal_lm_loss,
+)
 from .serving import ContinuousBatchingEngine
 
 __all__ = ["ContinuousBatchingEngine", "LlamaConfig", "LlamaForCausalLM",
-           "PagePool", "PagedKVCache", "generate", "params_from_paddle_tpu"]
+           "LlamaPretrainingCriterion", "PagePool", "PagedKVCache",
+           "causal_lm_loss", "generate", "params_from_paddle_tpu"]

@@ -1,12 +1,15 @@
-"""LLaMA for serving: the model, its paged KV cache and cached attention.
+"""LLaMA: the model, its paged KV cache and cached attention, and its
+training loss.
 
 Counterpart of ``paddle_tpu/models/llama.py``: ``LlamaConfig``,
 ``_rope_tables`` :319, ``PagedKVCache`` :137, ``cached_attention`` :251,
-``LlamaAttention``, ``LlamaMLP``, ``LlamaDecoderLayer``, ``LlamaModel`` and
-``LlamaForCausalLM`` (logits only; the ``labels=`` loss belongs to the
-training slice). Parameter names match the JAX model's, so
-``models.convert`` loads its ``raw_state()`` by name. Activations are
-(batch, seq, hidden); attention runs in (B, S, H, D).
+``LlamaAttention``, ``LlamaMLP``, ``LlamaDecoderLayer``, ``LlamaModel``,
+``LlamaForCausalLM`` (with the ``labels=`` loss, :578-592),
+``causal_lm_loss`` :525 and ``LlamaPretrainingCriterion`` :603. Parameter
+names match the JAX model's, so ``models.convert`` loads its
+``raw_state()`` by name. Activations are (batch, seq, hidden); attention
+runs in (B, S, H, D). Per-layer recompute (``use_recompute``) and the
+vocab-sharded loss branch are not ported yet.
 
 The port updates the KV pools in place (the JAX cache returns new
 arrays): ``PagedKVCache.update`` writes into ``k_pages``/``v_pages`` and
@@ -24,14 +27,16 @@ from torch import nn
 from ..core.place import resolve_device, seed
 from ..nn.layers import Embedding, Linear, RMSNorm
 from ..ops.cuda.decode_attention import paged_attention
+from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.nn_kernels import (
     rotary_position_embedding,
     scaled_dot_product_attention,
+    softmax_with_cross_entropy,
 )
 
 __all__ = ["LlamaConfig", "PagedKVCache", "cached_attention",
            "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
-           "LlamaForCausalLM"]
+           "LlamaForCausalLM", "LlamaPretrainingCriterion", "causal_lm_loss"]
 
 
 @dataclasses.dataclass
@@ -279,11 +284,50 @@ class LlamaForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.model.embed_tokens.weight.dtype
 
-    def forward(self, input_ids, caches=None):
+    def forward(self, input_ids, caches=None, labels=None):
         """(B, S) token ids -> (B, S, vocab) logits. With ``caches`` (one
         :class:`PagedKVCache` per layer) the new tokens' KV is written
-        into the caches, which advance in place."""
+        into the caches, which advance in place. With ``labels`` (B, S),
+        aligned with the ids, it returns the shifted next-token loss
+        through the blockwise lm-head + CE, which never forms the logits."""
+        if labels is not None and caches is not None:
+            raise ValueError("labels= is a training-path argument; decode "
+                             "caches don't apply")
         hidden = self.model(input_ids, caches)
+        if labels is not None:
+            if self.lm_head is None:
+                return causal_lm_loss(hidden, self.model.embed_tokens.weight,
+                                      labels, transpose_y=True)
+            return causal_lm_loss(hidden, self.lm_head.weight, labels,
+                                  transpose_y=False)
         if self.lm_head is None:
             return hidden @ self.model.embed_tokens.weight.T
         return self.lm_head(hidden)
+
+
+def causal_lm_loss(hidden, w, labels, transpose_y):
+    """Shifted next-token CE from hidden states and the lm-head weight
+    ((V, H) with ``transpose_y``, else (H, V)) through the blockwise fused
+    kernel (no (B, S, V) logits): the JAX function's replicated-weight
+    branch."""
+    loss = fused_linear_cross_entropy(hidden[:, :-1, :], w, labels[:, 1:],
+                                      transpose_y=transpose_y)
+    return loss.mean()
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Shifted next-token cross-entropy: position t predicts label t + 1,
+    averaged over every position (ignored labels count as 0)."""
+
+    def __init__(self, config: LlamaConfig | None = None):
+        super().__init__()
+
+    def forward(self, logits, labels):
+        loss = softmax_with_cross_entropy(logits[:, :-1, :], labels[:, 1:])
+        return loss.mean()
+
+    @staticmethod
+    def fused(hidden, lm_weight, labels, transpose_y=True):
+        """The same loss from hidden states and the lm-head weight,
+        through :func:`causal_lm_loss` (no (B, S, V) logits)."""
+        return causal_lm_loss(hidden, lm_weight, labels, transpose_y)

@@ -4,7 +4,8 @@ Counterparts of ``paddle_tpu/nn/layers_common.py`` ``Linear`` :68 and
 ``Embedding`` :92 and ``paddle_tpu/nn/layers_norm.py`` ``RMSNorm`` :74.
 ``Linear`` keeps the JAX package's ``(in, out)`` weight layout, so a
 parameter dict moves between the two packages by name alone. The LLaMA
-layers carry no biases, and neither do these.
+layers carry no biases, and neither do these. Parameters are trainable,
+as the JAX package's are; inference runs under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ def _normal(shape, std, generator, device, dtype):
     """N(0, std) parameter, drawn in f32 from ``generator`` then cast."""
     w = torch.empty(shape, dtype=torch.float32, device=device)
     w.normal_(0.0, std, generator=generator)
-    return nn.Parameter(w.to(dtype), requires_grad=False)
+    return nn.Parameter(w.to(dtype))
 
 
 class Linear(nn.Module):
@@ -56,8 +57,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.epsilon = epsilon
         self.weight = nn.Parameter(
-            torch.ones(hidden_size, device=device, dtype=dtype),
-            requires_grad=False)
+            torch.ones(hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
         return rms_norm(x, self.weight, self.epsilon)

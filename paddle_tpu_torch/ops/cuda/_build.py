@@ -28,8 +28,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["launch_counts", "library", "function", "check", "expect",
-           "nvcc", "stream_of", "build_seconds", "library_file", "CSRC_DIR",
-           "BUILD_DIR"]
+           "nvcc", "stream_of", "upcast", "build_seconds", "library_file",
+           "CSRC_DIR", "BUILD_DIR"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PACKAGE_DIR / "csrc"
@@ -166,3 +166,9 @@ def stream_of(t: torch.Tensor) -> int:
         raise ValueError(f"tensor on {t.device} but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
     return torch.cuda.current_stream().cuda_stream
+
+
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' working type: f32, or f64 when it is
+    already f64 (so that ``torch.autograd.gradcheck`` can run them)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))

@@ -1,0 +1,3 @@
+from .optimizer import Adam, AdamW, Optimizer
+
+__all__ = ["Adam", "AdamW", "Optimizer"]

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at
-shapes off the serving path's (ragged lengths, head_dim 64, GQA groups up
-to 8, causal offsets, empty rows, clamped positions), and the refusals of
-what the kernels do not take.
+shapes off the serving and training paths' (ragged lengths, head_dim 64,
+GQA groups up to 8, causal offsets, empty rows, clamped positions, row
+counts off the RMSNorm backward's strip), the refusals of what the
+kernels do not take, and a tiny model trained on the card.
 
 Every test here needs a GPU and skips without one (the marker ``cuda``).
 They import neither JAX nor ``paddle_tpu``; where JAX is not installed, run
@@ -109,6 +110,54 @@ def test_paged_attention_kernel(gen, h, kvh, d, page, pps):
     assert torch.all(got[0] == 0)
 
 
+@pytest.mark.parametrize("n,d", [(37, 64), (1, 100), (19, 4096),
+                                 (64, 1536)])
+def test_rms_norm_bwd_kernel(gen, n, d):
+    from paddle_tpu_torch.ops.cuda import rms_norm as rn
+
+    x, g = _randn(gen, n, d), _randn(gen, n, d)
+    w = (1.0 + 0.1 * _randn(gen, d, dtype=torch.float32)).bfloat16()
+    _, r = rn.rms_norm(x, w, 1e-5)
+    for got, want in zip(rn.rms_norm_bwd(x, w, r, g),
+                         rn.rms_norm_bwd_plain(x, w, r, g)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d", [(2, 7, 4, 2, 64), (1, 33, 12, 12, 128)])
+def test_rope_adjoint_kernel(gen, b, s, h, kvh, d):
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
+
+    cos, sin = _rope_tables(d, 64, 10000.0, "cuda")
+    dq, dk = _randn(gen, b, s, h, d), _randn(gen, b, s, kvh, d)
+    # includes positions outside the table, which both versions clamp
+    pos = torch.randint(-3, 70, (b, s), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    for got, want in zip(
+            fo.fused_rope(dq, dk, cos, sin, pos, inverse=True),
+            fo.fused_rope_plain(dq, dk, cos, sin, pos, inverse=True)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal", [
+    (1, 100, 100, 8, 4, 64, True),     # GQA group 2, S off the 64-row tile
+    (2, 70, 70, 16, 2, 128, True),     # group 8
+    (2, 5, 70, 16, 2, 128, True),      # causal offset sk - sq
+    (1, 33, 17, 4, 4, 64, False),
+    (1, 150, 150, 12, 12, 128, True),  # MHA, three tiles, the last ragged
+])
+def test_flash_attention_bwd_kernels(gen, b, sq, sk, h, kvh, d, causal):
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    q, do = _randn(gen, b, sq, h, d), _randn(gen, b, sq, h, d)
+    k, v = _randn(gen, b, sk, kvh, d), _randn(gen, b, sk, kvh, d)
+    out, lse = fa.flash_attention(q, k, v, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    for a, w in zip(got, want):
+        _close(a, w)
+
+
 def test_kernels_refuse_what_they_do_not_take(gen):
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -119,9 +168,18 @@ def test_kernels_refuse_what_they_do_not_take(gen):
                     _randn(gen, 64, dtype=torch.float32))
     with pytest.raises(ValueError, match="contiguous"):
         rn.rms_norm(_randn(gen, 64, 4).T, _randn(gen, 64))
+    with pytest.raises(TypeError, match="bfloat16"):
+        x = _randn(gen, 4, 64, dtype=torch.float32)
+        rn.rms_norm_bwd(x, x[0], torch.ones((4, 1), device="cuda"), x)
     x = _randn(gen, 1, 8, 2, 96)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(x, x, x)
+    lse = torch.zeros((1, 2, 8), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bwd(x, x, x, x, lse, x)
+    with pytest.raises(TypeError, match="bfloat16"):
+        y = _randn(gen, 1, 8, 2, 64, dtype=torch.float32)
+        fa.flash_attention_bwd(y, y, y, y, lse, y)
     q = _randn(gen, 1, 32, 64)
     kp = _randn(gen, 2, 16, 2, 64)  # 16 query heads per kv head
     with pytest.raises(ValueError, match="query heads per kv head"):
@@ -166,3 +224,46 @@ def test_tiny_model_on_card_matches_cpu_and_serves(gen):
     assert all(launch_counts[k] > 0 for k in (
         "rms_norm", "fused_rope", "flash_attention", "paged_attention"))
     assert all(len(o) == 6 and 0 <= o.min() and o.max() < 256 for o in outs)
+
+
+def test_tiny_model_trains_on_card_through_the_backward_kernels(gen):
+    """A small GQA LLaMA in bf16: its gradients agree with an f32 CPU copy
+    through the plain versions, and AdamW steps through TrainStep lower
+    the loss, launching every backward kernel."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        LlamaPretrainingCriterion,
+    )
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256)
+    card = LlamaForCausalLM(cfg, generator=seed(0, "cuda"))
+    cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
+                           generator=seed(0, "cpu"))
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in card.state_dict().items()})
+    ids = torch.randint(0, 256, (2, 96), generator=gen, device="cuda")
+    crit = LlamaPretrainingCriterion()
+    crit(card(ids), ids).backward()
+    crit(cpu(ids.cpu()), ids.cpu()).backward()
+    want = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        rel = (p.grad.float().cpu() - want[name].grad).norm() / want[
+            name].grad.norm()
+        assert rel < 5e-2, name
+    card.zero_grad()
+    launch_counts.clear()
+    step = TrainStep(card, crit, AdamW(learning_rate=1e-3,
+                                       parameters=card.parameters(),
+                                       multi_precision=True))
+    losses = step.run(ids, steps=4, labels=ids).tolist()
+    assert losses[-1] < losses[0]
+    assert all(launch_counts[k] > 0 for k in (
+        "rms_norm_bwd", "fused_rope_bwd", "flash_attention_bwd_dkdv",
+        "flash_attention_bwd_dq"))

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``paddle_tpu_torch``, nor
-``chip_smoke.py`` or the port's profiling script, imports JAX or the JAX
+``chip_smoke.py`` or the port's profiling scripts, imports JAX or the JAX
 package, and no import of the port loads them."""
 import ast
 import subprocess
@@ -10,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serving_profile.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_serving_profile.py",
+    ROOT / "tools" / "torch_train_profile.py"]
 
 
 def _imported(path):
@@ -31,7 +32,8 @@ def test_source_imports_neither_jax_nor_paddle_tpu(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, paddle_tpu_torch.models, paddle_tpu_torch.ops; "
+    code = ("import sys, paddle_tpu_torch.models, paddle_tpu_torch.ops, "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.jit; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'paddle_tpu')]; print(bad); sys.exit(bool(bad))")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -3,8 +3,8 @@
 
     python3 tools/torch_serving_profile.py
 
-Runs chip_smoke.py's serving workload (the 438M LLaMA in bf16, random
-weights from a seed; 8 slots, max_len 512, page 128, buckets (32, 128); 24
+Runs chip_smoke.py's serving workload (``serving_workload``: the 438M
+LLaMA in bf16, random weights from a seed; 8 slots, max_len 512, page 128, buckets (32, 128); 24
 requests of 8-119 prompt tokens from np.random.RandomState(7), 64 new
 tokens each, greedy, segments of 32) twice after a warm run: once plain,
 for the wall time and tokens/s, and once under torch.profiler, for the
@@ -24,9 +24,6 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-CFG_438M = dict(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
-                num_hidden_layers=12, num_attention_heads=12,
-                max_position_embeddings=1536)
 OURS = {"rms_norm_fwd_kernel": "rms_norm", "rope_kernel": "fused_rope",
         "flash_fwd_kernel": "flash_attention",
         "paged_decode_kernel": "paged_attention"}
@@ -53,34 +50,28 @@ def main():
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    from paddle_tpu_torch import seed
-    from paddle_tpu_torch.models import (
-        ContinuousBatchingEngine,
-        LlamaConfig,
-        LlamaForCausalLM,
+    from chip_smoke import (
+        CFG_438M,
+        SERVE_NEW_TOKENS,
+        SERVE_SEGMENT,
+        serving_workload,
     )
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    cfg = LlamaConfig(**CFG_438M)
-    model = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+    model = LlamaForCausalLM(LlamaConfig(**CFG_438M), dtype=torch.bfloat16,
                              generator=seed(0, "cuda"))
-    eng = ContinuousBatchingEngine(model, max_slots=8, max_len=512,
-                                   page_size=128, prompt_buckets=(32, 128))
-    rng = np.random.RandomState(7)
-    warm = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
-            for n in (12, 60)]
-    eng.run(warm, max_new_tokens=2, segment=32)
-    lens = rng.randint(8, 120, 24)
-    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
-               for n in lens]
+    eng, prompts = serving_workload(model)
+    run = dict(max_new_tokens=SERVE_NEW_TOKENS, segment=SERVE_SEGMENT)
     torch.cuda.synchronize()
-    _, stats = eng.run(prompts, max_new_tokens=64, segment=32)
+    _, stats = eng.run(prompts, **run)
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        _, pstats = eng.run(prompts, max_new_tokens=64, segment=32)
+        _, pstats = eng.run(prompts, **run)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     groups, kernels, busy_us = {}, {}, 0.0
@@ -92,7 +83,7 @@ def main():
             groups[g] = groups.get(g, 0.0) + us
             kernels[e.key[:90]] = (us, e.count)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    steps = stats["segments"] * 32
+    steps = stats["segments"] * SERVE_SEGMENT
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
         "tokens_per_sec": stats["tokens_per_sec"], "wall_s": stats["wall_s"],

@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's training step spends its time, on one GPU.
+
+    python3 tools/torch_train_profile.py
+
+Runs chip_smoke.py's training workload (``train_workload``: the 438M
+LLaMA in bf16, random weights from a seed; AdamW(learning_rate=1e-4,
+multi_precision=True) and TrainStep over LlamaPretrainingCriterion; batch
+4 x seq 1536 ids from np.random.RandomState(0)), timed as chip_smoke.py
+times it (``timed_steps``: one warm-up step, then the median of five
+steps timed with CUDA events), then two steps under torch.profiler.
+Prints one JSON object: the step time, the device's busy and idle share
+of the profiled steps, device time per step grouped into the path's seven
+kernels, GEMMs, CE/softmax, the optimizer (every kernel launched inside
+``optimizer.step``), elementwise and the rest, and each of the seven
+kernels' launches per step (the wrappers' counts: the RMSNorm backward is
+two device kernels, the strips' partial sums and their reduction).
+"""
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+PROFILED = 2
+# kernel-name fragment -> the port's kernel; the first match wins. The
+# RoPE kernel's two directions are one template, told apart by its
+# argument as the profiler spells it.
+OURS = (("rms_norm_bwd", "rms_norm_bwd"), ("rms_norm_fwd", "rms_norm"),
+        ("flash_bwd_dkdv", "flash_attention_bwd_dkdv"),
+        ("flash_bwd_dq", "flash_attention_bwd_dq"),
+        ("flash_fwd", "flash_attention"))
+PATH_KERNELS = {label for _, label in OURS} | {"fused_rope",
+                                               "fused_rope_bwd"}
+OPTIMIZER = "optimizer.step"
+
+
+def group_of(name):
+    if "rope_kernel" in name:
+        inverse = any(f"rope_kernel<{t}>" in name
+                      for t in ("true", "(bool)1", "1"))
+        return "fused_rope_bwd" if inverse else "fused_rope"
+    for key, label in OURS:
+        if key in name:
+            return label
+    low = name.lower()
+    if any(k in low for k in ("gemm", "nvjet", "splitkreduce", "xmma",
+                              "cutlass")):
+        return "gemm"
+    if any(k in low for k in ("softmax", "gather", "scatter", "nll")):
+        return "ce/softmax"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy/memset"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    if "reduce" in low:
+        return "reduce"
+    return "other"
+
+
+def kernels_under(evt):
+    """(name, device us) of every kernel launched by ``evt``'s CPU ops."""
+    out = [(k.name, float(k.duration)) for k in evt.kernels]
+    for child in evt.cpu_children:
+        out.extend(kernels_under(child))
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import timed_steps, train_workload
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    _, opt, step, ids = train_workload()
+    batch, seqlen = ids.shape
+    step_fn = opt.step
+
+    def traced_step():
+        with torch.profiler.record_function(OPTIMIZER):
+            step_fn()
+
+    opt.step = traced_step
+    step(ids, labels=ids)
+    torch.cuda.synchronize()
+    step_ms = float(np.median(timed_steps(step, ids)[1]))
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    launch_counts.clear()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED):
+            step(ids, labels=ids)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    launches = {k: launch_counts[k] / PROFILED for k in sorted(PATH_KERNELS)}
+    groups, kernels, busy_us = {}, {}, 0.0
+    for e in prof.key_averages():
+        # the optimizer's range also shows as a device-side annotation
+        if (str(getattr(e, "device_type", "")).endswith("CUDA")
+                and e.key != OPTIMIZER):
+            us = float(getattr(e, "self_device_time_total", 0.0))
+            busy_us += us
+            g = group_of(e.key)
+            groups[g] = groups.get(g, 0.0) + us
+            kernels[e.key[:90]] = (us, e.count)
+    # kernels launched inside optimizer.step leave their name groups for
+    # the optimizer's own
+    for e in prof.events():
+        if e.name == OPTIMIZER:
+            for name, us in kernels_under(e):
+                groups[group_of(name)] -= us
+                groups["optimizer"] = groups.get("optimizer", 0.0) + us
+    per_step_ms = {k: v / 1e3 / PROFILED
+                   for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(0),
+        "batch": batch, "seq": seqlen,
+        "step_ms": step_ms,
+        "tokens_per_sec": batch * seqlen / (step_ms / 1e3),
+        "profiled_steps": PROFILED,
+        "profiled_wall_ms_per_step": 1e3 * prof_wall / PROFILED,
+        "device_busy_ms_per_step": busy_us / 1e3 / PROFILED,
+        "device_busy_share": busy_us / 1e6 / prof_wall,
+        "device_idle_share": 1.0 - busy_us / 1e6 / prof_wall,
+        "device_ms_per_step_by_group": per_step_ms,
+        "launches_per_step": launches,
+        "top_kernels": [
+            {"kernel": k, "ms_per_step": us / 1e3 / PROFILED,
+             "launches_per_step": n / PROFILED}
+            for k, (us, n) in sorted(kernels.items(),
+                                     key=lambda kv: -kv[1][0])[:15]],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
