@@ -9,23 +9,34 @@ so that a fault surfaces in the phase that caused it:
 1. env      torch, CUDA and nvcc versions; the card's name and power limit.
 2. build    the kernel library from ``paddle_tpu_torch/csrc`` (nvcc, sm_90a).
 3. kernel   each kernel against its plain PyTorch version on the card, in
-            bf16: the serving kernels at the serving path's shapes, the
-            training path's backward kernels and the forward kernels at
-            the training shape, (4, 1536) tokens of the 438M model, plus a
-            GQA case for flash dK/dV. Max abs error within the stated
-            tolerance, device time per call (a CUDA graph of many calls,
-            so host launch cost is excluded), the plain version's and a
-            PyTorch library call's time, and the bound (the larger of
-            bytes over the memory rate and flops over the bf16 peak).
+            bf16: the serving kernels at the serving path's shapes (the
+            decode megakernel at the engine's pool layout, plus a GQA
+            case), the training path's backward kernels and the forward
+            kernels at the training shape, (4, 1536) tokens of the 438M
+            model, plus a GQA case for flash dK/dV. Max abs error within
+            the stated tolerance, device time per call (a CUDA graph of
+            many calls, so host launch cost is excluded), the plain
+            version's and a PyTorch library call's time, and the bound
+            (the larger of bytes over the memory rate and flops over the
+            bf16 peak); for the megakernel also the time of the port's
+            own unfused layer half.
 4. model    the 438M LLaMA (random N(0, 0.02) weights from a seed) in bf16
             on the card against the same weights in f32 on the CPU through
             the plain versions: one bucket-128 prefill of 2 prompts and 4
-            decode steps, logits within a stated relative L2 error.
+            decode steps, logits within a stated relative L2 error; the
+            same decode steps again through the fused decode layers
+            (per-slot depths, ``megakernel_scope(True)``), within the same
+            error of the CPU run.
 5. serving  the continuous-batching engine on that model: 8 slots, max_len
             512, page 128, buckets (32, 128), 24 requests of 8-119 prompt
             tokens from np.random.RandomState(7), 64 new tokens each,
-            greedy, segments of 32. Launch counts are zeroed just before
-            this run and read just after it; every kernel must have run.
+            greedy, segments of 32; in two arms on the same model and
+            prompts, unfused (``decode_megakernel=0``) and fused (the
+            default). Launch counts are zeroed just before each arm's run
+            and read just after it: the unfused arm must launch the four
+            forward kernels, the fused arm the megakernel 12 times per
+            decode step and paged decode never. Both arms' tokens/s and
+            how far their greedy streams agree are printed, not gated.
 6. grad     a 2-layer model at the 438M widths, bf16 on the card against
             f32 on the CPU, batch 1 x seq 256 through
             LlamaPretrainingCriterion: the loss and every parameter's
@@ -38,9 +49,10 @@ so that a fault surfaces in the phase that caused it:
             memory, losses (finite, falling, the first near ln 32000), and
             the launches of the path's seven kernels in one step, zeroed
             just before it and read just after.
-8. kernels  one JSON line listing every ported kernel, with the serving
-            path's launches for the serving kernels and the training
-            step's for the backward kernels.
+8. kernels  one JSON line listing every ported kernel, with the unfused
+            serving arm's launches for the serving kernels, the fused
+            arm's for the megakernel and the training step's for the
+            backward kernels.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
@@ -290,10 +302,151 @@ def kernel_phase(peaks):
     return results
 
 
+# pre-append depths of the megakernel cases: a fresh page (1), page
+# boundaries (127, 128, 255, 256) and near-full (510 of 512)
+MK_LENGTHS = [1, 17, 127, 128, 200, 255, 256, 510]
+
+
+def megakernel_layer(kvh, gen):
+    """A decoder layer at the 438M widths with ``kvh`` kv heads, drawn by
+    the model's initialiser (weights N(0, 0.02), norm scales 1)."""
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models.llama import LlamaDecoderLayer
+
+    cfg = LlamaConfig(**{**CFG_438M, "num_key_value_heads": kvh})
+    return LlamaDecoderLayer(cfg, generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+
+
+def megakernel_case(peaks, kvh, gen, randn):
+    """The decode megakernel against its plain version at the e2 decode
+    shape: 8 rows over the engine's pool layout (max_len 512, page 128:
+    32 real pages and the dump page; tables of 4 visible columns and a
+    trailing scratch column, tails on the dump page), depths MK_LENGTHS.
+    x is layer 0's input, an embedding row (N(0, 0.02)); weights
+    N(0, 0.02); norm scales random powers of two (0.5, 1, 2), exact in
+    bf16, so that a scale adds no rounding of its own.
+
+    h_mid and both pools (the dump page left out) are held against the
+    plain version; y2 against the plain norm of the kernel's own h_mid.
+    h_mid = bf16(x + bf16(o)) already admits a one-ulp difference (f32
+    sums in other orders round o either way), and y2 renormalises h_mid,
+    so held against the plain y2 that one ulp would count twice; the
+    plain y2's difference is reported. Times the kernel, its plain
+    version and the port's own unfused layer half (rms_norm kernel,
+    GEMMs, RoPE kernel, cache write, paged decode kernel, o_proj,
+    residual, rms_norm kernel) on the same inputs."""
+    from paddle_tpu_torch.models.generation import _make_paged_cache
+    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
+
+    layer = megakernel_layer(kvh, gen)
+    attn = layer.self_attn
+    cfg = attn.config
+    with torch.no_grad():
+        for ln in (layer.input_layernorm, layer.post_attention_layernorm):
+            ln.weight.copy_(2.0 ** torch.randint(
+                -1, 2, ln.weight.shape, generator=gen, device="cuda"))
+    b, page, per_seq = 8, 128, 4
+    hidden, heads, hd = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+    n_pages = b * per_seq + 1
+    dump = n_pages - 1
+    perm = np.random.RandomState(0).permutation(b * per_seq)
+    tables = np.full((b, per_seq + 1), dump, np.int32)
+    used = 0
+    for i, n in enumerate(MK_LENGTHS):
+        np_ = -(-(n + 1) // page)  # the pages after the append
+        tables[i, :np_] = perm[used:used + np_]
+        used += np_
+    tab = torch.tensor(tables, device="cuda")
+    lens = torch.tensor(MK_LENGTHS, dtype=torch.int32, device="cuda")
+    x = randn(b, 1, hidden, std=0.02)
+    kp, vp = randn(n_pages, page, kvh, hd), randn(n_pages, page, kvh, hd)
+    eps = cfg.rms_norm_eps
+    args = dict(ln1_weight=layer.input_layernorm.weight, ln1_eps=eps,
+                wq=attn.q_proj.weight, wk=attn.k_proj.weight,
+                wv=attn.v_proj.weight, wo=attn.o_proj.weight,
+                rope_cos=attn.rope_cos, rope_sin=attn.rope_sin,
+                ln2_weight=layer.post_attention_layernorm.weight,
+                ln2_eps=eps, tables=tab, lengths=lens, heads=heads,
+                attn_pages=per_seq, dump_page=dump)
+    kk, kv_ = kp.clone(), vp.clone()
+    pk, pv = kp.clone(), vp.clone()
+    with torch.no_grad():
+        got = mk.fused_decode_layer(x, k_pages=kk, v_pages=kv_, **args)
+        want = mk.fused_decode_layer_plain(x, k_pages=pk, v_pages=pv, **args)
+        y2_own = mk.decode_norm_plain(got[0], args["ln2_weight"], eps)
+    tag = f"fused_decode_layer(kvh={kvh})"
+    err = max(compare(f"{tag} h_mid", got[0], want[0]),
+              compare(f"{tag} y2", got[1], y2_own),
+              compare(f"{tag} k_pages", kk[:dump], pk[:dump]),
+              compare(f"{tag} v_pages", kv_[:dump], pv[:dump]))
+    torch.cuda.synchronize()
+
+    def unfused():
+        cache = _make_paged_cache(kp, vp, tab, page, lens, per_seq, dump)
+        h = x + attn(layer.input_layernorm(x), cache=cache)
+        return h, layer.post_attention_layernorm(h)
+
+    with torch.no_grad():
+        uh, uy = unfused()
+    w_bytes = sum(w.numel() * 2 for w in (attn.q_proj.weight,
+                                          attn.k_proj.weight,
+                                          attn.v_proj.weight,
+                                          attn.o_proj.weight))
+    toks = sum(min(n, per_seq * page) for n in MK_LENGTHS)  # pool rows read
+    nb = (w_bytes + 2 * hidden * 2 + 3 * b * hidden * 2
+          + 2 * (toks + b) * kvh * hd * 2 + 2 * b * hd * 4
+          + tab.numel() * 4 + b * 4)
+    flops = (2 * b * hidden * (heads + 2 * kvh) * hd
+             + 2 * b * heads * hd * hidden
+             + 4 * (toks + b) * heads * hd)
+    bms, by = bound_ms(nb, flops, peaks)
+    with torch.no_grad():
+        rec = dict(
+            case=f"e2 decode, kv heads {kvh}", shape=[b, hidden],
+            lengths=MK_LENGTHS, max_abs_err=err,
+            y2_vs_plain_max_abs=float((got[1].float()
+                                       - want[1].float()).abs().max()),
+            h_mid_elements_differing=int((got[0] != want[0]).sum()),
+            unfused_vs_fused_h_mid_max_abs=float(
+                (uh.float() - got[0].float()).abs().max()),
+            ms=graph_ms(lambda: mk.fused_decode_layer(
+                x, k_pages=kk, v_pages=kv_, **args)),
+            plain_ms=graph_ms(lambda: mk.fused_decode_layer_plain(
+                x, k_pages=pk, v_pages=pv, **args), calls=5),
+            library_ms=None, unfused_ms=graph_ms(unfused),
+            eager_ms=eager_ms(lambda: mk.fused_decode_layer(
+                x, k_pages=kk, v_pages=kv_, **args)),
+            eager_unfused_ms=eager_ms(unfused),
+            bound_ms=bms, bound_by=by, bound_bytes=nb, bound_flops=flops)
+    emit("kernel", name="fused_decode_layer", **rec)
+    torch.cuda.synchronize()
+    return rec
+
+
+def megakernel_phase(peaks):
+    """The decode megakernel at the 438M serving decode (12 kv heads) and
+    on a GQA case (4 kv heads, 3 query heads each), which the 438M model
+    does not exercise."""
+    from paddle_tpu_torch import seed
+
+    gen = seed(4, "cuda")
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * std).to(torch.bfloat16)
+
+    rec = megakernel_case(peaks, 12, gen, randn)
+    megakernel_case(peaks, 4, gen, randn)
+    return {"fused_decode_layer": rec}
+
+
 def model_phase():
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.models.llama import PagedKVCache
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.decode_megakernel import megakernel_scope
 
     cfg = LlamaConfig(**CFG_438M)
     card = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
@@ -306,7 +459,9 @@ def model_phase():
     prompts = rng.randint(0, cfg.vocab_size, (2, 128))
     steps = rng.randint(0, cfg.vocab_size, (4, 2))
 
-    def run(model):
+    def run(model, fused=False):
+        """Prefill, then the decode steps; ``fused`` gives the caches
+        per-slot (B,) depths and decodes under megakernel_scope(True)."""
         caches = [PagedKVCache(2, 256, cfg.num_key_value_heads, cfg.head_dim,
                                page_size=128, device=model.device,
                                dtype=model.dtype)
@@ -314,10 +469,15 @@ def model_phase():
         with torch.no_grad():
             outs = [model(torch.tensor(prompts, device=model.device),
                           caches=caches)[:, -1].float().cpu()]
-            for tok in steps:
-                outs.append(model(torch.tensor(tok[:, None],
-                                               device=model.device),
-                                  caches=caches)[:, -1].float().cpu())
+            if fused:
+                for c in caches:
+                    c.length = torch.full((2,), c.length, dtype=torch.int32,
+                                          device=model.device)
+            with megakernel_scope(fused):
+                for tok in steps:
+                    outs.append(model(torch.tensor(tok[:, None],
+                                                   device=model.device),
+                                      caches=caches)[:, -1].float().cpu())
         return outs
 
     t0 = time.monotonic()
@@ -326,10 +486,29 @@ def model_phase():
     agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
              for a, b in zip(got, want)]
     finite = all(bool(torch.isfinite(a).all()) for a in got)
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    fused = run(card, fused=True)[1:]
+    torch.cuda.synchronize()
+    fused_launches = launch_counts["fused_decode_layer"]
+    fused_rel = [float((a - b).norm() / b.norm())
+                 for a, b in zip(fused, want[1:])]
+    fused_finite = all(bool(torch.isfinite(a).all()) for a in fused)
     emit("model", rel_l2=rel, tolerance=MODEL_REL_L2, argmax_agree=agree,
+         fused_decode_rel_l2=fused_rel,
+         fused_decode_argmax_agree=[
+             float((a.argmax(-1) == b.argmax(-1)).float().mean())
+             for a, b in zip(fused, want[1:])],
+         fused_decode_launches=fused_launches,
          seconds=time.monotonic() - t0)
     if not finite or max(rel) > MODEL_REL_L2:
         raise PhaseFailed(f"438M logits: finite={finite}, rel L2 {rel}")
+    want_launches = len(steps) * cfg.num_hidden_layers
+    if (not fused_finite or max(fused_rel) > MODEL_REL_L2
+            or fused_launches != want_launches):
+        raise PhaseFailed(f"438M fused decode logits: finite={fused_finite},"
+                          f" rel L2 {fused_rel}, {fused_launches} launches "
+                          f"of fused_decode_layer (want {want_launches})")
     del cpu
     return card
 
@@ -337,9 +516,10 @@ def model_phase():
 SERVE_NEW_TOKENS, SERVE_SEGMENT = 64, 32
 
 
-def serving_workload(model):
+def serving_workload(model, decode_megakernel=1):
     """The e2 serving run on ``model``: the engine (8 slots, max_len 512,
-    page 128, buckets (32, 128)), warmed on two requests, and the 24
+    page 128, buckets (32, 128); ``decode_megakernel`` 1 takes the fused
+    decode layers, 0 the unfused ones), warmed on two requests, and the 24
     prompts of 8-119 tokens from np.random.RandomState(7). Returns
     (engine, prompts); run them with ``engine.run(prompts,
     max_new_tokens=SERVE_NEW_TOKENS, segment=SERVE_SEGMENT)``."""
@@ -347,7 +527,8 @@ def serving_workload(model):
 
     vocab = model.config.vocab_size
     eng = ContinuousBatchingEngine(model, max_slots=8, max_len=512,
-                                   page_size=128, prompt_buckets=(32, 128))
+                                   page_size=128, prompt_buckets=(32, 128),
+                                   decode_megakernel=decode_megakernel)
     rng = np.random.RandomState(7)
     warm = [rng.randint(0, vocab, (n,)).astype(np.int32) for n in (12, 60)]
     eng.run(warm, max_new_tokens=2, segment=SERVE_SEGMENT)
@@ -356,11 +537,18 @@ def serving_workload(model):
                  for n in lens]
 
 
-def serving_phase(model, name, smi):
+SERVE_UNFUSED_KERNELS = ("rms_norm", "fused_rope", "flash_attention",
+                         "paged_attention")
+
+
+def serving_arm(model, fused, name, smi):
+    """One arm of the e2 run; launch counts zeroed just before the run and
+    read just after it. Returns (prompts, outputs, stats, counts)."""
     from paddle_tpu_torch.ops.cuda import launch_counts
 
+    arm = "fused" if fused else "unfused"
     vocab = model.config.vocab_size
-    eng, prompts = serving_workload(model)
+    eng, prompts = serving_workload(model, decode_megakernel=int(fused))
     torch.cuda.synchronize()
     launch_counts.clear()
     outs, stats = eng.run(prompts, max_new_tokens=SERVE_NEW_TOKENS,
@@ -370,16 +558,58 @@ def serving_phase(model, name, smi):
     ok = all(len(o) == SERVE_NEW_TOKENS and o.min() >= 0 and o.max() < vocab
              for o in outs)
     finite = all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
-    emit("serving", requests=len(outs), new_tokens=SERVE_NEW_TOKENS,
+    steps = stats["segments"] * SERVE_SEGMENT
+    emit("serving", arm=arm, megakernel=stats["megakernel"],
+         requests=len(outs), new_tokens=SERVE_NEW_TOKENS,
          tokens_per_sec=stats["tokens_per_sec"], wall_s=stats["wall_s"],
          useful_tokens=stats["useful_tokens"], segments=stats["segments"],
-         mean_occupancy=stats["mean_occupancy"], launches=counts,
-         kv_finite=finite, card=name, nvidia_smi=smi)
-    if (not ok or not finite
+         decode_steps=steps, mean_occupancy=stats["mean_occupancy"],
+         launches=counts, kv_finite=finite, card=name, nvidia_smi=smi)
+    if (not ok or not finite or stats["megakernel"] != fused
             or stats["useful_tokens"] != len(prompts) * SERVE_NEW_TOKENS):
-        raise PhaseFailed(f"serving: outputs ok={ok}, kv finite={finite}, "
+        raise PhaseFailed(f"serving ({arm}): outputs ok={ok}, kv finite="
+                          f"{finite}, megakernel {stats['megakernel']}, "
                           f"tokens {stats['useful_tokens']}")
-    return counts
+    layers = model.config.num_hidden_layers
+    if fused:
+        if (counts.get("fused_decode_layer", 0) != layers * steps
+                or counts.get("paged_attention", 0)):
+            raise PhaseFailed(f"serving (fused): launches {counts}, want "
+                              f"fused_decode_layer {layers} x {steps} and no "
+                              f"paged_attention")
+    else:
+        missing = [k for k in SERVE_UNFUSED_KERNELS if counts.get(k, 0) <= 0]
+        if missing or counts.get("fused_decode_layer", 0):
+            raise PhaseFailed(f"serving (unfused): launches {counts}")
+    return prompts, outs, stats, counts
+
+
+def serving_phase(model, name, smi):
+    """The e2 run in two arms on the same model and prompts: unfused, then
+    fused. Where two greedy streams part, the top-2 logit gap of a full
+    forward over the prompt and the common prefix says how near a tie the
+    choice was (printed beside the logits' scale, not gated). Returns each
+    arm's launch counts."""
+    prompts, u_outs, u_stats, u_counts = serving_arm(model, False, name, smi)
+    _, f_outs, f_stats, f_counts = serving_arm(model, True, name, smi)
+    parts = [next((i for i, (a, b) in enumerate(zip(u, f)) if a != b), None)
+             for u, f in zip(u_outs, f_outs)]
+    gaps, scales = [], []
+    with torch.no_grad():
+        for prompt, u, p in zip(prompts, u_outs, parts):
+            if p is None:
+                continue
+            seq = np.concatenate([prompt, u[:p]]).astype(np.int64)
+            logits = model(torch.tensor(seq[None], device="cuda"))[0, -1]
+            top2 = torch.topk(logits.float(), 2).values
+            gaps.append(float(top2[0] - top2[1]))
+            scales.append(float(logits.float().std()))
+    emit("serving_arms", unfused_tokens_per_sec=u_stats["tokens_per_sec"],
+         fused_tokens_per_sec=f_stats["tokens_per_sec"],
+         streams_agree=sum(p is None for p in parts) / len(parts),
+         first_index_where_streams_part=parts,
+         top2_gap_where_streams_part=gaps, logit_std_there=scales)
+    return {"serving": u_counts, "serving_fused": f_counts}
 
 
 def train_kernel_phase(peaks):
@@ -517,19 +747,20 @@ def train_kernel_phase(peaks):
                 "flash_attention_bwd_dq": compare(f"dq ({case})", got_dq,
                                                   want_dq)}
         io = (q.numel() + 2 * k.numel() + do.numel()) * 2 + 2 * lse.numel() * 4
-        if case == "train":  # one library time for the dK/dV + dQ pair
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
-                              for t in (q, k, v))
-                ol = torch.nn.functional.scaled_dot_product_attention(
-                    ql, kl, vl, is_causal=True)
-            dol = do.transpose(1, 2)
-            lib = graph_ms(lambda: torch.autograd.grad(
-                ol, (ql, kl, vl), dol, retain_graph=True), calls=3,
-                replays=3, stream=side)
-            plain = graph_ms(lambda: fa.flash_attention_bwd_plain(
-                q, k, v, out, lse, do, True), calls=3, replays=3)
+        # one library time for the dK/dV + dQ pair (GQA through
+        # enable_gqa), its backward captured on its forward's stream
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            ol = torch.nn.functional.scaled_dot_product_attention(
+                ql, kl, vl, is_causal=True, enable_gqa=kvh != heads)
+        dol = do.transpose(1, 2)
+        lib = graph_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), dol, retain_graph=True), calls=3,
+            replays=3, stream=side)
+        plain = graph_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, out, lse, do, True), calls=3, replays=3)
         kernels = {
             "flash_attention_bwd_dkdv": (
                 lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta),
@@ -543,9 +774,8 @@ def train_kernel_phase(peaks):
                        max_abs_err=errs[kname],
                        ms=graph_ms(fn, calls=3, replays=3),
                        eager_ms=eager_ms(fn, calls=5), bound_ms=bms,
-                       bound_by=by)
+                       bound_by=by, plain_ms=plain, library_ms=lib)
             if case == "train":
-                rec.update(plain_ms=plain, library_ms=lib)
                 results[kname] = rec
             emit("kernel", name=kname, **rec)
         torch.cuda.synchronize()
@@ -713,6 +943,8 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
      "paddle_tpu/ops/pallas/flash_attention.py:181", "train"),
     ("flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/pallas/flash_attention.py:245", "train"),
+    ("fused_decode_layer", "paddle_tpu_torch/csrc/decode_megakernel.cu",
+     "paddle_tpu/ops/pallas/decode_megakernel.py:189", "serving_fused"),
 ]
 
 
@@ -745,10 +977,11 @@ def main():
     torch.cuda.synchronize()
 
     results = kernel_phase(peaks)
+    results.update(megakernel_phase(peaks))
     results.update(train_kernel_phase(peaks))
     model = model_phase()
     torch.cuda.synchronize()
-    counts = {"serving": serving_phase(model, name, smi)}
+    counts = serving_phase(model, name, smi)
     del model
     torch.cuda.empty_cache()
     grad_phase()

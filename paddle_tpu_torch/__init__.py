@@ -4,12 +4,14 @@ Hopper (H100).
 The JAX package ``paddle_tpu`` stays the reference; this package imports
 neither it nor JAX. Its slices so far: serving, the LLaMA model
 (``models.llama``) behind a continuous-batching engine over a paged KV
-pool (``models.serving``); and training, the model's ``labels=`` loss and
-``LlamaPretrainingCriterion``, ``optimizer.AdamW`` with f32 master
-weights, and ``jit.TrainStep``. Eight hand-written kernels under
+pool (``models.serving``), whose decode steps run each decoder layer's
+attention half as one fused kernel; and training, the model's ``labels=``
+loss and ``LlamaPretrainingCriterion``, ``optimizer.AdamW`` with f32
+master weights, and ``jit.TrainStep``. Nine hand-written kernels under
 ``ops/cuda`` carry them: RMSNorm forward and backward, RoPE and its
-adjoint, flash attention forward, dK/dV and dQ, and paged decode
-attention. Entry points run on the GPU unless given ``device="cpu"``.
+adjoint, flash attention forward, dK/dV and dQ, paged decode attention,
+and the decode megakernel. Entry points run on the GPU unless given
+``device="cpu"``.
 """
 from . import jit, optimizer
 from .core.place import resolve_device, seed

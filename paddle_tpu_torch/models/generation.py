@@ -2,7 +2,7 @@
 prefill-then-decode loop.
 
 Counterpart of ``paddle_tpu/models/generation.py`` (``_sample_rows`` :50,
-``_make_paged_cache`` :72, ``generate`` :298 with ``cache="paged"`` and
+``_make_paged_cache`` :72-88, ``generate`` :298 with ``cache="paged"`` and
 ``use_jit=False``). Sampling draws each row from its own seed, so a row's
 tokens never depend on what it was batched with; the seeds come from a
 counter-based hash of (seed, stream id, token index). The draws are
@@ -66,13 +66,14 @@ def _sample_rows(logits, seeds, temperature, top_k, top_p, greedy):
 
 
 def _make_paged_cache(k_pages, v_pages, tables, page_size, length,
-                      attn_pages=None):
+                      attn_pages=None, dump_page=None):
     """A :class:`~.llama.PagedKVCache` view over existing pools."""
     from .llama import PagedKVCache
 
     c = PagedKVCache.__new__(PagedKVCache)
     c.k_pages, c.v_pages, c.tables = k_pages, v_pages, tables
     c.page_size, c.length, c.attn_pages = page_size, length, attn_pages
+    c.dump_page = dump_page
     return c
 
 

@@ -5,7 +5,11 @@ Counterpart of ``paddle_tpu/models/llama.py``: ``LlamaConfig``,
 ``_rope_tables`` :319, ``PagedKVCache`` :137, ``cached_attention`` :251,
 ``LlamaAttention``, ``LlamaMLP``, ``LlamaDecoderLayer``, ``LlamaModel``,
 ``LlamaForCausalLM`` (with the ``labels=`` loss, :578-592),
-``causal_lm_loss`` :525 and ``LlamaPretrainingCriterion`` :603. Parameter
+``causal_lm_loss`` :525 and ``LlamaPretrainingCriterion`` :603. Inside
+``megakernel_scope(True)`` (the serving engine's decode steps) a decode
+layer over a paged cache with per-sequence depths runs its attention half
+as one fused kernel launch (``ops/cuda/decode_megakernel.py``; JAX
+``LlamaDecoderLayer._fused_decode_forward`` :457). Parameter
 names match the JAX model's, so ``models.convert`` loads its
 ``raw_state()`` by name. Activations are (batch, seq, hidden); attention
 runs in (B, S, H, D). Per-layer recompute (``use_recompute``) and the
@@ -27,6 +31,11 @@ from torch import nn
 from ..core.place import resolve_device, seed
 from ..nn.layers import Embedding, Linear, RMSNorm
 from ..ops.cuda.decode_attention import paged_attention
+from ..ops.cuda.decode_megakernel import (
+    fused_decode_layer,
+    megakernel_enabled,
+    megakernel_supported,
+)
 from ..ops.fused_ce import fused_linear_cross_entropy
 from ..ops.nn_kernels import (
     rotary_position_embedding,
@@ -74,10 +83,12 @@ class PagedKVCache:
     ``length`` is an int (every sequence at the same depth) or a (B,)
     int32 tensor of per-sequence depths (continuous batching).
     ``attn_pages`` caps the table columns attention reads (the engine's
-    tables carry write-scratch columns past ``max_len``)."""
+    tables carry write-scratch columns past ``max_len``). ``dump_page`` is
+    the engine's sacrificial page id, handed to the fused decode layer for
+    parity with the JAX cache (it changes nothing in the port)."""
 
     __slots__ = ("k_pages", "v_pages", "tables", "page_size", "length",
-                 "attn_pages")
+                 "attn_pages", "dump_page")
 
     def __init__(self, batch, max_len, kv_heads, head_dim, page_size=128, *,
                  device, dtype):
@@ -95,6 +106,7 @@ class PagedKVCache:
         self.page_size = page_size
         self.length = 0
         self.attn_pages = None
+        self.dump_page = None
 
     def update(self, k_new, v_new):
         """Write (B, S, KVH, D) keys/values at positions
@@ -227,10 +239,43 @@ class LlamaDecoderLayer(nn.Module):
             dtype=dtype)
 
     def forward(self, hidden_states, cache=None):
+        if cache is not None and self._megakernel_step(hidden_states, cache):
+            return self._fused_decode_forward(hidden_states, cache)
         hidden_states = hidden_states + self.self_attn(
             self.input_layernorm(hidden_states), cache=cache)
         return hidden_states + self.mlp(
             self.post_attention_layernorm(hidden_states))
+
+    def _megakernel_step(self, hidden_states, cache):
+        """True when this call is a decode step the fused kernel takes: one
+        token over a paged cache with per-sequence depths, inside
+        ``megakernel_scope(True)``, on a supported layer."""
+        if not isinstance(cache, PagedKVCache) or hidden_states.shape[1] != 1:
+            return False
+        return megakernel_enabled() and megakernel_supported(self, cache)
+
+    def _fused_decode_forward(self, hidden_states, cache):
+        """One fused decode step: the attention half (ln1 -> qkv -> RoPE ->
+        paged append -> paged attention -> o_proj -> residual -> ln2) is one
+        kernel launch that writes the new k/v rows into the pools; the MLP
+        half runs on its ``y2``. The cache's length advances by one, as
+        ``cache.update`` advances it."""
+        attn = self.self_attn
+        h_mid, y2 = fused_decode_layer(
+            hidden_states,
+            ln1_weight=self.input_layernorm.weight,
+            ln1_eps=self.input_layernorm.epsilon,
+            wq=attn.q_proj.weight, wk=attn.k_proj.weight,
+            wv=attn.v_proj.weight, wo=attn.o_proj.weight,
+            rope_cos=attn.rope_cos, rope_sin=attn.rope_sin,
+            ln2_weight=self.post_attention_layernorm.weight,
+            ln2_eps=self.post_attention_layernorm.epsilon,
+            k_pages=cache.k_pages, v_pages=cache.v_pages,
+            tables=cache.tables, lengths=cache.length.to(torch.int32),
+            heads=attn.config.num_attention_heads,
+            attn_pages=cache.attn_pages, dump_page=cache.dump_page)
+        cache.length = cache.length + 1
+        return h_mid + self.mlp(y2)
 
 
 class LlamaModel(nn.Module):

@@ -21,7 +21,13 @@ step, and keeps the same semantics:
   frozen slots re-emit their token and do not advance, a slot deactivates
   at its length budget and at EOS, idle slots sit at length 1 on dump-page
   rows;
-* pages grow lazily, page by page, before each segment.
+* pages grow lazily, page by page, before each segment;
+* the fused decode path is decided once, at construction: with
+  ``decode_megakernel=1`` (the JAX ``FLAGS_decode_megakernel`` default)
+  and a model that passes ``megakernel_model_supported``, every decode
+  step runs each layer's attention half as one fused kernel launch
+  (``ops/cuda/decode_megakernel.py``); ``decode_megakernel=0`` keeps the
+  unfused layers. On the CPU the fused path runs the fused plain version.
 
 Sampling draws from per-request streams (:func:`.generation.stream_seed`
 of engine seed, request id and token index), so a request's tokens do not
@@ -39,6 +45,10 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..ops.cuda.decode_megakernel import (
+    megakernel_model_supported,
+    megakernel_scope,
+)
 from .generation import _make_paged_cache, _sample_rows, stream_seed
 from .kv_pool import PagePool
 
@@ -81,12 +91,22 @@ class ContinuousBatchingEngine:
 
         eng = ContinuousBatchingEngine(model, max_slots=8, max_len=512)
         outs, stats = eng.run(prompts, max_new_tokens=64, segment=32)
+
+    ``decode_megakernel``: 0 keeps the unfused decode layers; 1 (auto)
+    takes the fused decode kernel when the model passes the probe.
+    ``stats()["megakernel"]`` reports the decision.
     """
+
+    # The fused decode kernel adds the residual and the post-attention norm
+    # right after o_proj. A subclass whose o_proj output is a partial sum
+    # (a tensor-parallel shard needs a reduction before the residual) must
+    # opt out.
+    _megakernel_ok = True
 
     def __init__(self, model, max_slots, max_len, page_size=128,
                  do_sample=False, temperature=1.0, top_k=None, top_p=None,
                  eos_token_id=None, prompt_buckets=(16, 32, 64, 128),
-                 seed=0):
+                 seed=0, decode_megakernel=1):
         model.eval()
         cfg = model.config
         self.model = model
@@ -128,6 +148,9 @@ class ContinuousBatchingEngine:
         self._tables_np[self.max_slots] = n_real + np.minimum(
             np.arange(total_cols, dtype=np.int32), scratch_np - 1)
         self._tables_dev = None
+        self._megakernel = (int(decode_megakernel) > 0
+                            and type(self)._megakernel_ok
+                            and megakernel_model_supported(model))
         self.start()
 
     # --------------------------------------------------- page-table state
@@ -157,7 +180,8 @@ class ContinuousBatchingEngine:
     def _caches(self, tables, length):
         return [_make_paged_cache(self._ks[i], self._vs[i], tables,
                                   self.page_size, length,
-                                  attn_pages=self._cols)
+                                  attn_pages=self._cols,
+                                  dump_page=self._dump_page)
                 for i in range(self._nl)]
 
     def _group_width(self, n):
@@ -277,8 +301,9 @@ class ContinuousBatchingEngine:
             rows[i] = slot
         dev = self.device
         tables = torch.tensor(self._tables_np[rows], device=dev)
-        logits = self.model(torch.tensor(padded, device=dev),
-                            caches=self._caches(tables, 0))
+        with megakernel_scope(False):
+            logits = self.model(torch.tensor(padded, device=dev),
+                                caches=self._caches(tables, 0))
         n = len(group)
         last = logits[torch.arange(n, device=dev),
                       torch.tensor(true_lens[:n] - 1, device=dev)]
@@ -297,20 +322,21 @@ class ContinuousBatchingEngine:
         lengths = torch.tensor(self._lengths, device=dev)
         active = torch.tensor(mask, device=dev)
         emitted, was_active = [], []
-        for i in range(self._segment_len):
-            logits = self.model(tok[:, None],
-                                caches=self._caches(tables, lengths))
-            nxt = self._sample(logits[:, -1], self._slot_req, i)
-            nxt = torch.where(active, nxt, tok)  # frozen slots re-emit
-            new_lengths = torch.where(active, lengths + 1, lengths)
-            # deactivate at the per-slot budget: a slot never advances past
-            # its validated capacity mid-segment
-            new_active = active & (new_lengths < limits)
-            if self.eos_token_id is not None:
-                new_active = new_active & (nxt != self.eos_token_id)
-            emitted.append(nxt)
-            was_active.append(active)
-            tok, lengths, active = nxt, new_lengths, new_active
+        with megakernel_scope(self._megakernel):
+            for i in range(self._segment_len):
+                logits = self.model(tok[:, None],
+                                    caches=self._caches(tables, lengths))
+                nxt = self._sample(logits[:, -1], self._slot_req, i)
+                nxt = torch.where(active, nxt, tok)  # frozen slots re-emit
+                new_lengths = torch.where(active, lengths + 1, lengths)
+                # deactivate at the per-slot budget: a slot never advances
+                # past its validated capacity mid-segment
+                new_active = active & (new_lengths < limits)
+                if self.eos_token_id is not None:
+                    new_active = new_active & (nxt != self.eos_token_id)
+                emitted.append(nxt)
+                was_active.append(active)
+                tok, lengths, active = nxt, new_lengths, new_active
         self._seg_runs += 1
         emitted = torch.stack(emitted).cpu().numpy()
         was_active = torch.stack(was_active).cpu().numpy()
@@ -396,7 +422,8 @@ class ContinuousBatchingEngine:
 
     def stats(self):
         """Session stats; ``tokens_per_sec`` is useful tokens over the
-        session's wall time (0.0 for an empty session)."""
+        session's wall time (0.0 for an empty session); ``megakernel``
+        says whether decode steps take the fused kernel."""
         dt = time.monotonic() - self._t0
         return {
             "tokens_per_sec": (self._useful / dt
@@ -406,6 +433,7 @@ class ContinuousBatchingEngine:
                                if self._occ_n else 0.0),
             "segments": self._seg_runs,
             "wall_s": dt,
+            "megakernel": self._megakernel,
         }
 
     def run(self, prompts, max_new_tokens, segment=16):

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes off the serving and training paths' (ragged lengths, head_dim 64,
 GQA groups up to 8, causal offsets, empty rows, clamped positions, row
-counts off the RMSNorm backward's strip), the refusals of what the
-kernels do not take, and a tiny model trained on the card.
+counts off the RMSNorm backward's strip; the decode megakernel at a small
+size, at the 438M serving decode and on GQA), the refusals of what the
+kernels do not take, a tiny model served fused and unfused, and a tiny
+model trained on the card.
 
 Every test here needs a GPU and skips without one (the marker ``cuda``).
 They import neither JAX nor ``paddle_tpu``; where JAX is not installed, run
@@ -191,8 +193,8 @@ def test_kernels_refuse_what_they_do_not_take(gen):
 
 def test_tiny_model_on_card_matches_cpu_and_serves(gen):
     """A small LLaMA in bf16 through the kernels agrees with its f32 CPU
-    copy through the plain versions, and the engine serves on the card
-    through all four kernels."""
+    copy through the plain versions, and the unfused engine serves on the
+    card through all four kernels."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import (
         ContinuousBatchingEngine,
@@ -220,10 +222,141 @@ def test_tiny_model_on_card_matches_cpu_and_serves(gen):
     launch_counts.clear()
     outs, _ = ContinuousBatchingEngine(
         card, max_slots=2, max_len=128, page_size=16,
-        prompt_buckets=(16, 64)).run(prompts, max_new_tokens=6, segment=3)
+        prompt_buckets=(16, 64), decode_megakernel=0).run(
+        prompts, max_new_tokens=6, segment=3)
     assert all(launch_counts[k] > 0 for k in (
         "rms_norm", "fused_rope", "flash_attention", "paged_attention"))
     assert all(len(o) == 6 and 0 <= o.min() and o.max() < 256 for o in outs)
+
+
+def _megakernel_args(gen, b, hidden, heads, kvh, d, page, cols, lens):
+    """One layer's inputs: N(0, 0.02) weights, norm scales random powers
+    of two (exact in bf16, so a scale adds no rounding), random pools of
+    b * cols pages plus a dump page, tables with one trailing column,
+    their tails on the dump page; x of layer-0 scale, N(0, 0.02)."""
+    from paddle_tpu_torch.models.llama import _rope_tables
+
+    n_pages = b * cols + 1
+    rng = np.random.RandomState(0)
+    perm, used = rng.permutation(n_pages - 1), 0
+    tables = np.full((b, cols + 1), n_pages - 1, np.int32)
+    for i, n in enumerate(lens):
+        k_ = -(-(n + 1) // page)
+        tables[i, :k_] = perm[used:used + k_]
+        used += k_
+    cos, sin = _rope_tables(d, 1024, 10000.0, "cuda")
+
+    def w(*shape):
+        return (0.02 * torch.randn(shape, generator=gen,
+                                   device="cuda")).bfloat16()
+
+    def scale():
+        return (2.0 ** torch.randint(-1, 2, (hidden,), generator=gen,
+                                     device="cuda")).bfloat16()
+
+    return dict(
+        x=w(b, 1, hidden), ln1_weight=scale(), ln1_eps=1e-6,
+        wq=w(hidden, heads * d), wk=w(hidden, kvh * d),
+        wv=w(hidden, kvh * d), wo=w(heads * d, hidden), rope_cos=cos,
+        rope_sin=sin, ln2_weight=scale(), ln2_eps=1e-6,
+        k_pages=_randn(gen, n_pages, page, kvh, d),
+        v_pages=_randn(gen, n_pages, page, kvh, d),
+        tables=torch.tensor(tables, device="cuda"),
+        lengths=torch.tensor(lens, dtype=torch.int32, device="cuda"),
+        heads=heads, attn_pages=cols, dump_page=n_pages - 1)
+
+
+@pytest.mark.parametrize("b,hidden,heads,kvh,d,page,cols,lens", [
+    (3, 256, 4, 2, 64, 16, 4, [0, 16, 63]),          # small, group 2
+    (8, 1536, 12, 12, 128, 128, 4,                   # the 438M decode
+     [1, 17, 127, 128, 200, 255, 256, 510]),
+    (4, 1536, 12, 4, 128, 128, 4, [5, 128, 300, 511]),  # GQA, group 3
+    (2, 1024, 16, 2, 64, 32, 3, [31, 95]),            # group 8, D = 64
+])
+def test_decode_megakernel(gen, b, hidden, heads, kvh, d, page, cols, lens):
+    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
+
+    args = _megakernel_args(gen, b, hidden, heads, kvh, d, page, cols, lens)
+    plain = dict(args, k_pages=args["k_pages"].clone(),
+                 v_pages=args["v_pages"].clone())
+    got = mk.fused_decode_layer(**args)
+    want = mk.fused_decode_layer_plain(**plain)
+    _close(got[0], want[0])
+    # y2 against the plain norm of the kernel's own h_mid: h_mid may
+    # differ by the one bf16 ulp the tolerance admits, and y2 would carry
+    # it again
+    _close(got[1], mk.decode_norm_plain(got[0], args["ln2_weight"], 1e-6))
+    dump = args["dump_page"]
+    _close(args["k_pages"][:dump], plain["k_pages"][:dump])
+    _close(args["v_pages"][:dump], plain["v_pages"][:dump])
+    # the same bits on a second launch (fixed order, no float atomics)
+    again = mk.fused_decode_layer(**dict(args, k_pages=args["k_pages"].clone(),
+                                         v_pages=args["v_pages"].clone()))
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_decode_megakernel_refuses_what_it_does_not_take(gen):
+    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
+
+    base = _megakernel_args(gen, 2, 256, 4, 2, 64, 16, 2, [3, 9])
+    # head_dim 96
+    a = _megakernel_args(gen, 2, 192, 2, 2, 96, 16, 2, [3, 9])
+    with pytest.raises(ValueError, match="head_dim"):
+        mk.fused_decode_layer(**a)
+    # 16 query heads per kv head
+    a = _megakernel_args(gen, 2, 1024, 16, 1, 64, 16, 2, [3, 9])
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        mk.fused_decode_layer(**a)
+    # f32 activations and weights
+    a = {k: v.float() if isinstance(v, torch.Tensor) and v.is_floating_point()
+         else v for k, v in base.items()}
+    with pytest.raises(TypeError, match="bfloat16"):
+        mk.fused_decode_layer(**a)
+    # non-contiguous weights
+    a = dict(base, wq=base["wq"].T.contiguous().T)
+    with pytest.raises(ValueError, match="contiguous"):
+        mk.fused_decode_layer(**a)
+
+
+def test_tiny_model_serves_fused_and_unfused_on_card(gen):
+    """The engine on the card takes the fused path by default (the
+    megakernel, num_layers launches per decode step, no paged decode)
+    and the unfused one with decode_megakernel=0; both serve every token
+    and keep the pools finite. Their greedy streams may part at near-ties
+    (the two paths round at other points), so they are not compared."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import (
+        ContinuousBatchingEngine,
+        LlamaConfig,
+        LlamaForCausalLM,
+    )
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256)
+    card = LlamaForCausalLM(cfg, generator=seed(0, "cuda"))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 256, (n,)).astype(np.int32)
+               for n in (5, 30, 12, 64, 3)]
+    for mode in (1, 0):
+        eng = ContinuousBatchingEngine(card, max_slots=2, max_len=128,
+                                       page_size=16, prompt_buckets=(16, 64),
+                                       decode_megakernel=mode)
+        launch_counts.clear()
+        outs, stats = eng.run(prompts, max_new_tokens=6, segment=3)
+        torch.cuda.synchronize()
+        assert stats["megakernel"] is bool(mode)
+        assert all(len(o) == 6 and 0 <= o.min() and o.max() < 256
+                   for o in outs)
+        assert all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
+        steps = stats["segments"] * 3
+        if mode:
+            assert launch_counts["fused_decode_layer"] == 2 * steps
+            assert launch_counts["paged_attention"] == 0
+        else:
+            assert launch_counts["fused_decode_layer"] == 0
+            assert launch_counts["paged_attention"] > 0
 
 
 def test_tiny_model_trains_on_card_through_the_backward_kernels(gen):

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's serving time goes, on one GPU.
+"""Where the PyTorch port's serving time goes, on one GPU, fused and
+unfused.
 
     python3 tools/torch_serving_profile.py
 
 Runs chip_smoke.py's serving workload (``serving_workload``: the 438M
-LLaMA in bf16, random weights from a seed; 8 slots, max_len 512, page 128, buckets (32, 128); 24
-requests of 8-119 prompt tokens from np.random.RandomState(7), 64 new
-tokens each, greedy, segments of 32) twice after a warm run: once plain,
-for the wall time and tokens/s, and once under torch.profiler, for the
-device time by kernel. Prints one JSON object: wall and device-busy time,
-the device's idle share of the profiled run, host time per decode step,
-and device time grouped into the port's four kernels, GEMMs and the rest.
+LLaMA in bf16, random weights from a seed; 8 slots, max_len 512, page 128,
+buckets (32, 128); 24 requests of 8-119 prompt tokens from
+np.random.RandomState(7), 64 new tokens each, greedy, segments of 32) in
+two arms on one model: unfused (``decode_megakernel=0``) and fused (each
+decoder layer's attention half one megakernel launch). Each arm runs the
+workload twice after the engine's warm run: once plain, for the wall time
+and tokens/s, and once under torch.profiler, for the device time by
+kernel. Prints one JSON object with, per arm: wall and device time per
+decode step (prefill included, spread over the decode steps), the
+device's idle share of the profiled run, device time grouped into the
+port's kernels, GEMMs and the rest, and kernel launches per decode step.
 """
 from __future__ import annotations
 
@@ -19,14 +24,14 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 OURS = {"rms_norm_fwd_kernel": "rms_norm", "rope_kernel": "fused_rope",
         "flash_fwd_kernel": "flash_attention",
-        "paged_decode_kernel": "paged_attention"}
+        "paged_decode_kernel": "paged_attention",
+        "decode_layer_kernel": "fused_decode_layer"}
 
 
 def group_of(name):
@@ -39,6 +44,8 @@ def group_of(name):
         return "gemm"
     if "index_put" in low or "indexing" in low or "scatter" in low:
         return "kv_write (index_put)"
+    if low.startswith("memcpy") or low.startswith("memset"):
+        return "memcpy/memset"
     if "elementwise" in low or "vectorized" in low:
         return "elementwise"
     if "reduce" in low or "argmax" in low:
@@ -46,22 +53,10 @@ def group_of(name):
     return "other"
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    from chip_smoke import (
-        CFG_438M,
-        SERVE_NEW_TOKENS,
-        SERVE_SEGMENT,
-        serving_workload,
-    )
-    from paddle_tpu_torch import seed
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+def profile_arm(model, fused):
+    from chip_smoke import SERVE_NEW_TOKENS, SERVE_SEGMENT, serving_workload
 
-    model = LlamaForCausalLM(LlamaConfig(**CFG_438M), dtype=torch.bfloat16,
-                             generator=seed(0, "cuda"))
-    eng, prompts = serving_workload(model)
+    eng, prompts = serving_workload(model, decode_megakernel=int(fused))
     run = dict(max_new_tokens=SERVE_NEW_TOKENS, segment=SERVE_SEGMENT)
     torch.cuda.synchronize()
     _, stats = eng.run(prompts, **run)
@@ -74,7 +69,7 @@ def main():
         _, pstats = eng.run(prompts, **run)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    groups, kernels, busy_us = {}, {}, 0.0
+    groups, kernels, busy_us, launches = {}, {}, 0.0, 0
     for e in prof.key_averages():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             us = float(getattr(e, "self_device_time_total", 0.0))
@@ -82,23 +77,46 @@ def main():
             g = group_of(e.key)
             groups[g] = groups.get(g, 0.0) + us
             kernels[e.key[:90]] = (us, e.count)
+            if g != "memcpy/memset":
+                launches += e.count
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     steps = stats["segments"] * SERVE_SEGMENT
-    print(json.dumps({
-        "card": torch.cuda.get_device_name(0),
+    psteps = pstats["segments"] * SERVE_SEGMENT
+    return {
+        "megakernel": stats["megakernel"],
         "tokens_per_sec": stats["tokens_per_sec"], "wall_s": stats["wall_s"],
         "decode_steps": steps,
         "wall_ms_per_decode_step": 1e3 * stats["wall_s"] / steps,
         "profiled_wall_s": prof_wall,
         "profiled_tokens_per_sec": pstats["tokens_per_sec"],
         "device_busy_s": busy_us / 1e6,
+        "device_ms_per_decode_step": busy_us / 1e3 / psteps,
         "device_idle_share": (1.0 - busy_us / 1e6 / prof_wall
                               if busy_us else None),
+        "kernel_launches_per_decode_step": launches / psteps,
+        "fused_decode_layer_share": groups.get("fused_decode_layer", 0.0)
+        / busy_us if busy_us else None,
         "device_s_by_group": {k: v / 1e6 for k, v in sorted(
             groups.items(), key=lambda kv: -kv[1])},
         "top_kernels": [{"kernel": k, "device_s": us / 1e6, "count": n}
                         for k, (us, n) in top],
-    }), flush=True)
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import CFG_438M, smi_line
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    model = LlamaForCausalLM(LlamaConfig(**CFG_438M), dtype=torch.bfloat16,
+                             generator=seed(0, "cuda"))
+    arms = {"unfused": profile_arm(model, False),
+            "fused": profile_arm(model, True)}
+    print(json.dumps({"card": torch.cuda.get_device_name(0),
+                      "nvidia_smi": smi_line(), "arms": arms}), flush=True)
     return 0
 
 
