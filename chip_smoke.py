@@ -19,7 +19,13 @@ so that a fault surfaces in the phase that caused it:
             version's and a PyTorch library call's time, and the bound
             (the larger of bytes over the memory rate and flops over the
             bf16 peak); for the megakernel also the time of the port's
-            own unfused layer half.
+            own unfused layer half. Then the bias-dropout-residual-
+            LayerNorm kernel at BERT-base's (4096, 768) in bf16 (training
+            at rate 0.1 and eval), in f32, at (1024, 1536) and at (37,
+            1000) (mean and rstd also within 1e-5 relative; timed with its
+            inputs out of L2, as its bound assumes), and the flash
+            kernels at BERT-base's attention, (32, 128, 12, 64)
+            non-causal, forward, dK/dV and dQ.
 4. model    the 438M LLaMA (random N(0, 0.02) weights from a seed) in bf16
             on the card against the same weights in f32 on the CPU through
             the plain versions: one bucket-128 prefill of 2 prompts and 4
@@ -49,10 +55,28 @@ so that a fault surfaces in the phase that caused it:
             memory, losses (finite, falling, the first near ln 32000), and
             the launches of the path's seven kernels in one step, zeroed
             just before it and read just after.
-8. kernels  one JSON line listing every ported kernel, with the unfused
+8. incubate FusedBiasDropoutResidualLayerNorm(768, dropout 0.1) in bf16 on
+            (32, 128, 768): three forward and backward passes, which must
+            launch the kernel three times (counts zeroed just before,
+            read just after); y and the five gradients within 1e-2
+            relative L2 of an f32 CPU run at the masks the layer drew.
+9. bert-grad a 2-layer BERT at BERT-base's widths, bf16 on the card
+            against f32 on the CPU, batch 4 x seq 128: MLM logits, the
+            pretraining loss and every gradient within stated tolerances.
+10. bert-train  bench.py section (c2): BERT-base in bf16, AdamW(lr 1e-4,
+            multi_precision), TrainStep over BertPretrainingCriterion,
+            ids, MLM and NSP labels of batch 32 x seq 128 from
+            np.random.RandomState(0), 1 warm-up step and 5 timed steps:
+            step ms, tokens/s, MFU, peak memory, losses (finite, falling,
+            the first near ln 30522 + ln 2, each within 5e-2 relative of
+            the same steps in f32 on the card through the plain versions
+            only), and one step's launches: flash forward, dK/dV and dQ
+            12 each; RMSNorm and RoPE none.
+11. kernels one JSON line listing every ported kernel, with the unfused
             serving arm's launches for the serving kernels, the fused
-            arm's for the megakernel and the training step's for the
-            backward kernels.
+            arm's for the megakernel, the LLaMA training step's for the
+            backward kernels and the incubate phase's for the bdrln
+            kernel.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
@@ -60,6 +84,7 @@ does a machine without a GPU.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -69,8 +94,9 @@ import numpy as np
 import torch
 
 # Published dense peaks (NVIDIA data sheets, SXM parts at 700 W):
-# (memory bytes/s, bf16 tensor-core flop/s)
-PEAKS = {"H100": (3.35e12, 989e12), "H200": (4.8e12, 989e12)}
+# (memory bytes/s, bf16 tensor-core flop/s, f32 flop/s outside the
+# tensor cores)
+PEAKS = {"H100": (3.35e12, 989e12, 67e12), "H200": (4.8e12, 989e12, 67e12)}
 # kernel results within atol + rtol * |plain|: rtol is one bf16 ulp
 # (2^-7 relative), as kernel and plain version round their f32 results to
 # bf16 after summing in different orders
@@ -85,6 +111,18 @@ MODEL_REL_L2 = 5e-2
 # back through two layers; the labels= loss (f32 block logits of the
 # same bf16 operands) against the criterion's (bf16 logits) to 2e-3
 GRAD_LOSS_REL, GRAD_REL_L2, LABELS_REL = 1e-2, 5e-2, 2e-3
+# the bdrln kernel's per-row mean and rstd: f32 row sums of 768-1536
+# values in other orders, ~1e-7 relative apart; a wrong row is far off
+BDRLN_STAT_REL = 1e-5
+# the incubate phase, bf16 card vs f32 CPU: y and the gradients carry
+# bf16 rounding (2^-9 relative) of the inputs, y and dy
+INCUBATE_REL_L2 = 1e-2
+# bert-train: each step's loss against an f32 run of the same steps
+# through the plain versions. The bf16 weights are the f32 masters rounded
+# to a grid (~8e-5 at 0.02) as coarse as one step's move (~lr = 1e-4), so
+# the two trajectories part by more than one forward's rounding (1.8e-5
+# relative); a wrong kernel or update parts them by order 1
+BERT_TRAJ_REL = 5e-2
 
 CFG_438M = dict(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
                 num_hidden_layers=12, num_attention_heads=12,
@@ -138,6 +176,26 @@ def graph_ms(fn, calls=20, replays=10, stream=None):
     return start.elapsed_time(end) / (calls * replays)
 
 
+def cold_ms(fn, args, replays=5):
+    """``graph_ms`` with the inputs out of L2: each captured call of
+    ``fn`` takes its own copy of ``args`` (the tensors cloned to other
+    addresses) and keeps its own output, the copies together at least
+    four times the card's L2, so that every call reads its inputs from
+    and writes its output to HBM, as the bound assumes."""
+    set_bytes = sum(a.numel() * a.element_size() for a in args
+                    if isinstance(a, torch.Tensor))
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    n = max(2, min(1024, -(-4 * l2 // set_bytes)))
+    sets = [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args) for _ in range(n - 1)]
+    outs, turn = [], itertools.count()
+    ms = graph_ms(lambda: outs.append(fn(*sets[next(turn) % n])), calls=n,
+                  replays=replays)
+    del outs, sets
+    return ms
+
+
 def eager_ms(fn, calls=50):
     """Wall time per eager call, host launch cost included."""
     fn()
@@ -162,8 +220,10 @@ def compare(name, got, want):
     return err.max().item()
 
 
-def bound_ms(nbytes, flops, peaks):
-    t_bytes, t_ops = nbytes / peaks[0], flops / peaks[1]
+def bound_ms(nbytes, flops, peaks, flop_rate=None):
+    """The least time for the work: bytes over the memory rate against
+    operations over ``flop_rate`` (default the bf16 tensor-core peak)."""
+    t_bytes, t_ops = nbytes / peaks[0], flops / (flop_rate or peaks[1])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -849,7 +909,8 @@ def train_workload():
     in bf16 (random weights from seed 0), AdamW(learning_rate=1e-4,
     multi_precision=True), TrainStep over LlamaPretrainingCriterion, and
     one batch of TRAIN_BATCH x TRAIN_SEQ ids from np.random.RandomState(0).
-    Returns (model, optimizer, step, ids)."""
+    Returns (model, optimizer, step, ids, labels); the labels are the
+    ids."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (
@@ -867,17 +928,17 @@ def train_workload():
     step = TrainStep(model, LlamaPretrainingCriterion(), opt)
     ids = torch.tensor(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)), device="cuda")
-    return model, opt, step, ids
+    return model, opt, step, ids, ids
 
 
-def timed_steps(step, ids, steps=TRAIN_STEPS):
-    """``steps`` steps on ``ids``, each timed with CUDA events: returns
-    (losses, step ms)."""
+def timed_steps(step, ids, labels, steps=TRAIN_STEPS):
+    """``steps`` steps on ``ids`` and ``labels``, each timed with CUDA
+    events: returns (losses, step ms)."""
     events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
     losses = []
     events[0].record()
     for i in range(steps):
-        losses.append(step(ids, labels=ids))
+        losses.append(step(ids, labels=labels))
         events[i + 1].record()
     torch.cuda.synchronize()
     return ([float(x) for x in losses],
@@ -890,17 +951,17 @@ def train_phase(name, smi, peaks):
     from paddle_tpu_torch.ops.cuda import launch_counts
 
     torch.cuda.reset_peak_memory_stats()
-    model, _, step, ids = train_workload()
+    model, _, step, ids, labels = train_workload()
     cfg, (batch, seqlen), steps = model.config, ids.shape, TRAIN_STEPS
     n_params = sum(p.numel() for p in model.parameters())
     # the warm-up step, with the launch counts zeroed just before it and
     # read just after it: every step launches the same kernels
     torch.cuda.synchronize()
     launch_counts.clear()
-    losses = [float(step(ids, labels=ids))]
+    losses = [float(step(ids, labels=labels))]
     torch.cuda.synchronize()
     counts = {k: launch_counts[k] for k in TRAIN_KERNELS}
-    timed, step_ms = timed_steps(step, ids, steps)
+    timed, step_ms = timed_steps(step, ids, labels, steps)
     losses += timed
     steady = float(np.median(step_ms))
     tokens_per_sec = batch * seqlen / (steady / 1e3)
@@ -926,6 +987,434 @@ def train_phase(name, smi, peaks):
     return counts
 
 
+# bias-dropout-residual-LN kernel cases: (rows, H, dtype, training); the
+# first, BERT-base's 32 x 128 tokens in training, is the kernels line's
+BDRLN_CASES = [(4096, 768, torch.bfloat16, True),
+               (4096, 768, torch.bfloat16, False),
+               (4096, 768, torch.float32, True),
+               (1024, 1536, torch.bfloat16, True),
+               (37, 1000, torch.bfloat16, True)]
+BDRLN_RATE, BDRLN_EPS = 0.1, 1e-5
+
+
+def bdrln_phase(peaks):
+    """The bias-dropout-residual-LayerNorm kernel against its plain version
+    at BDRLN_CASES, masks from a seeded generator. Its library yardstick is
+    ``F.layer_norm`` over the precomputed z: the norm alone, since no one
+    PyTorch call computes the whole function. The kernel is memory-bound,
+    so ``ms``, ``plain_ms`` and ``library_ms`` are timed with the inputs
+    out of L2 (``cold_ms``), comparable with the bound; ``warm_ms`` replays
+    one input set, which the 50 MB L2 may hold."""
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    results = {}
+    for rows, h, dtype, training in BDRLN_CASES:
+        x, res = randn(rows, h, dtype=dtype), randn(rows, h, dtype=dtype)
+        bias, lnb = 0.1 * randn(h, dtype=dtype), 0.1 * randn(h, dtype=dtype)
+        scale = (1.0 + 0.1 * randn(h, dtype=torch.float32)).to(dtype)
+        mask = (torch.rand((rows, h), generator=gen, device="cuda")
+                < 1.0 - BDRLN_RATE) if training else None
+        args = (x, res, bias, scale, lnb, mask, BDRLN_RATE, BDRLN_EPS,
+                training)
+        case = f"({rows}, {h}) {str(dtype)[6:]} {'train' if training else 'eval'}"
+        y, mean, rstd = fo.bias_dropout_residual_ln_fwd(*args)
+        py, pmean, prstd = fo.bias_dropout_residual_ln_plain(*args)
+        err = compare(f"bias_dropout_residual_ln {case}", y, py)
+        stat_err = {}
+        for what, got, want in (("mean", mean, pmean), ("rstd", rstd, prstd)):
+            e = (got - want).abs().max().item()
+            stat_err[what] = e
+            if not e <= BDRLN_STAT_REL * want.abs().max().item():
+                raise PhaseFailed(f"bias_dropout_residual_ln {case}: {what} "
+                                  f"off by {e:.3g}")
+        size = x.element_size()
+        nb = (3 * rows * h * size + (rows * h if training else 0)
+              + 3 * h * size + 2 * rows * 4)
+        bms, by = bound_ms(nb, 11 * rows * h, peaks, flop_rate=peaks[2])
+        z = ((x.float() + bias.float()) * (mask * (1.0 / (1.0 - BDRLN_RATE))
+                                           if training else 1.0)
+             + res.float()).to(dtype)
+        layer_norm = torch.nn.functional.layer_norm
+        rec = dict(
+            case=case, shape=[rows, h], max_abs_err=err,
+            mean_err=stat_err["mean"], rstd_err=stat_err["rstd"],
+            ms=cold_ms(fo.bias_dropout_residual_ln_fwd, args),
+            plain_ms=cold_ms(fo.bias_dropout_residual_ln_plain, args),
+            library_ms=cold_ms(lambda zz: layer_norm(
+                zz, (h,), scale, lnb, BDRLN_EPS), (z,)),
+            library="F.layer_norm over the precomputed z (the norm alone)",
+            warm_ms=graph_ms(lambda: fo.bias_dropout_residual_ln_fwd(*args)),
+            warm_library_ms=graph_ms(lambda: layer_norm(
+                z, (h,), scale, lnb, BDRLN_EPS)),
+            eager_ms=eager_ms(lambda: fo.bias_dropout_residual_ln_fwd(*args)),
+            bound_ms=bms, bound_by=by, bound_bytes=nb)
+        emit("kernel", name="bias_dropout_residual_ln", **rec)
+        results.setdefault("bias_dropout_residual_ln", rec)
+        torch.cuda.synchronize()
+    return results
+
+
+BERT_ATTN = (32, 128, 12, 64)  # BERT-base at batch 32 x seq 128
+
+
+def bert_flash_phase(peaks):
+    """The flash kernels at BERT-base's attention, BERT_ATTN non-causal
+    (head_dim 64), against their plain versions, beside
+    ``F.scaled_dot_product_attention`` forward and forward + backward."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, s, h, d = BERT_ATTN
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v, causal=False)
+    pout, plse = fa.flash_attention_plain(q, k, v, causal=False)
+    err = compare("flash_attention(bert)", out, pout)
+    lse_err = (lse - plse).abs().max().item()
+    if lse_err > 1e-3:
+        raise PhaseFailed(f"flash_attention(bert): lse off by {lse_err:.3g}")
+    pairs = b * h * s * s
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bms, by = bound_ms(4 * q.numel() * 2 + lse.numel() * 4, 4 * d * pairs,
+                       peaks)
+    results = {"flash_attention": dict(
+        case="bert_shape", shape=list(q.shape), causal=False,
+        max_abs_err=err, lse_err=lse_err,
+        ms=graph_ms(lambda: fa.flash_attention(q, k, v, False), calls=5),
+        plain_ms=graph_ms(lambda: fa.flash_attention_plain(q, k, v, False),
+                          calls=5),
+        library_ms=graph_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt), calls=5),
+        bound_ms=bms, bound_by=by)}
+    delta = fa._delta(out, do)
+    want_dq, want_dk, want_dv = fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, False)
+    got_dk, got_dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                 False)
+    got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False)
+    errs = {"flash_attention_bwd_dkdv": max(
+                compare("dk (bert)", got_dk, want_dk),
+                compare("dv (bert)", got_dv, want_dv)),
+            "flash_attention_bwd_dq": compare("dq (bert)", got_dq, want_dq)}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        ol = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl)
+    dol = do.transpose(1, 2)
+    lib = graph_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), dol,
+                                               retain_graph=True),
+                   calls=5, stream=side)
+    plain = graph_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, False), calls=5)
+    io = 4 * q.numel() * 2 + 2 * lse.numel() * 4
+    for kname, fn, flops, nb in (
+            ("flash_attention_bwd_dkdv", lambda: fa.flash_attention_bwd_dkdv(
+                q, k, v, do, lse, delta, False), 8 * d * pairs,
+             io + 2 * k.numel() * 2),
+            ("flash_attention_bwd_dq", lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, False), 6 * d * pairs,
+             io + q.numel() * 2)):
+        bms, by = bound_ms(nb, flops, peaks)
+        results[kname] = dict(case="bert_shape", shape=list(q.shape),
+                              causal=False, max_abs_err=errs[kname],
+                              ms=graph_ms(fn, calls=5), plain_ms=plain,
+                              library_ms=lib, bound_ms=bms, bound_by=by)
+    for kname, rec in results.items():
+        emit("kernel", name=kname, **rec)
+    torch.cuda.synchronize()
+    return results
+
+
+def rel_l2(got, want):
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+INCUBATE_PASSES = 3
+
+
+def incubate_phase():
+    """FusedBiasDropoutResidualLayerNorm(768, dropout_rate=0.1) in bf16 on
+    (32, 128, 768), INCUBATE_PASSES forward and backward passes, each
+    against an f32 CPU run of the plain function (forward and backward)
+    at the mask the layer drew, replayed from its generator's state.
+    Returns the passes' launch counts."""
+    from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    layer = FusedBiasDropoutResidualLayerNorm(
+        768, dropout_rate=0.1, device="cuda", dtype=torch.bfloat16,
+        generator=gen)
+    inputs = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=inputs, device="cuda").to(
+            torch.bfloat16)
+
+    with torch.no_grad():
+        for p, base in ((layer.linear_bias, 0.0), (layer.ln_scale, 1.0),
+                        (layer.ln_bias, 0.0)):
+            p.copy_(base + 0.1 * randn(768))
+    shape = (32, 128, 768)
+    runs = []
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    for _ in range(INCUBATE_PASSES):
+        state = gen.get_state()
+        x = randn(*shape).requires_grad_()
+        res = randn(*shape).requires_grad_()
+        dy = randn(*shape)
+        layer.zero_grad(set_to_none=True)
+        y = layer(x, res)
+        y.backward(dy)
+        runs.append((state, x, res, dy, y.detach(), x.grad, res.grad,
+                     [p.grad for p in layer.parameters()]))
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    worst, keep = {}, []
+    params = [p.detach().float().cpu().requires_grad_()
+              for p in layer.parameters()]
+    for state, x, res, dy, y, dx, dres, pgrads in runs:
+        replay = torch.Generator(device="cuda")
+        replay.set_state(state)
+        mask = torch.rand((4096, 768), generator=replay,
+                          device="cuda") < 1.0 - layer.dropout_rate
+        keep.append(mask.float().mean().item())
+        xc = x.detach().float().cpu().reshape(4096, 768).requires_grad_()
+        rc = res.detach().float().cpu().reshape(4096, 768).requires_grad_()
+        for p in params:
+            p.grad = None
+        yc = fo.BiasDropoutResidualLNFunction.apply(
+            xc, rc, *params, mask.cpu(), layer.dropout_rate, 1e-5, True)
+        yc.backward(dy.float().cpu().reshape(4096, 768))
+        pairs = [("y", y, yc), ("dx", dx, xc.grad), ("dres", dres, rc.grad)]
+        pairs += [(f"d{n}", g, p.grad) for (n, _), g, p in
+                  zip(layer.named_parameters(), pgrads, params)]
+        for name, got, want in pairs:
+            worst[name] = max(worst.get(name, 0.0),
+                              rel_l2(got.reshape(want.shape), want))
+    launches = counts.get("bias_dropout_residual_ln", 0)
+    emit("incubate", passes=INCUBATE_PASSES, launches=counts,
+         rel_l2_max=worst, tolerance=INCUBATE_REL_L2, keep_share=keep)
+    if launches != INCUBATE_PASSES:
+        raise PhaseFailed(f"incubate: bias_dropout_residual_ln launched "
+                          f"{launches} times in {INCUBATE_PASSES} passes")
+    bad = {k: v for k, v in worst.items() if not v <= INCUBATE_REL_L2}
+    if bad:
+        raise PhaseFailed(f"incubate: relative L2 beyond {INCUBATE_REL_L2}: "
+                          f"{bad}")
+    return counts
+
+
+def bert_cfg(**over):
+    from paddle_tpu_torch.models import bert_base_config
+
+    return bert_base_config(hidden_dropout_prob=0.0,
+                            attention_probs_dropout_prob=0.0, **over)
+
+
+def bert_batch(cfg, batch, seq, seed):
+    """ids and MLM labels (batch, seq) and NSP labels (batch, 1) on the
+    card, from np.random.RandomState(seed), as bench.py (c2) draws them."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (batch, seq))
+    mlm = rng.randint(0, cfg.vocab_size, (batch, seq))
+    nsp = rng.randint(0, 2, (batch, 1))
+    return (torch.tensor(ids, device="cuda"),
+            (torch.tensor(mlm, device="cuda"), torch.tensor(nsp, device="cuda")))
+
+
+def bert_grad_phase():
+    """A 2-layer BERT at BERT-base's widths, bf16 on the card through the
+    kernels against f32 on the CPU through the plain versions, batch 4 x
+    seq 128 through BertPretrainingCriterion."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import (
+        BertForPretraining,
+        BertPretrainingCriterion,
+    )
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    cfg = bert_cfg(num_hidden_layers=2)
+    card = BertForPretraining(cfg, device="cuda", dtype=torch.bfloat16,
+                              generator=seed(9, "cuda"))
+    cpu = BertForPretraining(cfg, device="cpu", dtype=torch.float32,
+                             generator=seed(10, "cpu"))
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in card.state_dict().items()})
+    ids, (mlm, nsp) = bert_batch(cfg, 4, 128, 2)
+    crit = BertPretrainingCriterion()
+    t0 = time.monotonic()
+    launch_counts.clear()
+    out = {}
+    for tag, model in (("card", card), ("cpu", cpu)):
+        dev = model.nsp_head.weight.device
+        logits, nsp_logits = model(ids.to(dev))
+        loss = crit(logits, nsp_logits, mlm.to(dev), nsp.to(dev))
+        loss.backward()
+        out[tag] = (logits.detach(), float(loss.detach()))
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    logits_rel = rel_l2(out["card"][0], out["cpu"][0])
+    loss_rel = abs(out["card"][1] - out["cpu"][1]) / abs(out["cpu"][1])
+    cpu_params = dict(cpu.named_parameters())
+    rel, unused = {}, []
+    for name, p in card.named_parameters():
+        want = cpu_params[name].grad
+        if p.grad is None or want is None:
+            if (p.grad is None) != (want is None):
+                raise PhaseFailed(f"bert-grad: {name} has a gradient on one "
+                                  f"side only")
+            unused.append(name)
+            continue
+        rel[name] = rel_l2(p.grad, want)
+    worst = max(rel, key=rel.get)
+    emit("bert-grad", losses={k: v[1] for k, v in out.items()},
+         loss_rel=loss_rel, loss_tolerance=GRAD_LOSS_REL,
+         mlm_logits_rel_l2=logits_rel, logits_tolerance=MODEL_REL_L2,
+         grad_rel_l2=rel, grad_rel_l2_max=[worst, rel[worst]],
+         grad_tolerance=GRAD_REL_L2, no_gradient=unused, launches=counts,
+         seconds=time.monotonic() - t0)
+    if (logits_rel > MODEL_REL_L2 or loss_rel > GRAD_LOSS_REL
+            or not rel[worst] <= GRAD_REL_L2):
+        raise PhaseFailed(f"bert-grad: logits rel L2 {logits_rel:.3g}, loss "
+                          f"rel {loss_rel:.3g}, worst gradient {worst} rel L2 "
+                          f"{rel[worst]:.3g}")
+    if min(counts.get(k, 0) for k in BERT_KERNELS) != cfg.num_hidden_layers:
+        raise PhaseFailed(f"bert-grad: launches {counts}")
+
+
+BERT_BATCH, BERT_SEQ = 32, 128
+BERT_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv",
+                "flash_attention_bwd_dq")
+BERT_ABSENT = ("rms_norm", "rms_norm_bwd", "fused_rope", "fused_rope_bwd",
+               "bias_dropout_residual_ln")
+
+
+def bert_train_workload():
+    """bench.py section (c2)'s training step on the card: BERT-base with
+    dropout 0 in bf16 (random weights from seed 0), AdamW(learning_rate=
+    1e-4, multi_precision=True), TrainStep over BertPretrainingCriterion,
+    and one batch of BERT_BATCH x BERT_SEQ ids with MLM and NSP labels
+    from np.random.RandomState(0). Returns (model, optimizer, step, ids,
+    labels)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (
+        BertForPretraining,
+        BertPretrainingCriterion,
+    )
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = bert_cfg()
+    model = BertForPretraining(cfg, device="cuda", dtype=torch.bfloat16,
+                               generator=seed(0, "cuda"))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True)
+    crit = BertPretrainingCriterion()
+    step = TrainStep(model, lambda mlm, nsp, lab: crit(mlm, nsp, *lab), opt)
+    ids, labels = bert_batch(cfg, BERT_BATCH, BERT_SEQ, 0)
+    return model, opt, step, ids, labels
+
+
+def bert_reference_losses(cfg, state, ids, labels, steps):
+    """The same steps from the same weights in f32 on the card through
+    the plain versions only: an all-ones attention mask sends attention
+    to the composition route (no kernel of the port runs, which the
+    launch counts confirm) and AdamW updates f32 weights directly."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (
+        BertForPretraining,
+        BertPretrainingCriterion,
+    )
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = BertForPretraining(cfg, device="cuda", dtype=torch.float32,
+                               generator=torch.Generator(device="cuda"))
+    model.load_state_dict(state)
+    crit = BertPretrainingCriterion()
+    step = TrainStep(model, lambda mlm, nsp, lab: crit(mlm, nsp, *lab),
+                     AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                           multi_precision=True))
+    ones = torch.ones(ids.shape, dtype=torch.int64, device="cuda")
+    launch_counts.clear()
+    losses = [float(step(ids, labels=labels, attention_mask=ones))
+              for _ in range(steps)]
+    torch.cuda.synchronize()
+    if any(launch_counts.values()):
+        raise PhaseFailed(f"bert-train: the f32 reference launched "
+                          f"{dict(launch_counts)}")
+    return losses
+
+
+def bert_train_phase(name, smi, peaks):
+    """bench.py section (c2): TrainStep on BERT-base at batch 32 x seq
+    128, its losses held against an f32 run of the same steps through
+    the plain versions (``bert_reference_losses``). Returns the warm-up
+    step's launch counts."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    model, _, step, ids, labels = bert_train_workload()
+    cfg, (batch, seqlen) = model.config, ids.shape
+    n_params = sum(p.numel() for p in model.parameters())
+    start = {k: v.to("cpu", torch.float32)
+             for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    losses = [float(step(ids, labels=labels))]
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    timed, step_ms = timed_steps(step, ids, labels, TRAIN_STEPS)
+    losses += timed
+    steady = float(np.median(step_ms))
+    tokens_per_sec = batch * seqlen / (steady / 1e3)
+    flops_per_token = (6 * n_params
+                       + 12 * cfg.num_hidden_layers * cfg.hidden_size * seqlen)
+    mfu = tokens_per_sec * flops_per_token / peaks[1]
+    first_want = float(np.log(cfg.vocab_size) + np.log(2))
+    peak_memory = torch.cuda.max_memory_allocated()
+    del model, step
+    torch.cuda.empty_cache()
+    ref = bert_reference_losses(cfg, start, ids, labels, len(losses))
+    ref_rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    emit("bert-train", params=n_params, batch=batch, seq=seqlen,
+         steps=TRAIN_STEPS, step_ms=step_ms, step_ms_median=steady,
+         tokens_per_sec=tokens_per_sec, flops_per_token=flops_per_token,
+         mfu=mfu, max_memory_allocated=peak_memory, losses=losses,
+         f32_plain_losses=ref, loss_rel=ref_rel,
+         loss_tolerance=BERT_TRAJ_REL, launches_per_step=counts, card=name,
+         nvidia_smi=smi)
+    if not all(np.isfinite(losses)):
+        raise PhaseFailed(f"bert-train: a loss is not finite: {losses}")
+    if abs(losses[0] - first_want) > 1.0:
+        raise PhaseFailed(f"bert-train: first loss {losses[0]:.4f} is more "
+                          f"than 1.0 from ln {cfg.vocab_size} + ln 2")
+    if not losses[-1] < losses[0]:
+        raise PhaseFailed(f"bert-train: loss did not fall: {losses}")
+    if not max(ref_rel) <= BERT_TRAJ_REL:
+        raise PhaseFailed(f"bert-train: losses {losses} part from the f32 "
+                          f"plain run's {ref} by up to {max(ref_rel):.3g} "
+                          f"relative")
+    want = {k: cfg.num_hidden_layers for k in BERT_KERNELS}
+    got = {k: counts.get(k, 0) for k in (*BERT_KERNELS, *BERT_ABSENT)}
+    if got != {**want, **{k: 0 for k in BERT_ABSENT}}:
+        raise PhaseFailed(f"bert-train: launches per step {got}, want "
+                          f"{want} and none of {BERT_ABSENT}")
+    return counts
+
+
 KERNELS = [  # name, source, the Pallas kernel it replaces, the path
     ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
      "paddle_tpu/ops/pallas/rms_norm.py:59", "serving"),
@@ -945,6 +1434,9 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
      "paddle_tpu/ops/pallas/flash_attention.py:245", "train"),
     ("fused_decode_layer", "paddle_tpu_torch/csrc/decode_megakernel.cu",
      "paddle_tpu/ops/pallas/decode_megakernel.py:189", "serving_fused"),
+    ("bias_dropout_residual_ln",
+     "paddle_tpu_torch/csrc/bias_dropout_residual_ln.cu",
+     "paddle_tpu/ops/pallas/fused_ops.py:112", "incubate"),
 ]
 
 
@@ -979,6 +1471,8 @@ def main():
     results = kernel_phase(peaks)
     results.update(megakernel_phase(peaks))
     results.update(train_kernel_phase(peaks))
+    results.update(bdrln_phase(peaks))
+    bert_flash_phase(peaks)
     model = model_phase()
     torch.cuda.synchronize()
     counts = serving_phase(model, name, smi)
@@ -988,6 +1482,13 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     counts["train"] = train_phase(name, smi, peaks)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counts["incubate"] = incubate_phase()
+    bert_grad_phase()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counts["bert-train"] = bert_train_phase(name, smi, peaks)
     torch.cuda.synchronize()
 
     line = []

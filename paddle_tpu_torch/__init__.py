@@ -5,15 +5,16 @@ The JAX package ``paddle_tpu`` stays the reference; this package imports
 neither it nor JAX. Its slices so far: serving, the LLaMA model
 (``models.llama``) behind a continuous-batching engine over a paged KV
 pool (``models.serving``), whose decode steps run each decoder layer's
-attention half as one fused kernel; and training, the model's ``labels=``
+attention half as one fused kernel; training, the model's ``labels=``
 loss and ``LlamaPretrainingCriterion``, ``optimizer.AdamW`` with f32
-master weights, and ``jit.TrainStep``. Nine hand-written kernels under
-``ops/cuda`` carry them: RMSNorm forward and backward, RoPE and its
+master weights, and ``jit.TrainStep``; and the ``incubate`` fused layers
+with BERT (``models.bert``) built from them. Ten hand-written kernels
+under ``ops/cuda`` carry them: RMSNorm forward and backward, RoPE and its
 adjoint, flash attention forward, dK/dV and dQ, paged decode attention,
-and the decode megakernel. Entry points run on the GPU unless given
-``device="cpu"``.
+the decode megakernel, and bias + dropout + residual + LayerNorm. Entry
+points run on the GPU unless given ``device="cpu"``.
 """
-from . import jit, optimizer
+from . import incubate, jit, optimizer
 from .core.place import resolve_device, seed
 
-__all__ = ["jit", "optimizer", "resolve_device", "seed"]
+__all__ = ["incubate", "jit", "optimizer", "resolve_device", "seed"]

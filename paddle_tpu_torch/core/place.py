@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "seed"]
+__all__ = ["resolve_device", "seed", "placed"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -31,3 +31,11 @@ def seed(s: int, device=None) -> torch.Generator:
     g = torch.Generator(device=resolve_device(device))
     g.manual_seed(int(s))
     return g
+
+
+def placed(device=None, generator=None):
+    """``(device, generator)`` of a model's constructor: ``device`` as
+    :func:`resolve_device` gives it, and ``generator`` or, when it is
+    None, ``seed(0)`` on that device."""
+    device = resolve_device(device)
+    return device, seed(0, device) if generator is None else generator

@@ -5,6 +5,15 @@ JAX class traces forward, backward and the optimizer update into one
 compiled program; the port runs the same step eagerly: forward,
 ``loss_fn``, ``backward``, ``optimizer.step()``, clear the gradients.
 Capturing the step (CUDA graphs) is later work.
+
+JAX takes ``jax.value_and_grad`` over every trainable parameter, so one
+that the loss never reads (BERT's ``pre_ln`` in post-LN mode, its
+token-type table when no ``token_type_ids`` are given) gets a zero
+gradient: its moments advance and decoupled decay moves it. Autograd
+leaves such a gradient None, and ``Optimizer.step`` skips a None gradient
+as the JAX eager ``Optimizer.step`` does; so the step hands each such
+parameter a zero gradient first, made once and kept (the optimizer only
+reads a gradient).
 """
 from __future__ import annotations
 
@@ -16,24 +25,34 @@ __all__ = ["TrainStep"]
 class TrainStep:
     """``step = TrainStep(model, loss_fn, optimizer)``; ``step(x, labels=y)``
     runs one step and returns the loss; ``loss_fn`` receives the model's
-    outputs, then the labels when they are given."""
+    outputs, then the labels when they are given (one object: a tuple of
+    several labels stays one argument). Keyword arguments go to the
+    model."""
 
     def __init__(self, model, loss_fn, optimizer):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self._zero_grads = {}  # parameter -> its kept zero gradient
 
-    def __call__(self, *args, labels=None):
-        out = self.model(*args)
+    def __call__(self, *args, labels=None, **kwargs):
+        out = self.model(*args, **kwargs)
         outs = out if isinstance(out, tuple) else (out,)
         loss = (self.loss_fn(*outs) if labels is None
                 else self.loss_fn(*outs, labels))
         loss.backward()
+        for p in self.model.parameters():
+            if p.requires_grad and p.grad is None:
+                zero = self._zero_grads.get(p)
+                if zero is None or zero.dtype != p.dtype or (
+                        zero.device != p.device):
+                    zero = self._zero_grads[p] = torch.zeros_like(p)
+                p.grad = zero
         self.optimizer.step()
         self.optimizer.clear_grad()
         return loss.detach()
 
-    def run(self, *args, steps, labels=None):
+    def run(self, *args, steps, labels=None, **kwargs):
         """``steps`` steps in a row; returns the (steps,) losses."""
-        return torch.stack([self(*args, labels=labels)
+        return torch.stack([self(*args, labels=labels, **kwargs)
                             for _ in range(int(steps))])

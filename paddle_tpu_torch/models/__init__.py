@@ -1,3 +1,12 @@
+from .bert import (
+    BertConfig,
+    BertForPretraining,
+    BertForSequenceClassification,
+    BertModel,
+    BertPretrainingCriterion,
+    bert_base_config,
+    bert_tiny_config,
+)
 from .convert import params_from_paddle_tpu
 from .generation import generate
 from .kv_pool import PagePool
@@ -10,6 +19,10 @@ from .llama import (
 )
 from .serving import ContinuousBatchingEngine
 
-__all__ = ["ContinuousBatchingEngine", "LlamaConfig", "LlamaForCausalLM",
-           "LlamaPretrainingCriterion", "PagePool", "PagedKVCache",
-           "causal_lm_loss", "generate", "params_from_paddle_tpu"]
+__all__ = ["BertConfig", "BertForPretraining",
+           "BertForSequenceClassification", "BertModel",
+           "BertPretrainingCriterion", "ContinuousBatchingEngine",
+           "LlamaConfig", "LlamaForCausalLM", "LlamaPretrainingCriterion",
+           "PagePool", "PagedKVCache", "bert_base_config",
+           "bert_tiny_config", "causal_lm_loss", "generate",
+           "params_from_paddle_tpu"]

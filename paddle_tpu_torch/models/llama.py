@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.place import resolve_device, seed
+from ..core.place import placed
 from ..nn.layers import Embedding, Linear, RMSNorm
 from ..ops.cuda.decode_attention import paged_attention
 from ..ops.cuda.decode_megakernel import (
@@ -310,9 +310,7 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, device=None,
                  dtype=torch.bfloat16, generator=None):
         super().__init__()
-        device = resolve_device(device)
-        if generator is None:
-            generator = seed(0, device)
+        device, generator = placed(device, generator)
         self.config = config
         self.model = LlamaModel(config, generator=generator, device=device,
                                 dtype=dtype)

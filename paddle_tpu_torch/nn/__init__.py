@@ -1,3 +1,3 @@
-from .layers import Embedding, Linear, RMSNorm
+from .layers import Dropout, Embedding, LayerNorm, Linear, RMSNorm
 
-__all__ = ["Embedding", "Linear", "RMSNorm"]
+__all__ = ["Dropout", "Embedding", "LayerNorm", "Linear", "RMSNorm"]

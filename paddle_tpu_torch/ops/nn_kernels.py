@@ -1,12 +1,16 @@
-"""The model-facing ops that the port's kernels serve, with the JAX
-package's signatures (``paddle_tpu/ops/nn_kernels.py`` ``rms_norm`` :162,
+"""The model-facing ops that the port's kernels serve, and the plain ops
+around them, with the JAX package's signatures (``paddle_tpu/ops/
+nn_kernels.py`` ``gelu`` :53, ``layer_norm`` :150, ``rms_norm`` :162,
+``dropout`` :293, ``fused_bias_dropout_residual_layer_norm`` :316,
 ``scaled_dot_product_attention`` :732, ``rotary_position_embedding``
-:804, ``softmax_with_cross_entropy`` :859). Each kernel op routes through
-its kernel's wrapper, which launches the kernel on a CUDA tensor and runs
-the plain version on a CPU tensor. When autograd records the call, it
-goes through the kernel's ``torch.autograd.Function``, whose backward is
-the backward kernel (or its plain version on the CPU); otherwise (under
-``torch.no_grad``, as in serving) the forward launches alone.
+:804, ``softmax_with_cross_entropy`` :859). Where JAX draws dropout masks
+from a key, the port takes an explicit ``torch.Generator``. Each kernel
+op routes through its kernel's wrapper, which launches the kernel on a
+CUDA tensor and runs the plain version on a CPU tensor. When autograd
+records the call, it goes through the kernel's ``torch.autograd.Function``,
+whose backward is the backward kernel (or its plain version on the CPU);
+otherwise (under ``torch.no_grad``, as in serving) the forward launches
+alone.
 
 The port runs eagerly, so RMSNorm takes its kernel on every call: the
 counterpart of the JAX package's eager dispatch, not of its traced
@@ -14,20 +18,81 @@ programs (which keep the jnp composition).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .cuda._build import upcast
 from .cuda.flash_attention import FlashAttentionFunction, flash_attention
-from .cuda.fused_ops import RopeFunction, fused_rope
+from .cuda.fused_ops import RopeFunction, bias_dropout_residual_ln, fused_rope
 from .cuda.rms_norm import RMSNormFunction
 from .cuda.rms_norm import rms_norm as _rms_norm_rows
 
-__all__ = ["rms_norm", "scaled_dot_product_attention",
-           "rotary_position_embedding", "softmax_with_cross_entropy"]
+__all__ = ["gelu", "layer_norm", "rms_norm", "dropout",
+           "fused_bias_dropout_residual_layer_norm",
+           "scaled_dot_product_attention", "rotary_position_embedding",
+           "softmax_with_cross_entropy"]
 
 
 def _records(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def gelu(x, approximate=False):
+    """GELU; exact (erf) unless ``approximate``, as ``jax.nn.gelu``."""
+    return torch.nn.functional.gelu(x,
+                                    approximate="tanh" if approximate
+                                    else "none")
+
+
+def layer_norm(x, weight=None, bias=None, epsilon=1e-05, begin_norm_axis=-1):
+    """LayerNorm over the axes from ``begin_norm_axis`` on: ``(x - mean) *
+    rsqrt(var + eps) * weight + bias`` with the biased variance. JAX
+    composes it in jnp and XLA fuses it; the port calls
+    ``torch.nn.functional.layer_norm``, one launch, which on the card
+    computes in f32 for bf16 inputs."""
+    axis = begin_norm_axis % x.dim()
+    return torch.nn.functional.layer_norm(x, x.shape[axis:], weight, bias,
+                                          epsilon)
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train", *,
+            generator=None):
+    """Zero each element with probability ``p``: keep where ``torch.rand(
+    mask_shape, generator=generator) < 1 - p``; ``upscale_in_train``
+    scales the kept ones by 1/(1-p). ``axis`` draws the mask over those
+    axes only and broadcasts it over the rest. The identity when not
+    training or when p is 0."""
+    if not training or p == 0.0:
+        return x
+    if axis is None:
+        shape = x.shape
+    else:
+        axes = {a % x.dim() for a in ((axis,) if isinstance(axis, int)
+                                      else axis)}
+        shape = [n if i in axes else 1 for i, n in enumerate(x.shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - p
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
+    return torch.where(keep, x, 0.0).to(x.dtype)
+
+
+def fused_bias_dropout_residual_layer_norm(
+        x, residual, bias=None, ln_scale=None, ln_bias=None,
+        dropout_rate=0.5, ln_epsilon=1e-5, training=True,
+        mode="upscale_in_train", *, generator=None):
+    """``layer_norm(residual + dropout(x + bias))`` over the last axis.
+    ``upscale_in_train`` runs the fused kernel
+    (``ops/cuda/fused_ops.py`` ``bias_dropout_residual_ln``); other modes
+    compose dropout and layer_norm, as in JAX."""
+    if mode == "upscale_in_train":
+        return bias_dropout_residual_ln(
+            x, residual, bias, ln_scale, ln_bias, dropout_rate=dropout_rate,
+            ln_epsilon=ln_epsilon, training=training, generator=generator)
+    h = x + bias if bias is not None else x
+    h = dropout(h, p=dropout_rate, training=training, mode=mode,
+                generator=generator)
+    return layer_norm(h + residual, ln_scale, ln_bias, epsilon=ln_epsilon)
 
 
 def rms_norm(x, weight, epsilon=1e-6):
@@ -41,12 +106,47 @@ def rms_norm(x, weight, epsilon=1e-6):
     return y.reshape(x.shape)
 
 
-def scaled_dot_product_attention(q, k, v, is_causal=False):
-    """Attention core in the (B, S, H, D) layout, GQA when H > KVH."""
-    if _records(q, k, v):
-        return FlashAttentionFunction.apply(q, k, v, is_causal)
-    out, _ = flash_attention(q, k, v, causal=is_causal)
-    return out
+def scaled_dot_product_attention(q, k, v, is_causal=False, *, attn_mask=None,
+                                 dropout_p=0.0, training=True,
+                                 generator=None):
+    """Attention core in the (B, S, H, D) layout, GQA when H > KVH.
+    ``is_causal`` stays the port's fourth positional argument; JAX's
+    ``attn_mask``, ``dropout_p`` and ``training`` are taken by keyword.
+
+    As in JAX, the arguments pick the route: with no ``attn_mask`` and
+    ``dropout_p`` 0 it takes the flash kernels (forward, and dK/dV and dQ
+    under autograd); otherwise the plain composition, the counterpart of
+    JAX's XLA route: f32 scores, a boolean ``attn_mask`` masks with -inf
+    and any other is added, softmax, dropout on the probabilities when
+    ``training``, drawn from ``generator``. JAX also sends lengths that
+    are not multiples of its block of 128 to the composition; the port's
+    flash kernels take any length, so the port does not."""
+    if attn_mask is None and not dropout_p > 0.0:
+        if _records(q, k, v):
+            return FlashAttentionFunction.apply(q, k, v, is_causal)
+        out, _ = flash_attention(q, k, v, causal=is_causal)
+        return out
+    sq, d = q.shape[1], q.shape[3]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if kh.shape[1] != qh.shape[1]:
+        rep = qh.shape[1] // kh.shape[1]
+        kh = kh.repeat_interleave(rep, dim=1)
+        vh = vh.repeat_interleave(rep, dim=1)
+    logits = upcast((qh @ kh.transpose(-1, -2)) * (1.0 / math.sqrt(d)))
+    if is_causal:
+        sk = kh.shape[2]
+        causal = torch.ones(sq, sk, dtype=torch.bool,
+                            device=q.device).tril(sk - sq)
+        logits = logits.masked_fill(~causal, float("-inf"))
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, float("-inf"))
+        else:
+            logits = logits + attn_mask.to(logits.dtype)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = dropout(probs, p=dropout_p, training=training,
+                    generator=generator)
+    return (probs @ vh).transpose(1, 2)
 
 
 def rotary_position_embedding(q, k, cos, sin, position_ids=None):

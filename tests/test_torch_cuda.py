@@ -2,9 +2,11 @@
 shapes off the serving and training paths' (ragged lengths, head_dim 64,
 GQA groups up to 8, causal offsets, empty rows, clamped positions, row
 counts off the RMSNorm backward's strip; the decode megakernel at a small
-size, at the 438M serving decode and on GQA), the refusals of what the
-kernels do not take, a tiny model served fused and unfused, and a tiny
-model trained on the card.
+size, at the 438M serving decode and on GQA; the bias-dropout-residual-
+LayerNorm kernel at BERT-base's shape, in f32, at odd widths and off
+alignment), the refusals of what the kernels do not take, a tiny model
+served fused and unfused, a tiny model trained on the card, the incubate
+layer and a small BERT trained on the card.
 
 Every test here needs a GPU and skips without one (the marker ``cuda``).
 They import neither JAX nor ``paddle_tpu``; where JAX is not installed, run
@@ -400,3 +402,137 @@ def test_tiny_model_trains_on_card_through_the_backward_kernels(gen):
     assert all(launch_counts[k] > 0 for k in (
         "rms_norm_bwd", "fused_rope_bwd", "flash_attention_bwd_dkdv",
         "flash_attention_bwd_dq"))
+
+
+@pytest.mark.parametrize("rows,h,dtype,training,aligned", [
+    (4096, 768, torch.bfloat16, True, True),    # BERT-base, 32 x 128
+    (4096, 768, torch.bfloat16, False, True),
+    (4096, 768, torch.float32, True, True),
+    (1024, 1536, torch.bfloat16, True, True),
+    (37, 1000, torch.bfloat16, True, True),     # a partly filled last vector
+    (5, 100, torch.bfloat16, True, True),       # H % 8 != 0: element loads
+    (5, 100, torch.float32, False, True),
+    (9, 64, torch.bfloat16, True, False),       # off 16-byte alignment
+    (3, 4096, torch.bfloat16, True, True),      # the longest row in registers
+    (3, 5000, torch.float32, True, True),       # longer: the strided path
+])
+def test_bias_dropout_residual_ln_kernel(gen, rows, h, dtype, training,
+                                         aligned):
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
+
+    def rand(*shape, dt=dtype):
+        return _randn(gen, *shape, dtype=dt)
+
+    if aligned:
+        x, res = rand(rows, h), rand(rows, h)
+    else:  # views one element into their storage: 2 bytes off
+        x, res = (rand(rows * h + 1)[1:].view(rows, h) for _ in range(2))
+    # bias and scale in f32 beside a bf16 x: the kernel upcasts either
+    bias, scale = 0.1 * rand(h, dt=torch.float32), 1 + 0.1 * rand(h)
+    lnb = 0.1 * rand(h)
+    mask = torch.rand((rows, h), generator=gen, device="cuda") < 0.9
+    args = (x, res, bias, scale, lnb, mask, 0.1, 1e-5, training)
+    y, mean, rstd = fo.bias_dropout_residual_ln_fwd(*args)
+    py, pmean, prstd = fo.bias_dropout_residual_ln_plain(*args)
+    _close(y, py)
+    torch.testing.assert_close(mean, pmean, rtol=0,
+                               atol=1e-5 * pmean.abs().max().item())
+    torch.testing.assert_close(rstd, prstd, rtol=1e-5, atol=0)
+    assert y.dtype == dtype and mean.dtype == torch.float32
+
+
+def test_bias_dropout_residual_ln_layer_on_card(gen):
+    """The incubate layer in bf16 launches the kernel once per forward and
+    its gradients agree with an f32 CPU copy through the plain versions."""
+    from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    layer = FusedBiasDropoutResidualLayerNorm(
+        256, dropout_rate=0.0, device="cuda", dtype=torch.bfloat16)
+    cpu = FusedBiasDropoutResidualLayerNorm(256, dropout_rate=0.0,
+                                            device="cpu")
+    x = _randn(gen, 2, 8, 256).requires_grad_()
+    res, dy = _randn(gen, 2, 8, 256), _randn(gen, 2, 8, 256)
+    launch_counts.clear()
+    y = layer(x, res)
+    assert launch_counts["bias_dropout_residual_ln"] == 1
+    y.backward(dy)
+    xc = x.detach().float().cpu().requires_grad_()
+    yc = cpu(xc, res.float().cpu())
+    yc.backward(dy.float().cpu())
+    rel = (y.detach().float().cpu() - yc.detach()).norm() / yc.norm()
+    assert rel < 1e-2
+    rel = (x.grad.float().cpu() - xc.grad).norm() / xc.grad.norm()
+    assert rel < 2e-2
+
+
+def test_bias_dropout_residual_ln_refuses_what_it_does_not_take(gen):
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
+
+    x = _randn(gen, 4, 64)
+    p = _randn(gen, 64)
+    mask = torch.ones((4, 64), dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        h = x.half()
+        fo.bias_dropout_residual_ln_fwd(h, h, p, p, p, mask, 0.1, 1e-5, True)
+    with pytest.raises(TypeError, match="residual"):
+        fo.bias_dropout_residual_ln_fwd(x, x.float(), p, p, p, mask, 0.1,
+                                        1e-5, True)
+    with pytest.raises(TypeError, match="mask"):
+        fo.bias_dropout_residual_ln_fwd(x, x, p, p, p, None, 0.1, 1e-5, True)
+    with pytest.raises(ValueError, match="mask"):
+        fo.bias_dropout_residual_ln_fwd(x, x, p, p, p, mask[:2], 0.1, 1e-5,
+                                        True)
+    with pytest.raises(ValueError, match="elements"):
+        fo.bias_dropout_residual_ln_fwd(x, x, p[:32], p, p, mask, 0.1, 1e-5,
+                                        True)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = _randn(gen, 64, 4).T
+        fo.bias_dropout_residual_ln_fwd(t, t, p, p, p, mask, 0.1, 1e-5, True)
+
+
+def test_tiny_bert_trains_on_card_through_the_flash_kernels(gen):
+    """A small BERT (head_dim 64) in bf16: gradients against an f32 CPU
+    copy, and AdamW steps through TrainStep lower the loss, launching the
+    flash forward, dK/dV and dQ kernels once per layer and step."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (
+        BertForPretraining,
+        BertPretrainingCriterion,
+        bert_tiny_config,
+    )
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = bert_tiny_config(hidden_size=128, num_attention_heads=2,
+                           intermediate_size=256,
+                           max_position_embeddings=128)
+    card = BertForPretraining(cfg, dtype=torch.bfloat16,
+                              generator=seed(0, "cuda"))
+    cpu = BertForPretraining(cfg, device="cpu", generator=seed(0, "cpu"))
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in card.state_dict().items()})
+    ids = torch.randint(0, 256, (2, 128), generator=gen, device="cuda")
+    nsp = torch.randint(0, 2, (2, 1), generator=gen, device="cuda")
+    crit = BertPretrainingCriterion()
+    crit(*card(ids), ids, nsp).backward()
+    crit(*cpu(ids.cpu()), ids.cpu(), nsp.cpu()).backward()
+    want = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        if want[name].grad is None:
+            assert p.grad is None, name
+            continue
+        rel = (p.grad.float().cpu() - want[name].grad).norm() / want[
+            name].grad.norm()
+        assert rel < 5e-2, name
+    card.zero_grad()
+    step = TrainStep(card, lambda a, b, lab: crit(a, b, *lab),
+                     AdamW(learning_rate=1e-3, parameters=card.parameters(),
+                           multi_precision=True))
+    launch_counts.clear()
+    losses = step.run(ids, steps=4, labels=(ids, nsp)).tolist()
+    assert losses[-1] < losses[0]
+    for k in ("flash_attention", "flash_attention_bwd_dkdv",
+              "flash_attention_bwd_dq"):
+        assert launch_counts[k] == 4 * cfg.num_hidden_layers, k

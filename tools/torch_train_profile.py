@@ -1,23 +1,28 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's training step spends its time, on one GPU.
 
-    python3 tools/torch_train_profile.py
+    python3 tools/torch_train_profile.py [--model llama-438m|bert-base]
 
-Runs chip_smoke.py's training workload (``train_workload``: the 438M
-LLaMA in bf16, random weights from a seed; AdamW(learning_rate=1e-4,
-multi_precision=True) and TrainStep over LlamaPretrainingCriterion; batch
-4 x seq 1536 ids from np.random.RandomState(0)), timed as chip_smoke.py
-times it (``timed_steps``: one warm-up step, then the median of five
-steps timed with CUDA events), then two steps under torch.profiler.
-Prints one JSON object: the step time, the device's busy and idle share
-of the profiled steps, device time per step grouped into the path's seven
-kernels, GEMMs, CE/softmax, the optimizer (every kernel launched inside
-``optimizer.step``), elementwise and the rest, and each of the seven
-kernels' launches per step (the wrappers' counts: the RMSNorm backward is
-two device kernels, the strips' partial sums and their reduction).
+Runs one of chip_smoke.py's training workloads: ``llama-438m`` (the
+default; ``train_workload``: the 438M LLaMA in bf16, random weights from
+a seed; AdamW(learning_rate=1e-4, multi_precision=True) and TrainStep
+over LlamaPretrainingCriterion; batch 4 x seq 1536 ids from
+np.random.RandomState(0)) or ``bert-base`` (``bert_train_workload``:
+bench.py section (c2), BERT-base in bf16 with dropout 0, the same AdamW,
+TrainStep over BertPretrainingCriterion, batch 32 x seq 128 ids and
+labels from np.random.RandomState(0)). Times it as chip_smoke.py times it
+(``timed_steps``: one warm-up step, then the median of five steps timed
+with CUDA events), then runs two steps under torch.profiler. Prints one
+JSON object: the step time, the device's busy and idle share of the
+profiled steps, device time per step grouped into the port's kernels,
+GEMMs, CE/softmax, LayerNorm, the optimizer (every kernel launched inside
+``optimizer.step``), elementwise and the rest, and the path's kernels'
+launches per step (the wrappers' counts: the RMSNorm backward is two
+device kernels, the strips' partial sums and their reduction).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -35,7 +40,8 @@ PROFILED = 2
 OURS = (("rms_norm_bwd", "rms_norm_bwd"), ("rms_norm_fwd", "rms_norm"),
         ("flash_bwd_dkdv", "flash_attention_bwd_dkdv"),
         ("flash_bwd_dq", "flash_attention_bwd_dq"),
-        ("flash_fwd", "flash_attention"))
+        ("flash_fwd", "flash_attention"),
+        ("bdrln_fwd", "bias_dropout_residual_ln"))
 PATH_KERNELS = {label for _, label in OURS} | {"fused_rope",
                                                "fused_rope_bwd"}
 OPTIMIZER = "optimizer.step"
@@ -55,6 +61,8 @@ def group_of(name):
         return "gemm"
     if any(k in low for k in ("softmax", "gather", "scatter", "nll")):
         return "ce/softmax"
+    if "layer_norm" in low:
+        return "layer_norm"
     if "memcpy" in low or "memset" in low:
         return "memcpy/memset"
     if "elementwise" in low or "vectorized" in low:
@@ -73,14 +81,20 @@ def kernels_under(evt):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("llama-438m", "bert-base"),
+                        default="llama-438m")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    from chip_smoke import timed_steps, train_workload
+    import chip_smoke
     from paddle_tpu_torch.ops.cuda import launch_counts
 
-    _, opt, step, ids = train_workload()
+    workload = (chip_smoke.bert_train_workload if args.model == "bert-base"
+                else chip_smoke.train_workload)
+    _, opt, step, ids, labels = workload()
     batch, seqlen = ids.shape
     step_fn = opt.step
 
@@ -89,9 +103,9 @@ def main():
             step_fn()
 
     opt.step = traced_step
-    step(ids, labels=ids)
+    step(ids, labels=labels)
     torch.cuda.synchronize()
-    step_ms = float(np.median(timed_steps(step, ids)[1]))
+    step_ms = float(np.median(chip_smoke.timed_steps(step, ids, labels)[1]))
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -99,7 +113,7 @@ def main():
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILED):
-            step(ids, labels=ids)
+            step(ids, labels=labels)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     launches = {k: launch_counts[k] / PROFILED for k in sorted(PATH_KERNELS)}
@@ -123,7 +137,7 @@ def main():
     per_step_ms = {k: v / 1e3 / PROFILED
                    for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
     print(json.dumps({
-        "card": torch.cuda.get_device_name(0),
+        "card": torch.cuda.get_device_name(0), "model": args.model,
         "batch": batch, "seq": seqlen,
         "step_ms": step_ms,
         "tokens_per_sec": batch * seqlen / (step_ms / 1e3),
