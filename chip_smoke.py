@@ -25,7 +25,14 @@ so that a fault surfaces in the phase that caused it:
             1000) (mean and rstd also within 1e-5 relative; timed with its
             inputs out of L2, as its bound assumes), and the flash
             kernels at BERT-base's attention, (32, 128, 12, 64)
-            non-causal, forward, dK/dV and dQ.
+            non-causal, forward, dK/dV and dQ. Every flash row also
+            gives its achieved TFLOP/s (the function's flops over its
+            time) and the share of its bound that time reaches. Last the
+            flash-edge cases: the flash kernels at the shapes of
+            tests/test_torch_cuda.py's flash tests (bucket 32, ragged
+            lengths, GQA groups 2-8, a causal offset, sq > sk non-causal,
+            three tiles with the last ragged) and at 1025 and 383 rows,
+            forward, dK/dV and dQ, within the same gate.
 4. model    the 438M LLaMA (random N(0, 0.02) weights from a seed) in bf16
             on the card against the same weights in f32 on the CPU through
             the plain versions: one bucket-128 prefill of 2 prompts and 4
@@ -228,6 +235,12 @@ def bound_ms(nbytes, flops, peaks, flop_rate=None):
                                        else "operations")
 
 
+def rates(flops, ms, bms):
+    """A flash row's achieved rate (the function's flops over its time,
+    TFLOP/s) and the share of its bound that the time reaches."""
+    return dict(tflops=flops / ms * 1e-9, bound_share=bms / ms)
+
+
 def kernel_phase(peaks):
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -319,6 +332,7 @@ def kernel_phase(peaks):
                 qt, kt, vt, is_causal=True)),
         eager_ms=eager_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
         bound_ms=bms, bound_by=by)
+    rec.update(rates(flops, rec["ms"], bms))
     emit("kernel", name="flash_attention", **rec)
     torch.cuda.synchronize()
 
@@ -782,10 +796,11 @@ def train_kernel_phase(peaks):
                                   f"{lse_err:.3g}")
             bms, by = bound_ms(4 * q.numel() * 2 + lse.numel() * 4,
                                4 * hd * pairs, peaks)
+            ms = graph_ms(lambda: fa.flash_attention(q, k, v, True),
+                          calls=3, replays=3)
             emit("kernel", name="flash_attention", case="train_shape",
                  shape=list(q.shape), max_abs_err=err, lse_err=lse_err,
-                 ms=graph_ms(lambda: fa.flash_attention(q, k, v, True),
-                             calls=3, replays=3),
+                 ms=ms,
                  plain_ms=graph_ms(lambda: fa.flash_attention_plain(
                      q, k, v, True), calls=3, replays=3),
                  library_ms=graph_ms(
@@ -794,7 +809,7 @@ def train_kernel_phase(peaks):
                          is_causal=True), calls=3, replays=3),
                  eager_ms=eager_ms(lambda: fa.flash_attention(q, k, v, True),
                                    calls=5),
-                 bound_ms=bms, bound_by=by)
+                 bound_ms=bms, bound_by=by, **rates(4 * hd * pairs, ms, bms))
             torch.cuda.synchronize()
         delta = fa._delta(out, do)
         want_dq, want_dk, want_dv = fa.flash_attention_bwd_plain(
@@ -835,6 +850,7 @@ def train_kernel_phase(peaks):
                        ms=graph_ms(fn, calls=3, replays=3),
                        eager_ms=eager_ms(fn, calls=5), bound_ms=bms,
                        bound_by=by, plain_ms=plain, library_ms=lib)
+            rec.update(rates(flops, rec["ms"], bms))
             if case == "train":
                 results[kname] = rec
             emit("kernel", name=kname, **rec)
@@ -1092,6 +1108,8 @@ def bert_flash_phase(peaks):
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt), calls=5),
         bound_ms=bms, bound_by=by)}
+    results["flash_attention"].update(rates(
+        4 * d * pairs, results["flash_attention"]["ms"], bms))
     delta = fa._delta(out, do)
     want_dq, want_dk, want_dv = fa.flash_attention_bwd_plain(
         q, k, v, out, lse, do, False)
@@ -1127,10 +1145,63 @@ def bert_flash_phase(peaks):
                               causal=False, max_abs_err=errs[kname],
                               ms=graph_ms(fn, calls=5), plain_ms=plain,
                               library_ms=lib, bound_ms=bms, bound_by=by)
+        results[kname].update(rates(flops, results[kname]["ms"], bms))
     for kname, rec in results.items():
         emit("kernel", name=kname, **rec)
     torch.cuda.synchronize()
     return results
+
+
+# shapes off the main path's tiles, those of tests/test_torch_cuda.py's
+# flash tests and two a row from a multiple of 64 on either side:
+# (b, sq, sk, heads, kv_heads, d, causal)
+FLASH_EDGE_CASES = [
+    (2, 32, 32, 12, 12, 128, True),      # the serving path's bucket 32
+    (1, 50, 50, 8, 2, 64, True),         # ragged length, GQA group 4
+    (2, 5, 70, 16, 2, 128, True),        # causal offset sk - sq
+    (1, 33, 17, 4, 4, 64, False),        # non-causal, sq > sk
+    (1, 100, 100, 8, 4, 64, True),       # GQA group 2, off the 64-row tile
+    (2, 70, 70, 16, 2, 128, True),       # GQA group 8
+    (1, 150, 150, 12, 12, 128, True),    # MHA, three tiles, the last ragged
+    (2, 1025, 1025, 12, 12, 128, True),  # 64 x 16 + 1: dK/dV on 64-key tiles
+    (4, 383, 383, 8, 2, 64, False),      # 64 x 6 - 1
+]
+
+
+def flash_edge_phase():
+    """The flash forward, dK/dV and dQ kernels against their plain versions
+    at FLASH_EDGE_CASES, within the kernel gate: out and lse (within
+    1e-3), then dK, dV and dQ from the forward kernel's out and lse."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    for b, sq, sk, h, kvh, d, causal in FLASH_EDGE_CASES:
+        tag = f"({b}, {sq}, {sk}, {h}, {kvh}, {d}, causal={causal})"
+        q, do = randn(b, sq, h, d), randn(b, sq, h, d)
+        k, v = randn(b, sk, kvh, d), randn(b, sk, kvh, d)
+        out, lse = fa.flash_attention(q, k, v, causal=causal)
+        pout, plse = fa.flash_attention_plain(q, k, v, causal=causal)
+        errs = {"out": compare(f"flash_attention{tag}", out, pout)}
+        lse_err = (lse - plse).abs().max().item()
+        if lse_err > 1e-3:
+            raise PhaseFailed(f"flash_attention{tag}: lse off by "
+                              f"{lse_err:.3g}")
+        delta = fa._delta(out, do)
+        got_dk, got_dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                     causal)
+        got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        for nm, got, w in zip(("dq", "dk", "dv"), (got_dq, got_dk, got_dv),
+                              want):
+            errs[nm] = compare(f"{nm}{tag}", got, w)
+        emit("flash-edge", shape=[b, sq, sk, h, kvh, d], causal=causal,
+             lse_err=lse_err, max_abs_err=errs)
+    torch.cuda.synchronize()
 
 
 def rel_l2(got, want):
@@ -1462,7 +1533,8 @@ def main():
     _build.library()
     log = _build.library_file.with_suffix(".log")
     usage = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "Compiling entry" in ln]
+              if "registers" in ln or "spill" in ln
+              or "Compiling entry" in ln]
              if log.exists() else [])
     emit("build", seconds=time.monotonic() - t0,
          nvcc_seconds=_build.build_seconds, ptxas=usage)
@@ -1473,6 +1545,7 @@ def main():
     results.update(train_kernel_phase(peaks))
     results.update(bdrln_phase(peaks))
     bert_flash_phase(peaks)
+    flash_edge_phase()
     model = model_phase()
     torch.cuda.synchronize()
     counts = serving_phase(model, name, smi)

@@ -37,12 +37,110 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// ---- tensor-core building blocks (sm_80+): cp.async staging, ldmatrix
+// fragment loads and the bf16 m16n8k16 MMA with f32 accumulators. In a
+// fragment, lane = 4 * g + t: an accumulator holds (row g, cols 2t, 2t + 1)
+// in c[0..1] and (row g + 8, the same cols) in c[2..3]; an A operand
+// (16 x 16, row-major) holds (g, 2t..2t+1), (g + 8, 2t..), (g, 2t + 8..),
+// (g + 8, 2t + 8..) in a[0..3]; a B operand (16 x 8, k x n) holds
+// (k 2t..2t+1, n g) in b0 and (k 2t + 8.., n g) in b1, the lower k in the
+// low half of each register.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes = 0 writes zeros
+// (the source address must still be valid).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4 bytes global -> shared; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
 template <int N>
-__device__ __forceinline__ void store_bf16(__nv_bfloat16* p, const float* in) {
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Four 8 x 8 b16 matrices; lanes 8i..8i+7 give the row addresses of
+// matrix i, and r[i] receives (row g, cols 2t, 2t + 1) of it (with
+// kTrans, (rows 2t, 2t + 1, col g): the matrix transposed).
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  if (kTrans) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)) : "memory");
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p)) : "memory");
+  }
+}
+
+// c += a b over one 16 x 8 x 16 step, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// (a, b) as two bf16 pairs, hi their rounding and lo the rounding of what
+// hi leaves over: hi + lo carries ~16 bits of each, so a product that
+// takes both as operands loses 2^-17 relative, where one bf16 rounding
+// loses 2^-9.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - hf.x, b - hf.y);
+}
+
+// Rows [row0, row0 + kRows) of a bf16 matrix with D columns whose row i
+// starts at src + i * row_stride, into dst[kRows][D + 8] (each row padded
+// by 8 bf16, so that the 8 row addresses of an ldmatrix fall in distinct
+// banks) with 16-byte cp.async; rows at or past nrows are zeros. src and
+// row_stride must keep every row 16-byte aligned.
+template <int kRows, int D, int kThreads>
+__device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* src,
+                                              long long row_stride, int row0,
+                                              int nrows) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  constexpr int kTotal = kRows * kChunks;
 #pragma unroll
-  for (int i = 0; i < N; i += 2) {
-    *reinterpret_cast<__nv_bfloat162*>(p + i) =
-        __floats2bfloat162_rn(in[i], in[i + 1]);
+  for (int j = 0; j < (kTotal + kThreads - 1) / kThreads; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    if (kTotal % kThreads != 0 && i >= kTotal) break;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool ok = row0 + r < nrows;
+    cp_async_16(dst + r * (D + 8) + c,
+                ok ? src + (row0 + r) * row_stride + c : src, ok ? 16 : 0);
   }
 }
 

@@ -5,139 +5,302 @@
 // Replaces the Pallas kernel paddle_tpu/ops/pallas/flash_attention.py:86
 // (_fwd_kernel, called from _fwd at :137). Same function: causal rows see
 // keys c <= r + (sk - sq) (:102-107), GQA reads kv head h / (H / KVH) by
-// index and never repeats K/V, lse = m + log(l) in f32, masked scores are
-// -1e30. The Pallas grid steps over (b, h, q-block) in order and carries
-// nothing between steps; here one block holds kNumWarps query rows of one
-// (b, h), one warp per row, and walks that row's keys up to its causal
-// limit. Rows past sq are skipped, so any length rides the kernel: the
-// serving path's bucket 32 as well as 128 (the JAX gate sends 32 to the
-// XLA composition, which computes the same function). Segment-id masking
-// is not ported: the serving path never passes it.
+// index and never repeats K/V, lse = m + log(max(l, 1e-30)) in f32, masked
+// scores are -1e30. The Pallas grid steps over (b, h, q-block) in order
+// and carries nothing between steps; here one block of 4 warps owns a
+// tile of kBQ = 64 query rows of one (b, h), each warp 16 of them, and
+// walks 64-key tiles up to the tile's causal limit (tiles past it are
+// skipped, not masked). Rows past sq are zero-filled and never stored, so
+// any length rides the kernel: the serving bucket 32 and ragged lengths.
+// Segment-id masking is not ported: no caller passes it.
 //
-// Bound on the H100 at the serving path's prefill (g = 8, S = 128,
-// H = 12, D = 128, causal): bytes. Q, K, V and O are 12.6 MB, about
-// 3.8 us at 3.35 TB/s, against 0.4 GFLOP, 0.4 us at the bf16 tensor-core
-// peak. This first version runs on the CUDA cores, not the tensor cores:
-// the lanes of a warp split D, each score is a warp-shuffle sum, and the
-// kUnroll keys a warp loads at once keep several K/V rows in flight. The
-// rows of a block read the same K/V rows, which L1 serves after the first
-// warp. A tiled wgmma/TMA kernel is later work.
+// Bound on the H100: operations at the training shape (4, 1536, 12, 128)
+// causal (28.99 GFLOP, 29.3 us at the bf16 tensor-core peak), bytes at the
+// serving prefill (8, 128, 12, 128) (12.6 MB, 3.8 us at 3.35 TB/s) and at
+// BERT's (32, 128, 12, 64). Design, for the tensor cores:
+// - Every product is a bf16 mma.sync.m16n8k16 with f32 accumulators. A
+//   warp holds its 16 rows of Q as A fragments in registers (loaded once
+//   with ldmatrix); S = Q K^T lands in registers, row max and row sum
+//   reduce over the 4 lanes of a quad, and P, rounded to bf16, is the A
+//   operand of P V as it stands (the m16n8k16 accumulator layout is the
+//   A-fragment layout). O, m and l stay in f32 registers until the end.
+// - P enters P V as two bf16 operands, its rounding and the rounding of
+//   the rest (ptt::split_bf16), so it keeps ~16 bits where the Pallas
+//   kernel keeps P in f32 (l sums P in f32). One rounding, as FA2 does,
+//   errs by 2^-9 of each term, which in early causal rows (few keys) and
+//   in outputs that cancel to near zero exceeds the port's gate of 1e-3
+//   + 2^-7 relative; tests/test_torch_flash_rounding.py shows both. The
+//   second operand makes the tensor-core work 3 products instead of 2.
+// - K and V tiles are staged with 16-byte cp.async in a ring of two: the
+//   next tile's copies are in flight while the current one is multiplied.
+//   Shared rows are padded by 8 bf16, so ldmatrix (V through .trans) is
+//   free of bank conflicts. K and V are read once per block of 64 rows.
+// - Causal tiles run heaviest first (the last query tiles are launched
+//   first), so the long rows do not finish last. The mask is applied only
+//   on tiles that cross the diagonal or the end of the keys.
+// - 87 KB of shared memory at D = 128 (46 KB at 64): two blocks per SM.
+//   The output tile is written through the block's Q rows in shared
+//   memory, 16 bytes per lane.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kNumWarps = 4;
-constexpr int kUnroll = 4;
+constexpr int kBQ = 64;  // query rows per block: 4 warps x 16
+constexpr int kBK = 64;  // keys per tile
+constexpr int kThreads = kBQ / 16 * 32;
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DPL>  // head_dim / 32 values per lane
-__global__ void __launch_bounds__(kNumWarps * 32)
+template <int D>
+constexpr int smem_bytes() {
+  return (kBQ + 4 * kBK) * (D + 8) * 2;  // Q, and two stages of K and V
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  int sq, int sk, int heads, int kv_heads, float scale,
                  int causal) {
-  constexpr int D = DPL * 32;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kNumWarps + warp;
-  const int h = blockIdx.y, b = blockIdx.z;
-  if (row >= sq) return;  // no block-wide barrier below
+  constexpr int S = D + 8;      // shared row stride, bf16
+  constexpr int kKd = D / 16;   // k-steps of Q K^T
+  constexpr int kNs = kBK / 8;  // score n-blocks of a key tile
+  constexpr int kNo = D / 8;    // output n-blocks
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  auto* qs = reinterpret_cast<__nv_bfloat16*>(fwd_smem);
+  __nv_bfloat16* ks = qs + kBQ * S;      // [2][kBK][S]
+  __nv_bfloat16* vs = ks + 2 * kBK * S;  // [2][kBK][S]
+
+  // the last query tiles see the most keys: schedule them first
+  const int n_qt = (sq + kBQ - 1) / kBQ;
+  const int hb = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int h = blockIdx.x % hb % heads, b = blockIdx.x % hb / heads;
   const int kh = h / (heads / kv_heads);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = qt * kBQ, off = sk - sq;
+  const long long q_row = static_cast<long long>(heads) * D;
+  const long long kv_row = static_cast<long long>(kv_heads) * D;
+  const __nv_bfloat16* qb = q + (static_cast<long long>(b) * sq * heads + h) * D;
+  const long long kv_base = (static_cast<long long>(b) * sk * kv_heads + kh) * D;
+  const __nv_bfloat16* kb = k + kv_base;
+  const __nv_bfloat16* vb = v + kv_base;
 
-  float qf[DPL];
-  ptt::load_bf16<DPL>(
-      q + ((static_cast<long long>(b) * sq + row) * heads + h) * D + lane * DPL,
-      qf);
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) qf[i] *= scale;
+  // causal: the tile's last row sees keys c <= r_last + off
+  int k_end = sk;
+  if (causal) k_end = max(min(sk, min(q0 + kBQ, sq) + off), 0);
+  const int n_kt = (k_end + kBK - 1) / kBK;
 
-  int kend = causal ? min(sk, row + (sk - sq) + 1) : sk;
-  kend = max(kend, 0);
-  const long long key_stride = static_cast<long long>(kv_heads) * D;
-  const long long kv_base =
-      (static_cast<long long>(b) * sk * kv_heads + kh) * D + lane * DPL;
+  ptt::cp_async_rows<kBQ, D, kThreads>(qs, qb, q_row, q0, sq);
+  if (n_kt > 0) {
+    ptt::cp_async_rows<kBK, D, kThreads>(ks, kb, kv_row, 0, sk);
+    ptt::cp_async_rows<kBK, D, kThreads>(vs, vb, kv_row, 0, sk);
+  }
+  ptt::cp_async_commit();
 
-  float m = ptt::kNegInf, l = 0.f;
-  float acc[DPL];
+  const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
+  uint32_t qa[kKd][4];
+  float acc[kNo][4];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
+  for (int n = 0; n < kNo; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {ptt::kNegInf, ptt::kNegInf}, l[2] = {0.f, 0.f};
 
-  for (int j0 = 0; j0 < kend; j0 += kUnroll) {
-    float kf[kUnroll][DPL], vf[kUnroll][DPL];
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK, stage = kt & 1;
+    if (kt + 1 < n_kt) {
+      const int nxt = (stage ^ 1) * kBK * S;
+      ptt::cp_async_rows<kBK, D, kThreads>(ks + nxt, kb, kv_row, k0 + kBK, sk);
+      ptt::cp_async_rows<kBK, D, kThreads>(vs + nxt, vb, kv_row, k0 + kBK, sk);
+      ptt::cp_async_commit();
+      ptt::cp_async_wait<1>();
+    } else {
+      ptt::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j0 + u < kend) {
-        const long long off = kv_base + (j0 + u) * key_stride;
-        ptt::load_bf16<DPL>(k + off, kf[u]);
-        ptt::load_bf16<DPL>(v + off, vf[u]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) kf[u][i] = vf[u][i] = 0.f;
+      for (int kk = 0; kk < kKd; ++kk) {
+        ptt::ldmatrix_x4<false>(
+            qa[kk], qs + (warp * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8);
       }
     }
-    float s[kUnroll];
-    float mx = m;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) part += qf[i] * kf[u][i];
-      s[u] = ptt::warp_sum(part);
-      if (j0 + u < kend) mx = fmaxf(mx, s[u]);
-    }
-    const float alpha = expf(m - mx);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float p = (j0 + u < kend) ? expf(s[u] - mx) : 0.f;
-      l += p;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] += p * vf[u][i];
-    }
-    m = mx;
-  }
+    const __nv_bfloat16* kst = ks + stage * kBK * S;
+    const __nv_bfloat16* vst = vs + stage * kBK * S;
+    const int quad = lane >> 3;  // which of ldmatrix's four matrices
 
-  const float inv = 1.f / fmaxf(l, 1e-30f);
+    // S = Q K^T over this warp's 16 rows and the tile's 64 keys
+    float s[kNs][4];
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) acc[i] *= inv;
-  ptt::store_bf16<DPL>(
-      o + ((static_cast<long long>(b) * sq + row) * heads + h) * D + lane * DPL,
-      acc);
-  if (lane == 0) {
-    lse[(static_cast<long long>(b) * heads + h) * sq + row] =
-        m + logf(fmaxf(l, 1e-30f));
+    for (int n = 0; n < kNs; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKd; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kBK / 16; ++j) {
+        uint32_t bk[4];
+        ptt::ldmatrix_x4<false>(
+            bk, kst + (j * 16 + (quad >> 1) * 8 + (lane & 7)) * S + kk * 16 +
+                    (quad & 1) * 8);
+        ptt::mma_bf16(s[2 * j], qa[kk], bk[0], bk[1]);
+        ptt::mma_bf16(s[2 * j + 1], qa[kk], bk[2], bk[3]);
+      }
+    }
+
+    const bool need_mask =
+        k0 + kBK > sk || (causal && k0 + kBK - 1 > q0 + off);
+#pragma unroll
+    for (int n = 0; n < kNs; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] *= scale;
+        if (need_mask) {
+          const int c = k0 + n * 8 + 2 * t + (e & 1);
+          const int r = row + (e >> 1) * 8;
+          if (c >= sk || (causal && c > r + off)) s[n][e] = ptt::kNegInf;
+        }
+      }
+    }
+
+    // online softmax: the row max over the quad, then P = exp(S - m)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < kNs; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float mb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float alpha = exp2f((m[r] - mx[r]) * kLog2e);
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < kNo; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+      m[r] = mx[r];
+      // a row with no visible key yet keeps m = -1e30: its P must be 0
+      mb[r] = (mx[r] == ptt::kNegInf ? 0.f : mx[r]) * kLog2e;
+    }
+#pragma unroll
+    for (int n = 0; n < kNs; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(fmaf(s[n][e], kLog2e, -mb[e >> 1]));
+      }
+      l[0] += s[n][0] + s[n][1];
+      l[1] += s[n][2] + s[n][3];
+    }
+
+    // O += P V, P split in registers into two bf16 A operands
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {  // rows g, g + 8 by a & 1; keys by a >> 1
+        const float* p = s[2 * kk + (a >> 1)] + 2 * (a & 1);
+        ptt::split_bf16(p[0], p[1], hi[a], lo[a]);
+      }
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        uint32_t bv[4];
+        ptt::ldmatrix_x4<true>(
+            bv, vst + (kk * 16 + (quad & 1) * 8 + (lane & 7)) * S + j * 16 +
+                    (quad >> 1) * 8);
+        ptt::mma_bf16(acc[2 * j], hi, bv[0], bv[1]);
+        ptt::mma_bf16(acc[2 * j], lo, bv[0], bv[1]);
+        ptt::mma_bf16(acc[2 * j + 1], hi, bv[2], bv[3]);
+        ptt::mma_bf16(acc[2 * j + 1], lo, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
   }
+  ptt::cp_async_wait<0>();  // with no key tile, the Q copies
+  __syncthreads();          // Q rows are free for the output
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* os = qs + warp * 16 * S;  // this warp's own Q rows
+#pragma unroll
+  for (int n = 0; n < kNo; ++n) {
+    *reinterpret_cast<uint32_t*>(os + g * S + n * 8 + 2 * t) =
+        ptt::pack_bf16(acc[n][0] * inv[0], acc[n][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(os + (g + 8) * S + n * 8 + 2 * t) =
+        ptt::pack_bf16(acc[n][2] * inv[1], acc[n][3] * inv[1]);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+  __nv_bfloat16* ob = o + (static_cast<long long>(b) * sq * heads + h) * D;
+#pragma unroll
+  for (int j = 0; j < 16 * kChunks / 32; ++j) {
+    const int i = j * 32 + lane;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int qr = q0 + warp * 16 + r;
+    if (qr < sq) {
+      *reinterpret_cast<uint4*>(ob + qr * q_row + c) =
+          *reinterpret_cast<const uint4*>(os + r * S + c);
+    }
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row + 8 * r < sq) {
+        lse[(static_cast<long long>(b) * heads + h) * sq + row + 8 * r] =
+            m[r] + logf(fmaxf(l[r], 1e-30f));
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
+               const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int b,
+               int sq, int sk, int heads, int kv_heads, float scale,
+               int causal, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (sq + kBQ - 1) / kBQ * heads * b;
+  flash_fwd_kernel<D><<<blocks, kThreads, smem, stream>>>(
+      q, k, v, o, lse, sq, sk, heads, kv_heads, scale, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o: (b, sq, heads, d); k, v: (b, sk, kv_heads, d), all bf16
-// row-major; lse: (b, heads, sq) f32. d is 64 or 128.
+// row-major, 16-byte aligned; lse: (b, heads, sq) f32. d is 64 or 128.
 PTT_EXPORT int ptt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int b, int sq, int sk, int heads,
                                        int kv_heads, int d, float scale,
                                        int causal, void* stream) {
-  const dim3 grid((sq + kNumWarps - 1) / kNumWarps, heads, b);
-  const dim3 block(kNumWarps * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
   auto* lp = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 128) {
-    flash_fwd_kernel<4><<<grid, block, 0, st>>>(qp, kp, vp, op, lp, sq, sk,
-                                                heads, kv_heads, scale,
-                                                causal);
-  } else if (d == 64) {
-    flash_fwd_kernel<2><<<grid, block, 0, st>>>(qp, kp, vp, op, lp, sq, sk,
-                                                heads, kv_heads, scale,
-                                                causal);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_fwd<128>(qp, kp, vp, op, lp, b, sq, sk, heads, kv_heads,
+                           scale, causal, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (d == 64) {
+    return launch_fwd<64>(qp, kp, vp, op, lp, b, sq, sk, heads, kv_heads,
+                          scale, causal, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

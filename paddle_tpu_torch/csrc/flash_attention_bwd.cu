@@ -11,25 +11,49 @@
 // GQA query head h reads kv head h / (H / KVH) by index, and dK/dV sum the
 // whole group in f32. The Pallas dK/dV grid revisits one output block
 // across the group in grid order; Hopper blocks run in no order, so here
-// one block owns a tile of kTile key rows of one (b, kv head) and loops
-// over every query head of its group and over the causal range of query
-// tiles, with dK and dV in f32 registers, and writes them once. The dQ
-// block owns a tile of kTile query rows of one (b, h) and loops over the
-// causal range of key tiles. Segment-id masking is not ported (no caller
-// passes it).
+// one block owns a tile of key rows of one (b, kv head), loops over every
+// query head of its group and over the causal range of query tiles
+// (starting at max(k0 - (sk - sq), 0), :209), keeps dK and dV in f32
+// registers and writes them once: no atomics, the same bits every run.
+// The dQ block owns a tile of kTile query rows of one (b, h) and loops
+// over the causal range of key tiles. Segment-id masking is not ported
+// (no caller passes it).
 //
 // Bound on the H100 at the training shape (4, 1536, 12, 128), causal,
 // 56.66 M (query, key) pairs: operations. dK/dV does 4 products of
 // 2 * D flops per pair (58.0 GFLOP, 58.7 us at the bf16 tensor-core
 // peak), dQ 3 (43.5 GFLOP, 44.0 us); the bytes (q, k, v, dO, lse, delta
-// in, the gradients out) take ~22 us. This first version runs in f32 on
-// the CUDA cores: tiles of Q, dO, K and V staged in shared memory as f32
-// (rows padded to D + 1 floats, so that the 16 rows a warp reads at one
-// column fall in 16 banks) and reused by the whole block; each thread
-// owns a 4 x 4 micro-tile of the kTile x kTile score tile (rows ty + 16i,
-// columns tx + 16j) and a 4 x D/16 micro-tile of its output rows. P and
-// dS pass through shared memory between the score products and the
-// gradient products. A wgmma/TMA version is later work.
+// in, the gradients out) take ~22 us.
+//
+// dK/dV runs on the tensor cores. A block of 8 warps owns BK = 64 key rows
+// (32 where 64-row tiles would leave SMs idle) and walks 64-row query
+// tiles. With the key rows as the M side, S^T = K Q^T and dP^T = V dO^T
+// are bf16 mma.sync.m16n8k16 products with f32 accumulators: BK / 16
+// warps split the key rows and the rest split the tile's queries. P^T and
+// dS^T are formed in the accumulators and pass through small padded tiles
+// in shared memory, each as two bf16 parts (its rounding and the rounding
+// of the rest, ptt::split_bf16: ~16 bits, where the Pallas kernel keeps P
+// and dS in f32; one rounding misses the port's gate, as
+// tests/test_torch_flash_rounding.py shows). Then dV += P^T dO and
+// dK += dS^T Q run, each part an A operand, with the warps split over the
+// key rows and D, so the f32 dK and dV of a warp are
+// 2 x 16 x D / (8 / (BK / 16)) values. The tensor cores do 6 products'
+// work where the function needs 4.
+// Q, dO, lse and delta are staged by cp.async (16 bytes a lane for the
+// rows, 4 for lse and delta) in a ring of two tiles, the next tile's
+// copies in flight during the current one's products; K and V are staged
+// once. Shared rows are padded by 8 bf16, so ldmatrix (dO and Q through
+// .trans) is free of bank conflicts. Key tile 0, which sees the most query
+// tiles under a causal mask, is scheduled first. The mask is applied only on
+// the query tiles that cross the diagonal or the end of the rows.
+//
+// dQ is the first, CUDA-core version: tiles of Q, dO, K and V staged in
+// shared memory as f32 (rows padded to D + 1 floats, so that the 16 rows a
+// warp reads at one column fall in 16 banks) and reused by the whole
+// block; each thread owns a 4 x 4 micro-tile of the kTile x kTile score
+// tile (rows ty + 16i, columns tx + 16j) and a 4 x D/16 micro-tile of its
+// output rows; dS passes through shared memory between the score products
+// and dQ's product.
 #include "common.cuh"
 
 namespace {
@@ -87,8 +111,22 @@ __device__ __forceinline__ void tile_dot(const float* a, const float* b,
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// ---- dK/dV on the tensor cores (see the note at the top of the file)
+
+constexpr int kDkdvThreads = 256;  // 8 warps
+constexpr int kBQd = 64;           // query rows per tile of the loop
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D, int BK>
+constexpr size_t dkdv_smem_bytes() {
+  // K, V; two stages of Q and dO; P^T and dS^T as hi and lo bf16 parts;
+  // two stages of lse and delta
+  return static_cast<size_t>(2 * BK + 4 * kBQd) * (D + 8) * 2 +
+         static_cast<size_t>(4 * BK) * (kBQd + 8) * 2 + 4 * kBQd * 4;
+}
+
+template <int D, int BK>
+__global__ void __launch_bounds__(kDkdvThreads)
 flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -98,105 +136,197 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int sq, int sk,
                       int heads, int kv_heads, float scale, int causal) {
-  constexpr int kStride = D + 1;
-  constexpr int kDj = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kTile * kStride;
-  float* qs = vs + kTile * kStride;
-  float* dos = qs + kTile * kStride;
-  float* ps = dos + kTile * kStride;  // P and dS, [kTile][kPStride] each
-  float* dss = ps + kTile * kPStride;
-  __shared__ float lse_s[kTile], delta_s[kTile];
+  constexpr int S = D + 8;           // shared row stride of K, V, Q, dO
+  constexpr int PS = kBQd + 8;       // shared row stride of P^T, dS^T
+  constexpr int kRowG = BK / 16;     // warps along the key rows
+  constexpr int kColG = 8 / kRowG;   // warps along queries, then along D
+  constexpr int QW = kBQd / kColG;   // queries per warp in S^T, dP^T
+  constexpr int DW = D / kColG;      // head dims per warp in dK, dV
+  static_assert(QW % 16 == 0 && DW % 16 == 0, "warp tiles of 16");
+  extern __shared__ __align__(16) unsigned char dkdv_smem[];
+  auto* ks = reinterpret_cast<__nv_bfloat16*>(dkdv_smem);
+  __nv_bfloat16* vs = ks + BK * S;
+  __nv_bfloat16* qs = vs + BK * S;          // [2][kBQd][S]
+  __nv_bfloat16* dos = qs + 2 * kBQd * S;   // [2][kBQd][S]
+  __nv_bfloat16* pts = dos + 2 * kBQd * S;  // P^T [hi, lo][BK][PS]
+  __nv_bfloat16* dss = pts + 2 * BK * PS;   // dS^T [hi, lo][BK][PS]
+  auto* lse_s = reinterpret_cast<float*>(dss + 2 * BK * PS);  // [2][kBQd]
+  float* dlt_s = lse_s + 2 * kBQd;                        // [2][kBQd]
 
-  const int kh = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * kTile;
-  const int group = heads / kv_heads;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int off = sk - sq;
+  // key tile 0 loops over the most query tiles when causal: schedule first
+  const int kvb = gridDim.x / ((sk + BK - 1) / BK);
+  const int kt = blockIdx.x / kvb;
+  const int kh = blockIdx.x % kvb % kv_heads, b = blockIdx.x % kvb / kv_heads;
+  const int k0 = kt * BK, off = sk - sq, group = heads / kv_heads;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, quad = lane >> 3;
+  const int rg = warp % kRowG, cg = warp / kRowG;
   const long long kv_row = static_cast<long long>(kv_heads) * D;
   const long long q_row = static_cast<long long>(heads) * D;
   const long long kv_base = (static_cast<long long>(b) * sk * kv_heads + kh) * D;
 
-  load_tile<D>(ks, k + kv_base, kv_row, k0, sk);
-  load_tile<D>(vs, v + kv_base, kv_row, k0, sk);
-
-  // this thread's rows of the key tile: ty + 16i; its dims: tx + 16j
-  float dk_acc[4][kDj], dv_acc[4][kDj];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kDj; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
   // causal: query rows r with r + off < k0 see nothing of this key tile
-  const int q_first = causal ? max(k0 - off, 0) / kTile : 0;
-  const int n_qt = (sq + kTile - 1) / kTile;
+  const int q_first = causal ? max(k0 - off, 0) / kBQd : 0;
+  const int nq = max((sq + kBQd - 1) / kBQd - q_first, 0);
+  const int total = group * nq;  // (query head of the group, query tile)
 
-  for (int g = 0; g < group; ++g) {
-    const int h = kh * group + g;
+  // step it of the loop -> stage: Q, dO, lse and delta of its tile
+  auto prefetch = [&](int it, int stage) {
+    const int h = kh * group + it / nq, q0 = (q_first + it % nq) * kBQd;
     const long long q_base = (static_cast<long long>(b) * sq * heads + h) * D;
+    ptt::cp_async_rows<kBQd, D, kDkdvThreads>(qs + stage * kBQd * S,
+                                              q + q_base, q_row, q0, sq);
+    ptt::cp_async_rows<kBQd, D, kDkdvThreads>(dos + stage * kBQd * S,
+                                              dout + q_base, q_row, q0, sq);
+    const int i = threadIdx.x % kBQd, r = q0 + i;
     const long long row_base = (static_cast<long long>(b) * heads + h) * sq;
-    for (int qt = q_first; qt < n_qt; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // the last tile's readers are done with qs..dss
-      load_tile<D>(qs, q + q_base, q_row, q0, sq);
-      load_tile<D>(dos, dout + q_base, q_row, q0, sq);
-      if (threadIdx.x < kTile) {
-        const int r = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = r < sq ? lse[row_base + r] : 0.f;
-        delta_s[threadIdx.x] = r < sq ? delta[row_base + r] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      tile_dot<D>(qs, ks, ty, tx, s);
-      tile_dot<D>(dos, vs, ty, tx, dp);
+    const float* src = threadIdx.x < kBQd ? lse : delta;
+    if (threadIdx.x < 2 * kBQd) {
+      ptt::cp_async_4((threadIdx.x < kBQd ? lse_s : dlt_s) + stage * kBQd + i,
+                      src + row_base + (r < sq ? r : 0), r < sq ? 4 : 0);
+    }
+  };
+
+  ptt::cp_async_rows<BK, D, kDkdvThreads>(ks, k + kv_base, kv_row, k0, sk);
+  ptt::cp_async_rows<BK, D, kDkdvThreads>(vs, v + kv_base, kv_row, k0, sk);
+  if (total > 0) prefetch(0, 0);
+  ptt::cp_async_commit();
+
+  // this warp's key rows k0 + 16 rg + (g, g + 8), head dims cg * DW + ...
+  float dk_acc[DW / 8][4], dv_acc[DW / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int rl = ty + 16 * i, r = q0 + rl;
+  for (int n = 0; n < DW / 8; ++n)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int cl = tx + 16 * j, c = k0 + cl;
-          const bool keep = r < sq && c < sk && (!causal || c <= r + off);
-          const float p = keep ? expf(s[i][j] * scale - lse_s[rl]) : 0.f;
-          ps[rl * kPStride + cl] = p;
-          dss[rl * kPStride + cl] = p * (dp[i][j] - delta_s[rl]) * scale;
-        }
-      }
-      __syncthreads();
-      // dV[c][d] += sum_r P[r][c] dO[r][d];  dK[c][d] += sum_r dS[r][c] Q[r][d]
-#pragma unroll 4
-      for (int r = 0; r < kTile; ++r) {
-        float pv[4], dsv[4], dov[kDj], qv[kDj];
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const int c_row = k0 + rg * 16 + g;
+  const float scale_log2 = scale * kLog2e;
+
+  for (int it = 0; it < total; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < total) {
+      prefetch(it + 1, stage ^ 1);
+      ptt::cp_async_commit();
+      ptt::cp_async_wait<1>();
+    } else {
+      ptt::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = (q_first + it % nq) * kBQd;
+    const __nv_bfloat16* qst = qs + stage * kBQd * S;
+    const __nv_bfloat16* dost = dos + stage * kBQd * S;
+    const float* lse_t = lse_s + stage * kBQd;
+    const float* dlt_t = dlt_s + stage * kBQd;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 key rows x QW queries per warp
+    float st[QW / 8][4], dpt[QW / 8][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = ps[r * kPStride + ty + 16 * i];
-          dsv[i] = dss[r * kPStride + ty + 16 * i];
-        }
+    for (int n = 0; n < QW / 8; ++n)
 #pragma unroll
-        for (int j = 0; j < kDj; ++j) {
-          dov[j] = dos[r * kStride + tx + 16 * j];
-          qv[j] = qs[r * kStride + tx + 16 * j];
-        }
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      const int a_off = (rg * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8;
+      ptt::ldmatrix_x4<false>(ka, ks + a_off);
+      ptt::ldmatrix_x4<false>(va, vs + a_off);
 #pragma unroll
-          for (int j = 0; j < kDj; ++j) {
-            dv_acc[i][j] += pv[i] * dov[j];
-            dk_acc[i][j] += dsv[i] * qv[j];
-          }
+      for (int j = 0; j < QW / 16; ++j) {
+        const int b_off = (cg * QW + j * 16 + (quad >> 1) * 8 + (lane & 7)) * S +
+                          kk * 16 + (quad & 1) * 8;
+        uint32_t bq[4], bo[4];
+        ptt::ldmatrix_x4<false>(bq, qst + b_off);
+        ptt::mma_bf16(st[2 * j], ka, bq[0], bq[1]);
+        ptt::mma_bf16(st[2 * j + 1], ka, bq[2], bq[3]);
+        ptt::ldmatrix_x4<false>(bo, dost + b_off);
+        ptt::mma_bf16(dpt[2 * j], va, bo[0], bo[1]);
+        ptt::mma_bf16(dpt[2 * j + 1], va, bo[2], bo[3]);
       }
     }
-  }
 
+    // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) scale, each
+    // split into two bf16 parts in shared memory for the gradient products
+    const bool need_mask =
+        q0 + kBQd > sq || (causal && k0 + BK - 1 > q0 + off);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty + 16 * i;
-    if (c >= sk) continue;
-    const long long o = kv_base + static_cast<long long>(c) * kv_row;
+    for (int n = 0; n < QW / 8; ++n) {
 #pragma unroll
-    for (int j = 0; j < kDj; ++j) {
-      dk[o + tx + 16 * j] = __float2bfloat16(dk_acc[i][j]);
-      dv[o + tx + 16 * j] = __float2bfloat16(dv_acc[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int rl = cg * QW + n * 8 + 2 * t + (e & 1);
+        float p = exp2f(fmaf(st[n][e], scale_log2, -lse_t[rl] * kLog2e));
+        if (need_mask) {
+          const int r = q0 + rl, c = c_row + (e >> 1) * 8;
+          if (r >= sq || (causal && c > r + off)) p = 0.f;
+        }
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - dlt_t[rl]) * scale;
+      }
+      const int col = cg * QW + n * 8 + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // key rows g, then g + 8
+        const int at = (rg * 16 + g + 8 * half) * PS + col;
+        auto* dst = reinterpret_cast<uint32_t*>(pts + at);
+        ptt::split_bf16(st[n][2 * half], st[n][2 * half + 1], dst[0],
+                        dst[BK * PS / 2]);
+        dst = reinterpret_cast<uint32_t*>(dss + at);
+        ptt::split_bf16(dpt[n][2 * half], dpt[n][2 * half + 1], dst[0],
+                        dst[BK * PS / 2]);
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q: 16 key rows x DW head dims per warp
+#pragma unroll
+    for (int kk = 0; kk < kBQd / 16; ++kk) {
+      uint32_t pa[2][4], da[2][4];  // [hi, lo]
+      const int a_off = (rg * 16 + (lane & 15)) * PS + kk * 16 + (lane >> 4) * 8;
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        ptt::ldmatrix_x4<false>(pa[part], pts + part * BK * PS + a_off);
+        ptt::ldmatrix_x4<false>(da[part], dss + part * BK * PS + a_off);
+      }
+#pragma unroll
+      for (int j = 0; j < DW / 16; ++j) {
+        const int b_off = (kk * 16 + (quad & 1) * 8 + (lane & 7)) * S +
+                          cg * DW + j * 16 + (quad >> 1) * 8;
+        uint32_t bo[4], bq[4];
+        ptt::ldmatrix_x4<true>(bo, dost + b_off);
+        ptt::ldmatrix_x4<true>(bq, qst + b_off);
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {
+          ptt::mma_bf16(dv_acc[2 * j], pa[part], bo[0], bo[1]);
+          ptt::mma_bf16(dv_acc[2 * j + 1], pa[part], bo[2], bo[3]);
+          ptt::mma_bf16(dk_acc[2 * j], da[part], bq[0], bq[1]);
+          ptt::mma_bf16(dk_acc[2 * j + 1], da[part], bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage and P^T, dS^T
+  }
+  ptt::cp_async_wait<0>();  // with no query tile, the K/V copies
+  __syncthreads();
+
+  // dK, dV through the K and V tiles in shared memory, 16 bytes a lane
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n) {
+    const int col = cg * DW + n * 8 + 2 * t;
+    const int r0 = (rg * 16 + g) * S + col, r8 = r0 + 8 * S;
+    *reinterpret_cast<uint32_t*>(ks + r0) = ptt::pack_bf16(dk_acc[n][0], dk_acc[n][1]);
+    *reinterpret_cast<uint32_t*>(ks + r8) = ptt::pack_bf16(dk_acc[n][2], dk_acc[n][3]);
+    *reinterpret_cast<uint32_t*>(vs + r0) = ptt::pack_bf16(dv_acc[n][0], dv_acc[n][1]);
+    *reinterpret_cast<uint32_t*>(vs + r8) = ptt::pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+  }
+  __syncthreads();
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int j = 0; j < BK * kChunks / kDkdvThreads; ++j) {
+    const int i = j * kDkdvThreads + threadIdx.x;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    if (k0 + r < sk) {
+      const long long o = kv_base + (k0 + r) * kv_row + c;
+      *reinterpret_cast<uint4*>(dk + o) =
+          *reinterpret_cast<const uint4*>(ks + r * S + c);
+      *reinterpret_cast<uint4*>(dv + o) =
+          *reinterpret_cast<const uint4*>(vs + r * S + c);
     }
   }
 }
@@ -309,19 +439,34 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D>
-int launch_dkdv(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
-  const size_t smem = smem_floats<D>(4) * sizeof(float) +
-                      static_cast<size_t>(kTile) * kPStride * sizeof(float);
+template <int D, int BK>
+int launch_dkdv_tile(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
+  constexpr size_t smem = dkdv_smem_bytes<D, BK>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dkdv_kernel<D, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.sk + kTile - 1) / kTile, a.kv_heads, a.b);
-  flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+  const int blocks = (a.sk + BK - 1) / BK * a.kv_heads * a.b;
+  flash_bwd_dkdv_kernel<D, BK><<<blocks, kDkdvThreads, smem, a.stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, dk, dv, a.sq, a.sk, a.heads,
       a.kv_heads, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 64-key tiles, or 32 where 64 would leave SMs without a block (the GQA
+// case: 2 x 4 kv heads x 512 keys is 64 blocks of 64 keys on 132 SMs)
+template <int D>
+int launch_dkdv(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((a.sk + 63) / 64 * a.kv_heads * a.b >= sms) {
+    return launch_dkdv_tile<D, 64>(a, dk, dv);
+  }
+  return launch_dkdv_tile<D, 32>(a, dk, dv);
 }
 
 template <int D>

@@ -53,6 +53,8 @@ def flash_attention_plain(q, k, v, causal=True):
 def _check(name, q, k, v):
     for arg, t in (("q", q), ("k", k), ("v", v)):
         _build.expect(name, arg, t, torch.bfloat16, 4)
+        if t.data_ptr() % 16:  # the kernels copy rows 16 bytes at a time
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
     b, sq, h, d = q.shape
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or d not in HEAD_DIMS or h % k.shape[2] or sq == 0):
@@ -64,7 +66,8 @@ def _check(name, q, k, v):
 def flash_attention(q, k, v, causal=True):
     """Attention forward with lse (see :func:`flash_attention_plain`). A
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16, contiguous, D in {64, 128}, H a multiple of KVH) or raises."""
+    (bf16, contiguous, 16-byte aligned, D in {64, 128}, H a multiple of
+    KVH) or raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
     name = "flash_attention"
@@ -120,6 +123,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True):
 def _bwd_args(name, q, k, v, do, lse, delta):
     _check(name, q, k, v)
     _build.expect(name, "do", do, torch.bfloat16, 4)
+    if do.data_ptr() % 16:
+        raise ValueError(f"{name}: do must be 16-byte aligned")
     _build.expect(name, "lse", lse, torch.float32, 3)
     _build.expect(name, "delta", delta, torch.float32, 3)
     b, sq, h, d = q.shape

@@ -184,6 +184,13 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(TypeError, match="bfloat16"):
         y = _randn(gen, 1, 8, 2, 64, dtype=torch.float32)
         fa.flash_attention_bwd(y, y, y, y, lse, y)
+    # contiguous but 8 bytes off: the kernels copy rows 16 bytes at a time
+    z = _randn(gen, 1 * 8 * 2 * 64 + 4)[4:].view(1, 8, 2, 64)
+    y = _randn(gen, 1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(z, y, y)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_bwd(y, y, y, y, lse, z)
     q = _randn(gen, 1, 32, 64)
     kp = _randn(gen, 2, 16, 2, 64)  # 16 query heads per kv head
     with pytest.raises(ValueError, match="query heads per kv head"):

@@ -1,0 +1,199 @@
+"""The rounding points of the flash kernels' tensor-core design, emulated
+on the CPU and held against the JAX package's Pallas flash attention.
+
+``csrc/flash_attention.cu`` computes every product with bf16 operands and
+f32 sums. P enters ``P V`` as two bf16 terms, its bf16 rounding and the
+bf16 rounding of what that left over (the row sum l adds P in f32).
+``csrc/flash_attention_bwd.cu`` does the same with P and dS before
+``dV += P^T dO`` and ``dK += dS^T Q``. The Pallas kernels keep P and dS in
+f32. Here the kernels' tile loops (64 query rows by 64 keys, online
+rescaling, causal tiles skipped past the limit, the dK/dV loop over the
+GQA group and the causal range of query tiles) run in f32 torch with
+those roundings, on bf16-valued inputs from numpy with a seed, and are
+held against JAX's ``_fwd`` and the backward rule of ``_flash_bhsd``
+(``_bwd``, what ``jax.vjp`` through it runs) in interpret mode, the
+latter with the emulated forward's out and lse as its residuals, as the
+plain version on the card takes the kernel's. A single bf16 rounding of P and dS, as FA2 does, misses
+the gate here: early causal rows average few keys, and outputs and dK
+entries that cancel to near zero keep its 2^-9 relative error per term.
+
+Tolerance: ``chip_smoke.py``'s kernel gate, |got - want| <= 1e-3 + 2^-7
+|want| with both sides rounded to bf16 (as the kernel's output and the
+plain version's are on the card), and lse within 1e-3 absolute.
+"""
+import functools
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops.pallas import flash_attention as jax_fa
+
+RTOL, ATOL = 2.0 ** -7, 1e-3
+BQ = BK = 64  # the kernels' query and key tiles
+NEG_INF = -1e30
+
+CASES = {  # b, s, heads, kv heads, d, causal
+    "causal_d128": (1, 256, 2, 2, 128, True),
+    "gqa_d64": (2, 128, 4, 2, 64, False),
+}
+
+
+def _bf16(x):
+    """``x`` rounded to bf16, kept in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _operand(p, split):
+    """P (or dS) as the kernels feed it to a product: its bf16 rounding,
+    plus the bf16 rounding of the rest when ``split``."""
+    hi = _bf16(p)
+    return hi + _bf16(p - hi) if split else hi
+
+
+def _inputs(b, s, h, kvh, d):
+    rng = np.random.RandomState(5)
+    q, do = (rng.randn(b, s, h, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, s, kvh, d).astype(np.float32) for _ in range(2))
+    return tuple(_bf16(torch.from_numpy(a)) for a in (q, k, v, do))
+
+
+def emulate_fwd(q, k, v, causal, split=True):
+    """The forward kernel's tile loop: (out bf16 (B, Sq, H, D), lse f32
+    (B, H, Sq))."""
+    b, sq, h, d = q.shape
+    sk, group = k.shape[1], h // k.shape[2]
+    scale, off = 1.0 / math.sqrt(d), sk - sq
+    out = torch.zeros_like(q)
+    lse = torch.zeros(b, h, sq)
+    for bi in range(b):
+        for hi in range(h):
+            kh = hi // group
+            for q0 in range(0, sq, BQ):
+                rows = torch.arange(q0, min(q0 + BQ, sq))
+                qt = q[bi, rows, hi]
+                k_end = (max(min(sk, int(rows[-1]) + 1 + off), 0) if causal
+                         else sk)
+                m = torch.full((len(rows),), NEG_INF)
+                l = torch.zeros(len(rows))
+                acc = torch.zeros(len(rows), d)
+                for k0 in range(0, k_end, BK):
+                    cols = torch.arange(k0, min(k0 + BK, sk))
+                    s = (qt @ k[bi, cols, kh].T) * scale
+                    if causal:
+                        s = torch.where(cols[None] <= rows[:, None] + off, s,
+                                        NEG_INF)
+                    m_new = torch.maximum(m, s.max(1).values)
+                    alpha = torch.exp(m - m_new)
+                    base = torch.where(m_new == NEG_INF, 0.0, m_new)
+                    p = torch.exp(s - base[:, None])
+                    l = l * alpha + p.sum(1)
+                    acc = (acc * alpha[:, None]
+                           + _operand(p, split) @ v[bi, cols, kh])
+                    m = m_new
+                out[bi, rows, hi] = acc / l.clamp(min=1e-30)[:, None]
+                lse[bi, hi, rows] = m + torch.log(l.clamp(min=1e-30))
+    return _bf16(out), lse
+
+
+def emulate_dkdv(q, k, v, do, lse, delta, causal, split=True):
+    """The dK/dV kernel's loop: one key tile of one (b, kv head) at a time,
+    over its group's query heads and the causal range of query tiles."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale, off = 1.0 / math.sqrt(d), sk - sq
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for bi in range(b):
+        for kh in range(kvh):
+            for k0 in range(0, sk, BK):
+                cols = torch.arange(k0, min(k0 + BK, sk))
+                dk_t = torch.zeros(len(cols), d)
+                dv_t = torch.zeros(len(cols), d)
+                q_first = max(k0 - off, 0) // BQ * BQ if causal else 0
+                for hi in range(kh * group, (kh + 1) * group):
+                    for q0 in range(q_first, sq, BQ):
+                        rows = torch.arange(q0, min(q0 + BQ, sq))
+                        qt, dot = q[bi, rows, hi], do[bi, rows, hi]
+                        s = qt @ k[bi, cols, kh].T
+                        p = torch.exp(s * scale - lse[bi, hi, rows][:, None])
+                        if causal:
+                            p = torch.where(
+                                cols[None] <= rows[:, None] + off, p, 0.0)
+                        dp = dot @ v[bi, cols, kh].T
+                        ds = p * (dp - delta[bi, hi, rows][:, None]) * scale
+                        dv_t += _operand(p, split).T @ dot
+                        dk_t += _operand(ds, split).T @ qt
+                dk[bi, cols, kh] = dk_t
+                dv[bi, cols, kh] = dv_t
+    return _bf16(dk), _bf16(dv)
+
+
+def _bhsd(t):
+    return jnp.swapaxes(jnp.asarray(t.numpy()), 1, 2)
+
+
+def _gate_misses(got, want):
+    """Elements of ``got`` beyond the kernel gate around ``want``."""
+    want = _bf16(want)
+    return int(((got - want).abs() > ATOL + RTOL * want.abs()).sum())
+
+
+def _back(a):
+    return torch.from_numpy(np.swapaxes(np.asarray(a), 1, 2).copy())
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_fwd(case):
+    """JAX's out and lse for ``case`` (the Pallas forward, interpreted)."""
+    b, s, h, kvh, d, causal = CASES[case]
+    q, k, v, _ = (_bhsd(t) for t in _inputs(b, s, h, kvh, d))
+    out, lse = jax_fa._fwd(q, k, v, causal, 1.0 / math.sqrt(d))
+    return _back(out), torch.from_numpy(np.asarray(lse)[..., 0].copy())
+
+
+def _reference_dkdv(case, out, lse):
+    """JAX's dK and dV for ``case``: the backward rule of ``_flash_bhsd``
+    (the Pallas backward kernels, interpreted) with ``out`` and ``lse`` as
+    its residuals, as the plain version on the card takes the forward
+    kernel's."""
+    b, s, h, kvh, d, causal = CASES[case]
+    q, k, v, do = (_bhsd(t) for t in _inputs(b, s, h, kvh, d))
+    res = (q, k, v, None, None, _bhsd(out), jnp.asarray(lse.numpy())[..., None])
+    _, dk, dv, _, _ = jax_fa._bwd(causal, 1.0 / math.sqrt(d), res, do)
+    return _back(dk), _back(dv)
+
+
+def _emulate(case, split):
+    b, s, h, kvh, d, causal = CASES[case]
+    q, k, v, do = _inputs(b, s, h, kvh, d)
+    out, lse = emulate_fwd(q, k, v, causal, split)
+    delta = (do * out).sum(-1).transpose(1, 2)
+    return (out, lse) + emulate_dkdv(q, k, v, do, lse, delta, causal, split)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_rounding_fits_the_kernel_gate(case):
+    got_o, got_lse, _, _ = _emulate(case, split=True)
+    want_o, want_lse = _reference_fwd(case)
+    assert _gate_misses(got_o, want_o) == 0
+    torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_dkdv_rounding_fits_the_kernel_gate(case):
+    out, lse, got_dk, got_dv = _emulate(case, split=True)
+    want_dk, want_dv = _reference_dkdv(case, out, lse)
+    assert _gate_misses(got_dk, want_dk) == 0
+    assert _gate_misses(got_dv, want_dv) == 0
+
+
+def test_one_bf16_rounding_of_p_and_ds_misses_the_gate():
+    out, lse, got_dk, got_dv = _emulate("causal_d128", split=False)
+    assert _gate_misses(out, _reference_fwd("causal_d128")[0]) > 0
+    want_dk, want_dv = _reference_dkdv("causal_d128", out, lse)
+    assert _gate_misses(got_dk, want_dk) > 0
+    assert _gate_misses(got_dv, want_dv) > 0
