@@ -11,9 +11,12 @@ so that a fault surfaces in the phase that caused it:
 3. kernel   each kernel against its plain PyTorch version on the card, in
             bf16: the serving kernels at the serving path's shapes (the
             decode megakernel at the engine's pool layout, plus a GQA
-            case), the training path's backward kernels and the forward
-            kernels at the training shape, (4, 1536) tokens of the 438M
-            model, plus a GQA case for flash dK/dV. Max abs error within
+            case; the RMSNorm forward with weight, weight and bias, bias
+            alone and neither, also at widths 100 and 4096), the training
+            path's backward kernels and the forward kernels at the
+            training shape, (4, 1536) tokens of the 438M model (the
+            RMSNorm forward also timed with a bias), plus a GQA case for
+            flash dK/dV and dQ. Max abs error within
             the stated tolerance, device time per call (a CUDA graph of
             many calls, so host launch cost is excluded), the plain
             version's and a PyTorch library call's time, and the bound
@@ -241,6 +244,21 @@ def rates(flops, ms, bms):
     return dict(tflops=flops / ms * 1e-9, bound_share=bms / ms)
 
 
+def rms_norm_variants(rn, x, w, bias, tag):
+    """The RMSNorm forward kernel against its plain version with the
+    weight alone, with weight and bias, with the bias alone and with
+    neither; y within the kernel gate, r within 1e-5 relative. Returns the
+    largest error of y."""
+    err = 0.0
+    for wt, bt in ((w, None), (w, bias), (None, bias), (None, None)):
+        y, r = rn.rms_norm(x, wt, bt, epsilon=1e-6)
+        py, pr = rn.rms_norm_plain(x, wt, bt, epsilon=1e-6)
+        err = max(err, compare(tag, y, py))
+        if (r - pr).abs().max().item() > 1e-5 * pr.abs().max().item():
+            raise PhaseFailed(f"{tag}: per-row r disagrees")
+    return err
+
+
 def kernel_phase(peaks):
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -257,28 +275,32 @@ def kernel_phase(peaks):
     hidden, heads, hd = 1536, 12, 128
     results = {}
 
-    # RMSNorm at the decode step's (8, 1536) and a prefill's (1024, 1536)
+    # RMSNorm at the decode step's (8, 1536) and a prefill's (1024, 1536),
+    # then the widths off the vector path's 1536 (gate only)
     w = (1.0 + 0.1 * randn(hidden, dtype=torch.float32)).to(bf16)
+    bias = 0.1 * randn(hidden)
     for n in (8, 1024):
         x = randn(n, hidden)
-        y, r = rn.rms_norm(x, w, 1e-6)
-        py, pr = rn.rms_norm_plain(x, w, 1e-6)
-        err = compare(f"rms_norm({n})", y, py)
-        if (r - pr).abs().max().item() > 1e-5 * pr.abs().max().item():
-            raise PhaseFailed("rms_norm: per-row r disagrees")
+        err = rms_norm_variants(rn, x, w, bias, f"rms_norm({n})")
         nb = 2 * n * hidden * 2 + hidden * 2 + n * 4
         bms, by = bound_ms(nb, 4 * n * hidden, peaks)
         rec = dict(
             shape=[n, hidden], max_abs_err=err,
-            ms=graph_ms(lambda: rn.rms_norm(x, w, 1e-6)),
-            plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, 1e-6)),
+            ms=graph_ms(lambda: rn.rms_norm(x, w, epsilon=1e-6)),
+            plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, epsilon=1e-6)),
             library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
                 x, (hidden,), w, 1e-6)),
-            eager_ms=eager_ms(lambda: rn.rms_norm(x, w, 1e-6)),
-            bound_ms=bms, bound_by=by)
+            eager_ms=eager_ms(lambda: rn.rms_norm(x, w, epsilon=1e-6)),
+            bound_ms=bms, bound_by=by,
+            bias_ms=graph_ms(lambda: rn.rms_norm(x, w, bias, epsilon=1e-6)))
         emit("kernel", name="rms_norm", **rec)
         if n == 8:  # the decode step: the main path's most frequent call
             results["rms_norm"] = rec
+    for n, d in ((37, 100), (5, 4096)):
+        err = rms_norm_variants(rn, randn(n, d), randn(d), randn(d),
+                                f"rms_norm({n}, {d})")
+        emit("kernel", name="rms_norm", case="width", shape=[n, d],
+             max_abs_err=err)
     torch.cuda.synchronize()
 
     # RoPE on the prefill's q/k (g = 8, bucket 128) at arange positions,
@@ -314,8 +336,8 @@ def kernel_phase(peaks):
 
     # flash forward: the bucket-128 prefill of a full admission group
     v = randn(g_, s_, heads, hd)
-    out, lse = fa.flash_attention(q, k, v, causal=True)
-    pout, plse = fa.flash_attention_plain(q, k, v, causal=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
     err = compare("flash_attention", out, pout)
     if (lse - plse).abs().max().item() > 1e-3:
         raise PhaseFailed("flash_attention: lse disagrees")
@@ -325,12 +347,14 @@ def kernel_phase(peaks):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     results["flash_attention"] = rec = dict(
         shape=list(q.shape), max_abs_err=err,
-        ms=graph_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
-        plain_ms=graph_ms(lambda: fa.flash_attention_plain(q, k, v, True)),
+        ms=graph_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+        plain_ms=graph_ms(lambda: fa.flash_attention_fwd_plain(q, k, v,
+                                                               True)),
         library_ms=graph_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True)),
-        eager_ms=eager_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+        eager_ms=eager_ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                         causal=True)),
         bound_ms=bms, bound_by=by)
     rec.update(rates(flops, rec["ms"], bms))
     emit("kernel", name="flash_attention", **rec)
@@ -707,21 +731,41 @@ def train_kernel_phase(peaks):
     # RMSNorm forward, then its backward, over the (6144, 1536) rows of
     # one norm
     w = (1.0 + 0.1 * randn(hidden, dtype=torch.float32)).to(bf16)
+    bias = 0.1 * randn(hidden)
     x, g = randn(n, hidden), randn(n, hidden)
-    y, r = rn.rms_norm(x, w, 1e-6)
-    py, pr = rn.rms_norm_plain(x, w, 1e-6)
-    err = compare("rms_norm(train)", y, py)
-    if (r - pr).abs().max().item() > 1e-5 * pr.abs().max().item():
-        raise PhaseFailed("rms_norm(train): per-row r disagrees")
+    err = rms_norm_variants(rn, x, w, bias, "rms_norm(train)")
+    _, r = rn.rms_norm(x, w, epsilon=1e-6)
     bms, by = bound_ms(2 * n * hidden * 2 + hidden * 2 + n * 4,
                        4 * n * hidden, peaks)
     emit("kernel", name="rms_norm", case="train_shape", shape=[n, hidden],
-         max_abs_err=err, ms=graph_ms(lambda: rn.rms_norm(x, w, 1e-6),
-                                      calls=10),
-         plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, 1e-6), calls=10),
+         max_abs_err=err,
+         ms=graph_ms(lambda: rn.rms_norm(x, w, epsilon=1e-6), calls=10),
+         plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, epsilon=1e-6),
+                           calls=10),
          library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
              x, (hidden,), w, 1e-6), calls=10),
-         bound_ms=bms, bound_by=by)
+         bound_ms=bms, bound_by=by,
+         # x (18.9 MB) fits the 50 MB L2, so the warm times above can read
+         # below the HBM bound; these have the inputs out of L2
+         cold_ms=cold_ms(lambda xx: rn.rms_norm(xx, w, epsilon=1e-6), (x,)),
+         cold_library_ms=cold_ms(lambda xx: torch.nn.functional.rms_norm(
+             xx, (hidden,), w, 1e-6), (x,)))
+    # with a bias: no one PyTorch call adds it, so the yardstick is
+    # F.rms_norm, the norm alone
+    bms, by = bound_ms(2 * n * hidden * 2 + 2 * hidden * 2 + n * 4,
+                       5 * n * hidden, peaks)
+    emit("kernel", name="rms_norm", case="train_shape, bias",
+         shape=[n, hidden], max_abs_err=err,
+         ms=graph_ms(lambda: rn.rms_norm(x, w, bias, epsilon=1e-6),
+                     calls=10),
+         plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, bias,
+                                                     epsilon=1e-6), calls=10),
+         library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
+             x, (hidden,), w, 1e-6), calls=10),
+         library="F.rms_norm (the norm alone, no bias)",
+         bound_ms=bms, bound_by=by,
+         cold_ms=cold_ms(lambda xx: rn.rms_norm(xx, w, bias, epsilon=1e-6),
+                         (x,)))
     err = max(compare(f"rms_norm_bwd {nm}", got, want) for nm, got, want in
               zip(("dx", "dw", "db"), rn.rms_norm_bwd(x, w, r, g),
                   rn.rms_norm_bwd_plain(x, w, r, g)))
@@ -785,10 +829,10 @@ def train_kernel_phase(peaks):
         q = randn(bb, ss, heads, hd)
         k, v = randn(bb, ss, kvh, hd), randn(bb, ss, kvh, hd)
         do = randn(bb, ss, heads, hd)
-        out, lse = fa.flash_attention(q, k, v, causal=True)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         pairs = bb * heads * ss * (ss + 1) // 2
         if case == "train":
-            pout, plse = fa.flash_attention_plain(q, k, v, causal=True)
+            pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
             err = compare("flash_attention(S=1536)", out, pout)
             lse_err = (lse - plse).abs().max().item()
             if lse_err > 1e-3:
@@ -796,19 +840,19 @@ def train_kernel_phase(peaks):
                                   f"{lse_err:.3g}")
             bms, by = bound_ms(4 * q.numel() * 2 + lse.numel() * 4,
                                4 * hd * pairs, peaks)
-            ms = graph_ms(lambda: fa.flash_attention(q, k, v, True),
+            ms = graph_ms(lambda: fa.flash_attention_fwd(q, k, v, True),
                           calls=3, replays=3)
             emit("kernel", name="flash_attention", case="train_shape",
                  shape=list(q.shape), max_abs_err=err, lse_err=lse_err,
                  ms=ms,
-                 plain_ms=graph_ms(lambda: fa.flash_attention_plain(
+                 plain_ms=graph_ms(lambda: fa.flash_attention_fwd_plain(
                      q, k, v, True), calls=3, replays=3),
                  library_ms=graph_ms(
                      lambda: torch.nn.functional.scaled_dot_product_attention(
                          *(t.transpose(1, 2) for t in (q, k, v)),
                          is_causal=True), calls=3, replays=3),
-                 eager_ms=eager_ms(lambda: fa.flash_attention(q, k, v, True),
-                                   calls=5),
+                 eager_ms=eager_ms(
+                     lambda: fa.flash_attention_fwd(q, k, v, True), calls=5),
                  bound_ms=bms, bound_by=by, **rates(4 * hd * pairs, ms, bms))
             torch.cuda.synchronize()
         delta = fa._delta(out, do)
@@ -1088,8 +1132,8 @@ def bert_flash_phase(peaks):
     b, s, h, d = BERT_ATTN
     q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
-    out, lse = fa.flash_attention(q, k, v, causal=False)
-    pout, plse = fa.flash_attention_plain(q, k, v, causal=False)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
+    pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal=False)
     err = compare("flash_attention(bert)", out, pout)
     lse_err = (lse - plse).abs().max().item()
     if lse_err > 1e-3:
@@ -1101,8 +1145,9 @@ def bert_flash_phase(peaks):
     results = {"flash_attention": dict(
         case="bert_shape", shape=list(q.shape), causal=False,
         max_abs_err=err, lse_err=lse_err,
-        ms=graph_ms(lambda: fa.flash_attention(q, k, v, False), calls=5),
-        plain_ms=graph_ms(lambda: fa.flash_attention_plain(q, k, v, False),
+        ms=graph_ms(lambda: fa.flash_attention_fwd(q, k, v, False), calls=5),
+        plain_ms=graph_ms(lambda: fa.flash_attention_fwd_plain(q, k, v,
+                                                               False),
                           calls=5),
         library_ms=graph_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -1184,8 +1229,8 @@ def flash_edge_phase():
         tag = f"({b}, {sq}, {sk}, {h}, {kvh}, {d}, causal={causal})"
         q, do = randn(b, sq, h, d), randn(b, sq, h, d)
         k, v = randn(b, sk, kvh, d), randn(b, sk, kvh, d)
-        out, lse = fa.flash_attention(q, k, v, causal=causal)
-        pout, plse = fa.flash_attention_plain(q, k, v, causal=causal)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
         errs = {"out": compare(f"flash_attention{tag}", out, pout)}
         lse_err = (lse - plse).abs().max().item()
         if lse_err > 1e-3:

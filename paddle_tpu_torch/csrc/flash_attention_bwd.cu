@@ -15,9 +15,9 @@
 // query head of its group and over the causal range of query tiles
 // (starting at max(k0 - (sk - sq), 0), :209), keeps dK and dV in f32
 // registers and writes them once: no atomics, the same bits every run.
-// The dQ block owns a tile of kTile query rows of one (b, h) and loops
-// over the causal range of key tiles. Segment-id masking is not ported
-// (no caller passes it).
+// The dQ block owns a tile of query rows of one (b, h), loops over the
+// causal range of key tiles and writes each dQ row once, also without
+// atomics. Segment-id masking is not ported (ROADMAP Queue 2a item 1).
 //
 // Bound on the H100 at the training shape (4, 1536, 12, 128), causal,
 // 56.66 M (query, key) pairs: operations. dK/dV does 4 products of
@@ -47,69 +47,25 @@
 // tiles under a causal mask, is scheduled first. The mask is applied only on
 // the query tiles that cross the diagonal or the end of the rows.
 //
-// dQ is the first, CUDA-core version: tiles of Q, dO, K and V staged in
-// shared memory as f32 (rows padded to D + 1 floats, so that the 16 rows a
-// warp reads at one column fall in 16 banks) and reused by the whole
-// block; each thread owns a 4 x 4 micro-tile of the kTile x kTile score
-// tile (rows ty + 16i, columns tx + 16j) and a 4 x D/16 micro-tile of its
-// output rows; dS passes through shared memory between the score products
-// and dQ's product.
+// dQ runs on the same machinery with the query rows as the M side. A block of
+// 4 warps owns 64 query rows, 16 a warp, and walks 64-key tiles up to the
+// tile's causal limit, the last query tiles launched first (blocks of 8 warps
+// and 128 rows, which stage each K/V tile once for twice the queries, were
+// slower at all three timed shapes on the H100: PERF.md). Q and dO are staged
+// once; K and V by cp.async in a ring of two tiles, the next tile's copies in
+// flight during the current one's products; rows padded by 8 bf16. S = Q K^T
+// and dP = dO V^T are mma.sync products (Q and dO rows as A through ldmatrix,
+// K and V rows as B), and dS = P (dP - delta) scale is formed in the
+// accumulators, whose layout is the A operand's of the next product: dS never
+// leaves the registers. dQ += dS K takes dS as two bf16 parts (one rounding
+// misses the gate, tests/test_torch_flash_rounding.py) and K through
+// ldmatrix.trans, into 16 x D f32 accumulators a warp, written once as bf16
+// through the warp's Q rows in shared memory. The tensor cores do 4 products'
+// work where the function needs 3; the mask runs only on the key tiles that
+// cross the diagonal or the end of the keys.
 #include "common.cuh"
 
 namespace {
-
-constexpr int kTile = 64;       // query rows and key rows per tile
-constexpr int kThreads = 256;   // a 16 x 16 grid of threads
-constexpr int kPStride = kTile + 1;
-
-template <int D>
-constexpr size_t smem_floats(int tiles) {
-  return static_cast<size_t>(tiles) * kTile * (D + 1) +
-         static_cast<size_t>(kTile) * kPStride;
-}
-
-// Rows [row0, row0 + kTile) of a bf16 matrix whose row i starts at
-// base + i * row_stride, into the f32 tile dst[kTile][D + 1]; rows at or
-// past nrows are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const __nv_bfloat16* base,
-                                          long long row_stride, int row0,
-                                          int nrows) {
-  constexpr int kPairs = D / 2;
-  for (int i = threadIdx.x; i < kTile * kPairs; i += kThreads) {
-    const int r = i / kPairs, c = (i % kPairs) * 2;
-    float2 f = make_float2(0.f, 0.f);
-    if (row0 + r < nrows) {
-      f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          base + (row0 + r) * row_stride + c));
-    }
-    dst[r * (D + 1) + c] = f.x;
-    dst[r * (D + 1) + c + 1] = f.y;
-  }
-}
-
-// s[i][j] = sum_d a[ty + 16i][d] * b[tx + 16j][d] over two f32 tiles.
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         int ty, int tx, float (&s)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += av[i] * bv[j];
-  }
-}
 
 // ---- dK/dV on the tensor cores (see the note at the top of the file)
 
@@ -331,8 +287,23 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---- dQ on the tensor cores (see the note at the top of the file)
+
+constexpr int kBQq = 64;   // query rows of a dQ block: 4 warps x 16
+constexpr int kBKq = 64;   // keys per tile of the dQ loop
+constexpr int kDqThreads = kBQq / 16 * 32;
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+constexpr size_t dq_smem_bytes() {
+  // Q and dO, two stages of K and V
+  return static_cast<size_t>(2 * kBQq + 4 * kBKq) * (D + 8) * 2;
+}
+
+// kSegments is the slot of the segment-id mask (ROADMAP Queue 2a item 1):
+// p = 0 where the query's segment differs from the key's, beside the
+// causal term below. It is not ported, and no launch instantiates it.
+template <int D, bool kSegments>
+__global__ void __launch_bounds__(kDqThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -341,91 +312,173 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int sq, int sk,
                     int heads, int kv_heads, float scale, int causal) {
-  constexpr int kStride = D + 1;
-  constexpr int kDj = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kTile * kStride;
-  float* ks = dos + kTile * kStride;
-  float* vs = ks + kTile * kStride;
-  float* dss = vs + kTile * kStride;
-  __shared__ float lse_s[kTile], delta_s[kTile];
+  static_assert(!kSegments, "segment-id masking: ROADMAP Queue 2a item 1");
+  constexpr int BQ = kBQq;
+  constexpr int kThreadsQ = kDqThreads;
+  constexpr int S = D + 8;         // shared row stride, bf16
+  constexpr int kKd = D / 16;      // k-steps of S and dP
+  constexpr int kNs = kBKq / 8;    // score n-blocks of a key tile
+  constexpr int kNo = D / 8;       // dQ n-blocks
+  extern __shared__ __align__(16) unsigned char dq_smem[];
+  auto* qs = reinterpret_cast<__nv_bfloat16*>(dq_smem);
+  __nv_bfloat16* dos = qs + BQ * S;
+  __nv_bfloat16* ks = dos + BQ * S;       // [2][kBKq][S]
+  __nv_bfloat16* vs = ks + 2 * kBKq * S;  // [2][kBKq][S]
 
   // the last query tiles see the most keys: schedule them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int hb = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / hb;
+  const int h = blockIdx.x % hb % heads, b = blockIdx.x % hb / heads;
   const int kh = h / (heads / kv_heads);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int off = sk - sq;
-  const long long kv_row = static_cast<long long>(kv_heads) * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, quad = lane >> 3;
+  const int q0 = qt * BQ, off = sk - sq;
   const long long q_row = static_cast<long long>(heads) * D;
-  const long long kv_base = (static_cast<long long>(b) * sk * kv_heads + kh) * D;
+  const long long kv_row = static_cast<long long>(kv_heads) * D;
   const long long q_base = (static_cast<long long>(b) * sq * heads + h) * D;
-  const long long row_base = (static_cast<long long>(b) * heads + h) * sq;
+  const long long kv_base = (static_cast<long long>(b) * sk * kv_heads + kh) * D;
+  const __nv_bfloat16* kb = k + kv_base;
+  const __nv_bfloat16* vb = v + kv_base;
 
-  load_tile<D>(qs, q + q_base, q_row, q0, sq);
-  load_tile<D>(dos, dout + q_base, q_row, q0, sq);
-  if (threadIdx.x < kTile) {
-    const int r = q0 + threadIdx.x;
-    lse_s[threadIdx.x] = r < sq ? lse[row_base + r] : 0.f;
-    delta_s[threadIdx.x] = r < sq ? delta[row_base + r] : 0.f;
-  }
-
-  float dq_acc[4][kDj];  // rows ty + 16i, dims tx + 16j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kDj; ++j) dq_acc[i][j] = 0.f;
-
-  // causal: the tile's last row r_last sees keys c <= r_last + off
+  // causal: the tile's last row sees keys c <= r_last + off
   int k_end = sk;
-  if (causal) k_end = max(min(sk, min(q0 + kTile, sq) + off), 0);
-  const int n_kt = (k_end + kTile - 1) / kTile;
+  if (causal) k_end = max(min(sk, min(q0 + BQ, sq) + off), 0);
+  const int n_kt = (k_end + kBKq - 1) / kBKq;
+
+  ptt::cp_async_rows<BQ, D, kThreadsQ>(qs, q + q_base, q_row, q0, sq);
+  ptt::cp_async_rows<BQ, D, kThreadsQ>(dos, dout + q_base, q_row, q0, sq);
+  if (n_kt > 0) {
+    ptt::cp_async_rows<kBKq, D, kThreadsQ>(ks, kb, kv_row, 0, sk);
+    ptt::cp_async_rows<kBKq, D, kThreadsQ>(vs, vb, kv_row, 0, sk);
+  }
+  ptt::cp_async_commit();
+
+  // this thread's rows: row and row + 8. Rows past sq read Q = dO = 0 and
+  // take lse = delta = 0, so their dS is 0; they are never stored.
+  const int row = q0 + warp * 16 + g;
+  const long long row_base = (static_cast<long long>(b) * heads + h) * sq;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = row + 8 * r;
+    lse2[r] = rr < sq ? lse[row_base + rr] * kLog2e : 0.f;
+    dlt[r] = rr < sq ? delta[row_base + rr] : 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+  float acc[kNo][4];
+#pragma unroll
+  for (int n = 0; n < kNo; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the last tile's readers are done with ks..dss
-    load_tile<D>(ks, k + kv_base, kv_row, k0, sk);
-    load_tile<D>(vs, v + kv_base, kv_row, k0, sk);
+    const int k0 = kt * kBKq, stage = kt & 1;
+    if (kt + 1 < n_kt) {
+      const int nxt = (stage ^ 1) * kBKq * S;
+      ptt::cp_async_rows<kBKq, D, kThreadsQ>(ks + nxt, kb, kv_row, k0 + kBKq,
+                                             sk);
+      ptt::cp_async_rows<kBKq, D, kThreadsQ>(vs + nxt, vb, kv_row, k0 + kBKq,
+                                             sk);
+      ptt::cp_async_commit();
+      ptt::cp_async_wait<1>();
+    } else {
+      ptt::cp_async_wait<0>();
+    }
     __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<D>(qs, ks, ty, tx, s);
-    tile_dot<D>(dos, vs, ty, tx, dp);
+    const __nv_bfloat16* kst = ks + stage * kBKq * S;
+    const __nv_bfloat16* vst = vs + stage * kBKq * S;
+
+    // S = Q K^T and dP = dO V^T over this warp's 16 rows and the tile's keys
+    float s[kNs][4], dp[kNs][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rl = ty + 16 * i, r = q0 + rl;
+    for (int n = 0; n < kNs; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int cl = tx + 16 * j, c = k0 + cl;
-        const bool keep = r < sq && c < sk && (!causal || c <= r + off);
-        const float p = keep ? expf(s[i][j] * scale - lse_s[rl]) : 0.f;
-        dss[rl * kPStride + cl] = p * (dp[i][j] - delta_s[rl]) * scale;
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKd; ++kk) {
+      uint32_t qa[4], oa[4];
+      const int a_off = (warp * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8;
+      ptt::ldmatrix_x4<false>(qa, qs + a_off);
+      ptt::ldmatrix_x4<false>(oa, dos + a_off);
+#pragma unroll
+      for (int j = 0; j < kBKq / 16; ++j) {
+        const int b_off = (j * 16 + (quad >> 1) * 8 + (lane & 7)) * S +
+                          kk * 16 + (quad & 1) * 8;
+        uint32_t bk[4], bv[4];
+        ptt::ldmatrix_x4<false>(bk, kst + b_off);
+        ptt::mma_bf16(s[2 * j], qa, bk[0], bk[1]);
+        ptt::mma_bf16(s[2 * j + 1], qa, bk[2], bk[3]);
+        ptt::ldmatrix_x4<false>(bv, vst + b_off);
+        ptt::mma_bf16(dp[2 * j], oa, bv[0], bv[1]);
+        ptt::mma_bf16(dp[2 * j + 1], oa, bv[2], bv[3]);
       }
     }
-    __syncthreads();
-    // dQ[r][d] += sum_c dS[r][c] K[c][d]
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float dsv[4], kv[kDj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty + 16 * i) * kPStride + c];
-#pragma unroll
-      for (int j = 0; j < kDj; ++j) kv[j] = ks[c * kStride + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kDj; ++j) dq_acc[i][j] += dsv[i] * kv[j];
-    }
-  }
 
+    // P = exp(S scale - lse) and dS = P (dP - delta) scale, in place of dP;
+    // the mask only on tiles that cross the diagonal or the end of the keys
+    const bool need_mask =
+        k0 + kBKq > sk || (causal && k0 + kBKq - 1 > q0 + off);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= sq) continue;
-    const long long o = q_base + static_cast<long long>(r) * q_row;
+    for (int n = 0; n < kNs; ++n) {
 #pragma unroll
-    for (int j = 0; j < kDj; ++j) {
-      dq[o + tx + 16 * j] = __float2bfloat16(dq_acc[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], scale_log2, -lse2[e >> 1]));
+        if (need_mask) {
+          const int c = k0 + n * 8 + 2 * t + (e & 1);
+          const int r = row + (e >> 1) * 8;
+          if (c >= sk || (causal && c > r + off)) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - dlt[e >> 1]) * scale;
+      }
+    }
+
+    // dQ += dS K: dS, in registers in the A-operand layout, split into two
+    // bf16 parts; K through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < kBKq / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {  // rows g, g + 8 by a & 1; keys by a >> 1
+        const float* d2 = dp[2 * kk + (a >> 1)] + 2 * (a & 1);
+        ptt::split_bf16(d2[0], d2[1], hi[a], lo[a]);
+      }
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        uint32_t bk[4];
+        ptt::ldmatrix_x4<true>(
+            bk, kst + (kk * 16 + (quad & 1) * 8 + (lane & 7)) * S + j * 16 +
+                    (quad >> 1) * 8);
+        ptt::mma_bf16(acc[2 * j], hi, bk[0], bk[1]);
+        ptt::mma_bf16(acc[2 * j], lo, bk[0], bk[1]);
+        ptt::mma_bf16(acc[2 * j + 1], hi, bk[2], bk[3]);
+        ptt::mma_bf16(acc[2 * j + 1], lo, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  ptt::cp_async_wait<0>();  // with no key tile, the Q and dO copies
+  __syncthreads();          // Q rows are free for the output
+
+  // dQ through this warp's own Q rows in shared memory, 16 bytes a lane
+  __nv_bfloat16* os = qs + warp * 16 * S;
+#pragma unroll
+  for (int n = 0; n < kNo; ++n) {
+    *reinterpret_cast<uint32_t*>(os + g * S + n * 8 + 2 * t) =
+        ptt::pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(os + (g + 8) * S + n * 8 + 2 * t) =
+        ptt::pack_bf16(acc[n][2], acc[n][3]);
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int j = 0; j < 16 * kChunks / 32; ++j) {
+    const int i = j * 32 + lane;
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int qr = q0 + warp * 16 + r;
+    if (qr < sq) {
+      *reinterpret_cast<uint4*>(dq + q_base + qr * q_row + c) =
+          *reinterpret_cast<const uint4*>(os + r * S + c);
     }
   }
 }
@@ -471,13 +524,13 @@ int launch_dkdv(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
 
 template <int D>
 int launch_dq(const Args& a, __nv_bfloat16* dq) {
-  const size_t smem = smem_floats<D>(4) * sizeof(float);
+  constexpr size_t smem = dq_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dq_kernel<D, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.sq + kTile - 1) / kTile, a.heads, a.b);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+  const int blocks = (a.sq + kBQq - 1) / kBQq * a.heads * a.b;
+  flash_bwd_dq_kernel<D, false><<<blocks, kDqThreads, smem, a.stream>>>(
       a.q, a.k, a.v, a.dout, a.lse, a.delta, dq, a.sq, a.sk, a.heads,
       a.kv_heads, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());

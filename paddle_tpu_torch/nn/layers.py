@@ -67,16 +67,21 @@ class Embedding(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """Root-mean-square norm over the last axis, weight initialised to 1."""
+    """Root-mean-square norm over the last axis, weight initialised to 1.
+    ``bias_attr`` False (the default, as in JAX) gives no bias; anything
+    else a zero-initialised one."""
 
-    def __init__(self, hidden_size, epsilon=1e-6, *, device, dtype):
+    def __init__(self, hidden_size, epsilon=1e-6, *, bias_attr=False,
+                 device, dtype):
         super().__init__()
         self.epsilon = epsilon
         self.weight = nn.Parameter(
             torch.ones(hidden_size, device=device, dtype=dtype))
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            torch.zeros(hidden_size, device=device, dtype=dtype)))
 
     def forward(self, x):
-        return rms_norm(x, self.weight, self.epsilon)
+        return rms_norm(x, self.weight, self.bias, epsilon=self.epsilon)
 
 
 class LayerNorm(nn.Module):

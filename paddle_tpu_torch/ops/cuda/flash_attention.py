@@ -3,12 +3,14 @@
 plain PyTorch versions, the wrappers that pick between them by device,
 and the ``torch.autograd.Function`` that joins them.
 
-Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: ``_fwd_kernel``
-(forward with lse), and ``_bwd_dkdv_kernel`` and ``_bwd_dq_kernel`` behind
-its custom_vjp. Layout is the public (B, S, H, D) of
-``scaled_dot_product_attention``; the kernels read it in place, so no
-transpose runs around them. Segment-id masking waits for a caller that
-passes it.
+Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: the public
+:func:`flash_attention` (JAX's :431, same signature, returns ``out`` and is
+differentiable), :func:`flash_attention_fwd` (JAX's ``_fwd`` :137 over
+``_fwd_kernel``: out and lse), and ``_bwd_dkdv_kernel`` and
+``_bwd_dq_kernel`` behind its custom_vjp. Layout is the public
+(B, S, H, D) of ``scaled_dot_product_attention``; the kernels read it in
+place, so no transpose runs around them. Segment-id masking (``seq_lens``,
+``segment_ids``) is not ported yet: the public function raises on it.
 """
 from __future__ import annotations
 
@@ -19,9 +21,11 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
+__all__ = ["flash_attention", "flash_attention_fwd",
+           "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_bwd_dkdv",
-           "flash_attention_bwd_dq", "FlashAttentionFunction"]
+           "flash_attention_bwd_dq", "FlashAttentionFunction",
+           "refuse_segments"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 NEG_INF = -1e30
@@ -33,7 +37,7 @@ def _causal_keep(sq, sk, device):
     return torch.ones(sq, sk, dtype=torch.bool, device=device).tril(sk - sq)
 
 
-def flash_attention_plain(q, k, v, causal=True):
+def flash_attention_fwd_plain(q, k, v, causal=True):
     """q (B, Sq, H, D), k/v (B, Sk, KVH, D) -> (out like q, lse (B, H, Sq)
     f32). Softmax in f32 of ``(q * scale) . k``; causal rows see keys
     ``c <= r + (Sk - Sq)``; query head h reads kv head ``h // (H // KVH)``."""
@@ -63,13 +67,13 @@ def _check(name, q, k, v):
                          f"{HEAD_DIMS} and heads a multiple of kv heads")
 
 
-def flash_attention(q, k, v, causal=True):
-    """Attention forward with lse (see :func:`flash_attention_plain`). A
-    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+def flash_attention_fwd(q, k, v, causal=True):
+    """Attention forward with lse (see :func:`flash_attention_fwd_plain`).
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (bf16, contiguous, 16-byte aligned, D in {64, 128}, H a multiple of
     KVH) or raises."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
+        return flash_attention_fwd_plain(q, k, v, causal)
     name = "flash_attention"
     _check(name, q, k, v)
     b, sq, h, d = q.shape
@@ -86,6 +90,28 @@ def flash_attention(q, k, v, causal=True):
     return out, lse
 
 
+def refuse_segments(seq_lens, segment_ids):
+    """Raise on segment masking, which the kernels do not take yet."""
+    if seq_lens is not None or segment_ids is not None:
+        raise NotImplementedError(
+            "flash attention: seq_lens / segment_ids (segment masking) are "
+            "not ported yet (ROADMAP Queue 2a item 1)")
+
+
+def flash_attention(q, k, v, is_causal=False, seq_lens=None,
+                    segment_ids=None):
+    """(B, S, H, D) attention, the JAX package's public flash attention:
+    returns ``out`` only, non-causal unless ``is_causal``, GQA by index.
+    Under autograd it records :class:`FlashAttentionFunction` (the forward
+    kernel, then dK/dV and dQ); otherwise :func:`flash_attention_fwd`
+    alone. ``seq_lens`` and ``segment_ids`` raise ``NotImplementedError``
+    on every device."""
+    refuse_segments(seq_lens, segment_ids)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, bool(is_causal))
+    return flash_attention_fwd(q, k, v, bool(is_causal))[0]
+
+
 def _delta(out, do):
     """``rowsum(dO * O)`` as (B, H, Sq) in f32, the layout of lse; formed
     outside the kernels, as the JAX package forms it in XLA."""
@@ -94,8 +120,8 @@ def _delta(out, do):
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True):
-    """``(dq, dk, dv)`` of :func:`flash_attention_plain` from the forward's
-    ``out`` and ``lse`` and the output gradient ``do``, by the FA2
+    """``(dq, dk, dv)`` of :func:`flash_attention_fwd_plain` from the
+    forward's ``out`` and ``lse`` and the output gradient ``do``, by the FA2
     formulas over the full score matrix, in f32: ``P = exp(S - lse)``,
     ``dV = P^T dO``, ``dS = P * (dO V^T - delta) * scale`` with
     ``delta = rowsum(dO * O)``, ``dQ = dS K``, ``dK = dS^T Q``; a GQA kv
@@ -186,12 +212,12 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True):
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """``out = flash_attention(q, k, v, causal)[0]``; saves q, k, v, out
-    and lse, and its backward is :func:`flash_attention_bwd`."""
+    """``out = flash_attention_fwd(q, k, v, causal)[0]``; saves q, k, v,
+    out and lse, and its backward is :func:`flash_attention_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention(q, k, v, causal)
+        out, lse = flash_attention_fwd(q, k, v, causal)
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, out, lse)
         return out

@@ -22,30 +22,46 @@ STRIP_ROWS = 16  # rows per block of the backward; each writes f32 partials
 MAX_D = 16384  # the backward keeps a strip's 2 * D column sums in smem
 
 
-def rms_norm_plain(x, weight, epsilon=1e-6):
-    """(N, D) x -> (y, r): ``y = x * r * w`` in f32, cast to x's dtype,
-    with ``r = rsqrt(mean(x^2) + eps)`` per row as (N, 1) f32."""
+def rms_norm_plain(x, weight=None, bias=None, epsilon=1e-6):
+    """(N, D) x -> (y, r): ``y = x * r * w + b`` in f32, cast to x's dtype,
+    with ``r = rsqrt(mean(x^2) + eps)`` per row as (N, 1) f32. A weight of
+    None scales by 1; a bias of None adds nothing."""
     xf = _build.upcast(x)
     r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + epsilon)
-    return (xf * r * _build.upcast(weight)).to(x.dtype), r
+    y = xf * r
+    if weight is not None:
+        y = y * _build.upcast(weight)
+    if bias is not None:
+        y = y + _build.upcast(bias)
+    return y.to(x.dtype), r
 
 
-def rms_norm(x, weight, epsilon=1e-6):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def rms_norm(x, weight=None, bias=None, epsilon=1e-6):
     """RMSNorm over the rows of a 2-D ``x``; returns ``(y, r)`` as
     :func:`rms_norm_plain`. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (bf16, contiguous) or raises."""
+    tensor launches the kernel (bf16, contiguous; weight and bias bf16 (D,)
+    or None; any D and alignment) or raises."""
     if x.device.type == "cpu":
-        return rms_norm_plain(x, weight, epsilon)
+        return rms_norm_plain(x, weight, bias, epsilon)
     _build.expect("rms_norm", "x", x, torch.bfloat16, 2)
-    _build.expect("rms_norm", "weight", weight, torch.bfloat16, 1)
     n, d = x.shape
-    if weight.shape[0] != d or n == 0:
-        raise ValueError(f"rms_norm: x {tuple(x.shape)} with weight "
-                         f"{tuple(weight.shape)}")
+    for arg, t in (("weight", weight), ("bias", bias)):
+        if t is not None:
+            _build.expect("rms_norm", arg, t, torch.bfloat16, 1)
+            if t.shape[0] != d:
+                raise ValueError(f"rms_norm: x {tuple(x.shape)} with {arg} "
+                                 f"{tuple(t.shape)}")
+    if n == 0:
+        raise ValueError("rms_norm: x has no rows")
     y = torch.empty_like(x)
     r = torch.empty((n, 1), dtype=torch.float32, device=x.device)
-    fn = _build.function("ptt_rms_norm_fwd", [_P, _P, _P, _P, _I, _I, _F, _P])
-    _build.check(fn(x.data_ptr(), weight.data_ptr(), y.data_ptr(),
+    fn = _build.function("ptt_rms_norm_fwd",
+                         [_P, _P, _P, _P, _P, _I, _I, _F, _P])
+    _build.check(fn(x.data_ptr(), _ptr(weight), _ptr(bias), y.data_ptr(),
                     r.data_ptr(), n, d, float(epsilon), _build.stream_of(x)),
                  "rms_norm")
     _build.launch_counts["rms_norm"] += 1
@@ -100,17 +116,23 @@ def rms_norm_bwd(x, weight, r, g):
 
 
 class RMSNormFunction(torch.autograd.Function):
-    """``y = rms_norm(x, w)`` with :func:`rms_norm_bwd` as its gradient.
-    The port's RMSNorm has no bias, so the backward drops ``db``."""
+    """``y = rms_norm(x, weight, bias, epsilon)[0]`` with
+    :func:`rms_norm_bwd` as its gradient: dx, and dw and db for the weight
+    and bias that were given (a weight of None takes the backward kernel
+    with a scale of ones)."""
 
     @staticmethod
-    def forward(ctx, x, weight, epsilon):
-        y, r = rms_norm(x, weight, epsilon)
+    def forward(ctx, x, weight, bias, epsilon):
+        y, r = rms_norm(x, weight, bias, epsilon)
+        ctx.has = (weight is not None, bias is not None)
         ctx.save_for_backward(x, weight, r)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, weight, r = ctx.saved_tensors
-        dx, dw, _ = rms_norm_bwd(x, weight, r, g.contiguous())
-        return dx, dw, None
+        has_w, has_b = ctx.has
+        w = weight if has_w else torch.ones(x.shape[1], dtype=x.dtype,
+                                            device=x.device)
+        dx, dw, db = rms_norm_bwd(x, w, r, g.contiguous())
+        return dx, dw if has_w else None, db if has_b else None, None

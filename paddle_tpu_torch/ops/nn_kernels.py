@@ -23,7 +23,7 @@ import math
 import torch
 
 from .cuda._build import upcast
-from .cuda.flash_attention import FlashAttentionFunction, flash_attention
+from .cuda.flash_attention import flash_attention, refuse_segments
 from .cuda.fused_ops import RopeFunction, bias_dropout_residual_ln, fused_rope
 from .cuda.rms_norm import RMSNormFunction
 from .cuda.rms_norm import rms_norm as _rms_norm_rows
@@ -35,7 +35,8 @@ __all__ = ["gelu", "layer_norm", "rms_norm", "dropout",
 
 
 def _records(*tensors):
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def gelu(x, approximate=False):
@@ -95,37 +96,42 @@ def fused_bias_dropout_residual_layer_norm(
     return layer_norm(h + residual, ln_scale, ln_bias, epsilon=ln_epsilon)
 
 
-def rms_norm(x, weight, epsilon=1e-6):
+def rms_norm(x, weight=None, bias=None, epsilon=1e-06):
     """Root-mean-square norm over the last axis of ``x`` (any leading
-    shape); math in f32, output in x's dtype."""
+    shape): ``x * rsqrt(mean(x^2) + epsilon) * weight + bias`` with the
+    math in f32 and the output in x's dtype; a weight of None scales by 1
+    and a bias of None adds nothing."""
     x2 = x.reshape(-1, x.shape[-1])
-    if _records(x, weight):
-        y = RMSNormFunction.apply(x2, weight, epsilon)
+    if _records(x, weight, bias):
+        y = RMSNormFunction.apply(x2, weight, bias, epsilon)
     else:
-        y, _ = _rms_norm_rows(x2, weight, epsilon)
+        y, _ = _rms_norm_rows(x2, weight, bias, epsilon)
     return y.reshape(x.shape)
 
 
-def scaled_dot_product_attention(q, k, v, is_causal=False, *, attn_mask=None,
-                                 dropout_p=0.0, training=True,
+def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
+                                 is_causal=False, training=True, *,
+                                 seq_lens=None, segment_ids=None,
                                  generator=None):
-    """Attention core in the (B, S, H, D) layout, GQA when H > KVH.
-    ``is_causal`` stays the port's fourth positional argument; JAX's
-    ``attn_mask``, ``dropout_p`` and ``training`` are taken by keyword.
+    """Attention core in the (B, S, H, D) layout, GQA when H > KVH, with
+    the JAX package's argument order. ``generator`` is the port's
+    counterpart of JAX's ``rng_key``: the ``torch.Generator`` that dropout
+    on the probabilities draws from. ``seq_lens`` and ``segment_ids``
+    raise ``NotImplementedError`` (segment masking is not ported yet).
 
     As in JAX, the arguments pick the route: with no ``attn_mask`` and
-    ``dropout_p`` 0 it takes the flash kernels (forward, and dK/dV and dQ
-    under autograd); otherwise the plain composition, the counterpart of
-    JAX's XLA route: f32 scores, a boolean ``attn_mask`` masks with -inf
-    and any other is added, softmax, dropout on the probabilities when
-    ``training``, drawn from ``generator``. JAX also sends lengths that
-    are not multiples of its block of 128 to the composition; the port's
-    flash kernels take any length, so the port does not."""
+    ``dropout_p`` 0 it takes :func:`flash_attention` (the forward kernel,
+    and dK/dV and dQ under autograd); otherwise the plain composition, the
+    counterpart of JAX's XLA route: f32 scores, a boolean ``attn_mask``
+    masks with -inf and any other is added, softmax, dropout on the
+    probabilities when ``training``, drawn from ``generator``. JAX also
+    sends lengths that are not multiples of its block of 128 to the
+    composition; the port's flash kernels take any length, so the port
+    does not."""
     if attn_mask is None and not dropout_p > 0.0:
-        if _records(q, k, v):
-            return FlashAttentionFunction.apply(q, k, v, is_causal)
-        out, _ = flash_attention(q, k, v, causal=is_causal)
-        return out
+        return flash_attention(q, k, v, is_causal=is_causal,
+                               seq_lens=seq_lens, segment_ids=segment_ids)
+    refuse_segments(seq_lens, segment_ids)
     sq, d = q.shape[1], q.shape[3]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     if kh.shape[1] != qh.shape[1]:
@@ -149,10 +155,17 @@ def scaled_dot_product_attention(q, k, v, is_causal=False, *, attn_mask=None,
     return (probs @ vh).transpose(1, 2)
 
 
-def rotary_position_embedding(q, k, cos, sin, position_ids=None):
+def rotary_position_embedding(q, k, cos, sin, position_ids=None,
+                              use_neox_rotary_style=True):
     """Neox RoPE of q (B, S, H, D) and k (B, S, KVH, D) from (P, D) f32
     cos/sin tables. ``position_ids`` is (B, S) or (S,); None means
-    ``arange(S)`` for every row."""
+    ``arange(S)`` for every row. ``use_neox_rotary_style=False`` (the
+    interleaved pairs) raises ``NotImplementedError``: not ported yet
+    (ROADMAP Queue 2a item 4)."""
+    if not use_neox_rotary_style:
+        raise NotImplementedError(
+            "rotary_position_embedding: use_neox_rotary_style=False (the "
+            "interleaved pairs) is not ported yet (ROADMAP Queue 2a item 4)")
     b, s = q.shape[:2]
     if position_ids is None:
         position_ids = torch.arange(s, device=q.device)

@@ -5,17 +5,19 @@ on the CPU and held against the JAX package's Pallas flash attention.
 f32 sums. P enters ``P V`` as two bf16 terms, its bf16 rounding and the
 bf16 rounding of what that left over (the row sum l adds P in f32).
 ``csrc/flash_attention_bwd.cu`` does the same with P and dS before
-``dV += P^T dO`` and ``dK += dS^T Q``. The Pallas kernels keep P and dS in
-f32. Here the kernels' tile loops (64 query rows by 64 keys, online
-rescaling, causal tiles skipped past the limit, the dK/dV loop over the
-GQA group and the causal range of query tiles) run in f32 torch with
-those roundings, on bf16-valued inputs from numpy with a seed, and are
-held against JAX's ``_fwd`` and the backward rule of ``_flash_bhsd``
+``dV += P^T dO`` and ``dK += dS^T Q``, and with dS before ``dQ += dS K``.
+The Pallas kernels keep P and dS in f32. Here the kernels' tile loops (64
+query rows by 64 keys, online rescaling, causal tiles skipped past the
+limit, the dK/dV loop over the GQA group and the causal range of query
+tiles, the dQ loop over the causal range of key tiles) run in f32 torch
+with those roundings, on bf16-valued inputs from numpy with a seed, and
+are held against JAX's ``_fwd`` and the backward rule of ``_flash_bhsd``
 (``_bwd``, what ``jax.vjp`` through it runs) in interpret mode, the
 latter with the emulated forward's out and lse as its residuals, as the
-plain version on the card takes the kernel's. A single bf16 rounding of P and dS, as FA2 does, misses
-the gate here: early causal rows average few keys, and outputs and dK
-entries that cancel to near zero keep its 2^-9 relative error per term.
+plain version on the card takes the kernel's. A single bf16 rounding of
+P and dS, as FA2 does, misses the gate here: early causal rows average
+few keys, and outputs, dK and dQ entries that cancel to near zero keep
+its 2^-9 relative error per term.
 
 Tolerance: ``chip_smoke.py``'s kernel gate, |got - want| <= 1e-3 + 2^-7
 |want| with both sides rounded to bf16 (as the kernel's output and the
@@ -132,6 +134,38 @@ def emulate_dkdv(q, k, v, do, lse, delta, causal, split=True):
     return _bf16(dk), _bf16(dv)
 
 
+def emulate_dq(q, k, v, do, lse, delta, causal, split=True):
+    """The dQ kernel's loop: one query tile of one (b, h) at a time, over
+    the causal range of key tiles of its kv head; dS fed to ``dQ += dS K``
+    as one bf16 rounding or, with ``split``, as two bf16 parts."""
+    b, sq, h, d = q.shape
+    sk, group = k.shape[1], h // k.shape[2]
+    scale, off = 1.0 / math.sqrt(d), sk - sq
+    dq = torch.zeros_like(q)
+    for bi in range(b):
+        for hi in range(h):
+            kh = hi // group
+            for q0 in range(0, sq, BQ):
+                rows = torch.arange(q0, min(q0 + BQ, sq))
+                qt, dot = q[bi, rows, hi], do[bi, rows, hi]
+                k_end = (max(min(sk, int(rows[-1]) + 1 + off), 0) if causal
+                         else sk)
+                acc = torch.zeros(len(rows), d)
+                for k0 in range(0, k_end, BK):
+                    cols = torch.arange(k0, min(k0 + BK, sk))
+                    kt = k[bi, cols, kh]
+                    p = torch.exp((qt @ kt.T) * scale
+                                  - lse[bi, hi, rows][:, None])
+                    if causal:
+                        p = torch.where(cols[None] <= rows[:, None] + off,
+                                        p, 0.0)
+                    dp = dot @ v[bi, cols, kh].T
+                    ds = p * (dp - delta[bi, hi, rows][:, None]) * scale
+                    acc += _operand(ds, split) @ kt
+                dq[bi, rows, hi] = acc
+    return _bf16(dq)
+
+
 def _bhsd(t):
     return jnp.swapaxes(jnp.asarray(t.numpy()), 1, 2)
 
@@ -155,29 +189,32 @@ def _reference_fwd(case):
     return _back(out), torch.from_numpy(np.asarray(lse)[..., 0].copy())
 
 
-def _reference_dkdv(case, out, lse):
-    """JAX's dK and dV for ``case``: the backward rule of ``_flash_bhsd``
-    (the Pallas backward kernels, interpreted) with ``out`` and ``lse`` as
-    its residuals, as the plain version on the card takes the forward
-    kernel's."""
+def _reference_bwd(case, out, lse):
+    """JAX's dQ, dK and dV for ``case``: the backward rule of
+    ``_flash_bhsd`` (the Pallas backward kernels, interpreted) with ``out``
+    and ``lse`` as its residuals, as the plain version on the card takes
+    the forward kernel's."""
     b, s, h, kvh, d, causal = CASES[case]
     q, k, v, do = (_bhsd(t) for t in _inputs(b, s, h, kvh, d))
     res = (q, k, v, None, None, _bhsd(out), jnp.asarray(lse.numpy())[..., None])
-    _, dk, dv, _, _ = jax_fa._bwd(causal, 1.0 / math.sqrt(d), res, do)
-    return _back(dk), _back(dv)
+    dq, dk, dv, _, _ = jax_fa._bwd(causal, 1.0 / math.sqrt(d), res, do)
+    return _back(dq), _back(dk), _back(dv)
 
 
 def _emulate(case, split):
+    """out, lse, dK, dV and dQ through the kernels' loops with P and dS
+    split (or rounded once)."""
     b, s, h, kvh, d, causal = CASES[case]
     q, k, v, do = _inputs(b, s, h, kvh, d)
     out, lse = emulate_fwd(q, k, v, causal, split)
     delta = (do * out).sum(-1).transpose(1, 2)
-    return (out, lse) + emulate_dkdv(q, k, v, do, lse, delta, causal, split)
+    return ((out, lse) + emulate_dkdv(q, k, v, do, lse, delta, causal, split)
+            + (emulate_dq(q, k, v, do, lse, delta, causal, split),))
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_forward_rounding_fits_the_kernel_gate(case):
-    got_o, got_lse, _, _ = _emulate(case, split=True)
+    got_o, got_lse, _, _, _ = _emulate(case, split=True)
     want_o, want_lse = _reference_fwd(case)
     assert _gate_misses(got_o, want_o) == 0
     torch.testing.assert_close(got_lse, want_lse, rtol=0, atol=1e-3)
@@ -185,15 +222,31 @@ def test_forward_rounding_fits_the_kernel_gate(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_dkdv_rounding_fits_the_kernel_gate(case):
-    out, lse, got_dk, got_dv = _emulate(case, split=True)
-    want_dk, want_dv = _reference_dkdv(case, out, lse)
+    out, lse, got_dk, got_dv, _ = _emulate(case, split=True)
+    _, want_dk, want_dv = _reference_bwd(case, out, lse)
     assert _gate_misses(got_dk, want_dk) == 0
     assert _gate_misses(got_dv, want_dv) == 0
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_dq_rounding_fits_the_kernel_gate(case):
+    out, lse, _, _, got_dq = _emulate(case, split=True)
+    want_dq, _, _ = _reference_bwd(case, out, lse)
+    assert _gate_misses(got_dq, want_dq) == 0
+
+
+def test_one_bf16_rounding_of_ds_misses_the_gate_for_dq():
+    """dQ = dS K with dS rounded once to bf16, as FA2 feeds it, misses the
+    gate at both cases (47 and 3 elements): the dQ kernel splits dS."""
+    for case in sorted(CASES):
+        out, lse, _, _, got_dq = _emulate(case, split=False)
+        want_dq, _, _ = _reference_bwd(case, out, lse)
+        assert _gate_misses(got_dq, want_dq) > 0
+
+
 def test_one_bf16_rounding_of_p_and_ds_misses_the_gate():
-    out, lse, got_dk, got_dv = _emulate("causal_d128", split=False)
+    out, lse, got_dk, got_dv, _ = _emulate("causal_d128", split=False)
     assert _gate_misses(out, _reference_fwd("causal_d128")[0]) > 0
-    want_dk, want_dv = _reference_dkdv("causal_d128", out, lse)
+    _, want_dk, want_dv = _reference_bwd("causal_d128", out, lse)
     assert _gate_misses(got_dk, want_dk) > 0
     assert _gate_misses(got_dv, want_dv) > 0

@@ -320,7 +320,7 @@ def test_sdpa_mask_route_matches_jax(kind):
         *(jnp.asarray(a) for a in (q, k, v)), attn_mask=jnp.asarray(mask),
         is_causal=causal)
     got = nn_kernels.scaled_dot_product_attention(
-        _t(q), _t(k), _t(v), causal, attn_mask=_t(mask))
+        _t(q), _t(k), _t(v), attn_mask=_t(mask), is_causal=causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **OUT_TOL)
 
 

@@ -42,13 +42,14 @@ def test_rms_norm_matches_pallas():
     x, w = _np(rng, 16, 128), 1.0 + 0.1 * _np(rng, 128)
     want = jax_rn.rms_norm(jnp.asarray(x), jnp.asarray(w),
                            jnp.zeros((128,), jnp.float32), 1e-6, False)
-    y, r = rn.rms_norm(_t(x), _t(w), 1e-6)
+    y, r = rn.rms_norm(_t(x), _t(w), epsilon=1e-6)
     np.testing.assert_allclose(y.numpy(), np.asarray(want), **TOL)
     _, (_, _, want_r, _) = jax_rn._vjp_fwd(
         jnp.asarray(x), jnp.asarray(w), None, 1e-6, False)
     np.testing.assert_allclose(r.numpy(), np.asarray(want_r), **TOL)
     # the model-facing op takes any leading shape
-    y3 = nn_kernels.rms_norm(_t(x).reshape(2, 8, 128), _t(w), 1e-6)
+    y3 = nn_kernels.rms_norm(_t(x).reshape(2, 8, 128), _t(w),
+                             epsilon=1e-6)
     np.testing.assert_allclose(y3.reshape(16, 128).numpy(), np.asarray(want),
                                **TOL)
 
@@ -89,7 +90,7 @@ def test_flash_attention_matches_pallas(causal):
     want_o, want_lse = jax_fa._fwd(
         *(jnp.swapaxes(jnp.asarray(a), 1, 2) for a in (q, k, v)), causal,
         1.0 / math.sqrt(d))
-    out, lse = fa.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    out, lse = fa.flash_attention_fwd(_t(q), _t(k), _t(v), causal=causal)
     np.testing.assert_allclose(out.numpy(),
                                np.swapaxes(np.asarray(want_o), 1, 2), **TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0],
@@ -163,8 +164,8 @@ def test_wrappers_take_plain_version_only_on_cpu(case):
                                       e(8, 64, dt=torch.float32),
                                       e(8, 64, dt=torch.float32),
                                       e(1, 4, dt=torch.int32)),
-        "flash": lambda: fa.flash_attention(e(1, 4, 2, 64), e(1, 4, 2, 64),
-                                            e(1, 4, 2, 64)),
+        "flash": lambda: fa.flash_attention_fwd(
+            e(1, 4, 2, 64), e(1, 4, 2, 64), e(1, 4, 2, 64)),
         "paged": lambda: da.paged_attention(
             e(1, 2, 64), e(3, 16, 2, 64), e(3, 16, 2, 64),
             e(1, 2, dt=torch.int32), e(1, dt=torch.int32)),

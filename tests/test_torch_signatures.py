@@ -1,0 +1,257 @@
+"""The port's public ops take the JAX package's signatures: the same calls,
+positional and keyword, give the same results.
+
+``rms_norm(x, weight=None, bias=None, epsilon=1e-06)`` (JAX
+``ops/nn_kernels.py:162``), the biased RMSNorm forward and its dx, dw and
+db (JAX ``ops/pallas/rms_norm.py`` with ``has_bias=True``, interpret
+mode), the public ``flash_attention(q, k, v, is_causal=False,
+seq_lens=None, segment_ids=None)`` returning ``out`` (JAX
+``ops/pallas/flash_attention.py:431``), ``scaled_dot_product_attention``
+in JAX's argument order (:732) and ``rotary_position_embedding`` with
+``use_neox_rotary_style`` (:804). Segment masking is not ported: the port
+raises on ``seq_lens`` and ``segment_ids``.
+
+Inputs come from numpy with a seed, in f32 on the CPU, where each port
+kernel runs its plain version. Tolerances: 1e-6 where both sides compute
+the same f32 composition; 1e-5 against a Pallas kernel, whose sums
+(online softmax, blocked reductions) run in another order.
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import nn_kernels as jax_nn
+from paddle_tpu.ops.pallas import flash_attention as jax_fa
+from paddle_tpu.ops.pallas import rms_norm as jax_rn
+from paddle_tpu_torch.models.llama import _rope_tables
+from paddle_tpu_torch.nn import RMSNorm
+from paddle_tpu_torch.ops import nn_kernels
+from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+SAME = dict(atol=1e-6, rtol=1e-6)
+KERNEL = dict(atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_flash_lowered_once():
+    """One ``jax.jit`` around JAX's flash custom_vjp, so that its Pallas
+    kernels (interpret mode) lower once per shape rather than at every
+    eager call. The function computed is the JAX package's own."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jax_fa, "_flash_bhsd",
+               jax.jit(jax_fa._flash_bhsd, static_argnums=(5, 6)))
+    yield
+    mp.undo()
+
+
+def _np(rng, *shape):
+    return rng.randn(*shape).astype(np.float32)
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.array(a)).requires_grad_(grad)
+
+
+def _j(a):
+    return jnp.asarray(a)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
+
+
+RMS_CALLS = {  # name -> (args, kwargs), built from x, w, b
+    "positional": lambda x, w, b: ((x, w, b), {}),
+    "positional_epsilon": lambda x, w, b: ((x, w, b, 1e-5), {}),
+    "keyword": lambda x, w, b: ((x,), dict(weight=w, bias=b, epsilon=1e-5)),
+    "weight_none": lambda x, w, b: ((x,), dict(bias=b)),
+    "bias_none": lambda x, w, b: ((x, w), {}),
+    "both_none": lambda x, w, b: ((x,), {}),
+}
+
+
+@pytest.mark.parametrize("call", sorted(RMS_CALLS))
+def test_rms_norm_signature_matches_jax(call):
+    """(4, 128) rows: JAX takes its jnp composition (no Pallas row block),
+    the port its plain version; the same f32 math."""
+    rng = np.random.RandomState(0)
+    x, w, b = _np(rng, 4, 128), 1.0 + 0.1 * _np(rng, 128), _np(rng, 128)
+    args, kwargs = RMS_CALLS[call](x, w, b)
+    want = jax_nn.rms_norm(*(_j(a) if isinstance(a, np.ndarray) else a
+                             for a in args),
+                           **{k: _j(v) if isinstance(v, np.ndarray) else v
+                              for k, v in kwargs.items()})
+    got = nn_kernels.rms_norm(*(_t(a) if isinstance(a, np.ndarray) else a
+                                for a in args),
+                              **{k: _t(v) if isinstance(v, np.ndarray) else v
+                                 for k, v in kwargs.items()})
+    assert torch.isfinite(got).all()
+    _close(got, want, SAME)
+
+
+@pytest.mark.parametrize("via", ["function", "layer"])
+def test_rms_norm_bias_matches_pallas(via):
+    """The biased forward and its dx, dw and db against the Pallas kernels
+    (``has_bias=True``, interpret mode) through ``jax.vjp``; on the port's
+    side through ``nn_kernels.rms_norm`` or ``RMSNorm(bias_attr=None)``,
+    whose bias receives db in ``.grad``."""
+    rng = np.random.RandomState(1)
+    x, g = _np(rng, 2, 16, 256), _np(rng, 2, 16, 256)
+    w, b = 1.0 + 0.1 * _np(rng, 256), 0.1 * _np(rng, 256)
+    want, vjp = jax.vjp(lambda x_, w_, b_: jax_rn.rms_norm(x_, w_, b_, 1e-6,
+                                                           True),
+                        _j(x), _j(w), _j(b))
+    want_dx, want_dw, want_db = vjp(_j(g))
+    xt = _t(x, True)
+    if via == "layer":
+        layer = RMSNorm(256, 1e-6, bias_attr=None, device="cpu",
+                        dtype=torch.float32)
+        assert torch.all(layer.bias == 0)
+        with torch.no_grad():
+            layer.weight.copy_(_t(w))
+            layer.bias.copy_(_t(b))
+        wt, bt = layer.weight, layer.bias
+        y = layer(xt)
+    else:
+        wt, bt = _t(w, True), _t(b, True)
+        y = nn_kernels.rms_norm(xt, wt, bt, 1e-6)
+    y.backward(_t(g))
+    _close(y, want, KERNEL)
+    _close(xt.grad, want_dx, KERNEL)
+    _close(wt.grad, want_dw, KERNEL)
+    _close(bt.grad, want_db, KERNEL)
+
+
+FLASH_CALLS = {  # name -> (port call, JAX call) on (q, k, v)
+    "bare": (lambda q, k, v: fa.flash_attention(q, k, v),
+             lambda q, k, v: jax_fa.flash_attention(q, k, v)),
+    "positional_causal": (lambda q, k, v: fa.flash_attention(q, k, v, True),
+                          lambda q, k, v: jax_fa.flash_attention(q, k, v,
+                                                                 True)),
+    "keyword_causal": (
+        lambda q, k, v: fa.flash_attention(q, k, v, is_causal=True),
+        lambda q, k, v: jax_fa.flash_attention(q, k, v, is_causal=True)),
+}
+
+
+@pytest.mark.parametrize("call", sorted(FLASH_CALLS))
+def test_flash_attention_matches_jax(call):
+    """The public flash attention returns ``out`` alone, non-causal by
+    default; under autograd its dq, dk and dv are JAX's (``jax.vjp``
+    through the Pallas kernels). GQA, (1, 128, 2 on 1, 64)."""
+    rng = np.random.RandomState(2)
+    q, g = _np(rng, 1, 128, 2, 64), _np(rng, 1, 128, 2, 64)
+    k, v = _np(rng, 1, 128, 1, 64), _np(rng, 1, 128, 1, 64)
+    port, ref = FLASH_CALLS[call]
+    want, vjp = jax.vjp(ref, _j(q), _j(k), _j(v))
+    ts = [_t(a, True) for a in (q, k, v)]
+    got = port(*ts)
+    assert isinstance(got, torch.Tensor) and got.shape == q.shape
+    _close(got, want, KERNEL)
+    got.backward(_t(g))
+    for t, w in zip(ts, vjp(_j(g))):
+        _close(t.grad, w, KERNEL)
+
+
+def _sdpa_inputs():
+    rng = np.random.RandomState(3)
+    q = _np(rng, 2, 128, 4, 32)
+    k, v = _np(rng, 2, 128, 2, 32), _np(rng, 2, 128, 2, 32)
+    mask = rng.rand(2, 4, 128, 128) < 0.8
+    mask[..., 0] = True  # every row keeps a key
+    return q, k, v, mask
+
+
+SDPA_CALLS = {  # name -> (args after q, k, v), from the mask
+    "positional_bool_mask": lambda m: (m,),
+    "positional_additive_mask": lambda m: (
+        np.where(m, 0.0, -1e9).astype(np.float32),),
+    "positional_causal": lambda m: (None, 0.0, True),
+    "positional_mask_and_causal": lambda m: (m, 0.0, True, False),
+}
+
+
+@pytest.mark.parametrize("call", sorted(SDPA_CALLS))
+def test_sdpa_argument_order_matches_jax(call):
+    """``(q, k, v, attn_mask, dropout_p, is_causal, training)`` by
+    position: a mask takes the composition on both sides, a bare causal
+    call the flash route (JAX's Pallas kernel, interpret mode; the port's
+    plain flash version)."""
+    q, k, v, mask = _sdpa_inputs()
+    rest = SDPA_CALLS[call](mask)
+    want = jax_nn.scaled_dot_product_attention(
+        _j(q), _j(k), _j(v),
+        *(_j(a) if isinstance(a, np.ndarray) else a for a in rest))
+    got = nn_kernels.scaled_dot_product_attention(
+        _t(q), _t(k), _t(v),
+        *(_t(a) if isinstance(a, np.ndarray) else a for a in rest))
+    _close(got, want, KERNEL)
+
+
+ROPE_CALLS = {  # name -> (args after q, k, cos, sin), kwargs
+    "default": ((), {}),
+    "neox_keyword": ((), dict(use_neox_rotary_style=True)),
+    "neox_positional": ((None, True), {}),
+}
+
+
+@pytest.mark.parametrize("call", sorted(ROPE_CALLS) + ["interleaved"])
+def test_rope_signature_matches_jax(call):
+    """``use_neox_rotary_style=True`` (the default) is the port's rotation;
+    ``False`` (interleaved pairs) raises, not ported yet."""
+    rng = np.random.RandomState(4)
+    q, k = _np(rng, 2, 24, 4, 32), _np(rng, 2, 24, 2, 32)
+    cos, sin = _rope_tables(32, 64, 10000.0, "cpu")
+    if call == "interleaved":
+        with pytest.raises(NotImplementedError, match="Queue 2a item 4"):
+            nn_kernels.rotary_position_embedding(
+                _t(q), _t(k), cos, sin, use_neox_rotary_style=False)
+        return
+    args, kwargs = ROPE_CALLS[call]
+    wq, wk = jax_nn.rotary_position_embedding(
+        _j(q), _j(k), _j(cos.numpy()), _j(sin.numpy()), *args, **kwargs)
+    gq, gk = nn_kernels.rotary_position_embedding(_t(q), _t(k), cos, sin,
+                                                  *args, **kwargs)
+    _close(gq, wq, KERNEL)
+    _close(gk, wk, KERNEL)
+
+
+SEGMENT_CALLS = {
+    "flash_seq_lens": lambda q, m: fa.flash_attention(
+        q, q, q, seq_lens=torch.tensor([3])),
+    "flash_segment_ids": lambda q, m: fa.flash_attention(
+        q, q, q, True, None, torch.zeros(1, 8, dtype=torch.int32)),
+    "sdpa_seq_lens": lambda q, m: nn_kernels.scaled_dot_product_attention(
+        q, q, q, is_causal=True, seq_lens=torch.tensor([3])),
+    "sdpa_segment_ids": lambda q, m: nn_kernels.scaled_dot_product_attention(
+        q, q, q, segment_ids=torch.zeros(1, 8, dtype=torch.int32)),
+    "sdpa_mask_and_seq_lens":
+        lambda q, m: nn_kernels.scaled_dot_product_attention(
+            q, q, q, m, seq_lens=torch.tensor([3])),
+}
+
+
+@pytest.mark.parametrize("call", sorted(SEGMENT_CALLS))
+def test_segment_masking_raises(call):
+    """Segment masking is not ported: every route raises rather than
+    computing something JAX does not."""
+    q = _t(_np(np.random.RandomState(5), 1, 8, 2, 64))
+    mask = torch.ones(1, 2, 8, 8, dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="Queue 2a item 1"):
+        SEGMENT_CALLS[call](q, mask)
+
+
+def test_flash_attention_fwd_keeps_out_and_lse():
+    """``flash_attention_fwd`` is the (out, lse) entry, JAX's ``_fwd``."""
+    rng = np.random.RandomState(6)
+    q, k, v = (_np(rng, 1, 128, 2, 32) for _ in range(3))
+    want_o, want_lse = jax_fa._fwd(
+        *(jnp.swapaxes(_j(a), 1, 2) for a in (q, k, v)), True,
+        1.0 / math.sqrt(32))
+    out, lse = fa.flash_attention_fwd(_t(q), _t(k), _t(v), causal=True)
+    _close(out, np.swapaxes(np.asarray(want_o), 1, 2), KERNEL)
+    _close(lse, np.asarray(want_lse)[..., 0], KERNEL)

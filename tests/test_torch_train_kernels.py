@@ -53,14 +53,14 @@ def test_rms_norm_bwd_matches_pallas():
                                                         True),
                      jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
     want_dx, want_dw, want_db = vjp(jnp.asarray(g))
-    _, r = rn.rms_norm(_t(x), _t(w), 1e-6)
+    _, r = rn.rms_norm(_t(x), _t(w), epsilon=1e-6)
     dx, dw, db = rn.rms_norm_bwd(_t(x), _t(w), r, _t(g))
     _close(dx, want_dx)
     _close(dw, want_dw)
     _close(db, want_db)
     # through the model-facing op's Function (no bias: dx and dw)
     xt, wt = _t(x, True), _t(w, True)
-    nn_kernels.rms_norm(xt.reshape(4, 64, 256), wt, 1e-6).backward(
+    nn_kernels.rms_norm(xt.reshape(4, 64, 256), wt, epsilon=1e-6).backward(
         _t(g).reshape(4, 64, 256))
     _close(xt.grad, want_dx)
     _close(wt.grad, want_dw)
@@ -100,7 +100,7 @@ def test_flash_attention_bwd_matches_pallas(b, s, h, kvh, causal):
     _, vjp = jax.vjp(lambda q_, k_, v_: jax_fa.flash_attention(
         q_, k_, v_, is_causal=causal), *(jnp.asarray(a) for a in (q, k, v)))
     want = vjp(jnp.asarray(g))
-    out, lse = fa.flash_attention(_t(q), _t(k), _t(v), causal)
+    out, lse = fa.flash_attention_fwd(_t(q), _t(k), _t(v), causal)
     got = fa.flash_attention_bwd(_t(q), _t(k), _t(v), out, lse, _t(g), causal)
     for a, w in zip(got, want):
         _close(a, w)
@@ -160,7 +160,8 @@ def _f64(rng, *shape):
 def test_functions_gradcheck_in_f64(case):
     rng = np.random.RandomState(5)
     if case == "rms_norm":
-        fn = lambda x, w: rn.RMSNormFunction.apply(x, w, 1e-6)  # noqa: E731
+        fn = lambda x, w: rn.RMSNormFunction.apply(  # noqa: E731
+            x, w, None, 1e-6)
         args = (_f64(rng, 4, 8), _f64(rng, 8))
     elif case == "rope":
         cos, sin = (t.double() for t in _rope_tables(4, 8, 10000.0, "cpu"))
@@ -204,7 +205,8 @@ def test_ops_record_functions_only_under_autograd():
     ops = {
         "RMSNormFunctionBackward": lambda: nn_kernels.rms_norm(x, w),
         "FlashAttentionFunctionBackward":
-            lambda: nn_kernels.scaled_dot_product_attention(q, q, q, True),
+            lambda: nn_kernels.scaled_dot_product_attention(
+                q, q, q, is_causal=True),
         "RopeFunctionBackward":
             lambda: nn_kernels.rotary_position_embedding(q, q, cos, sin)[0],
     }
