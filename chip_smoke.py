@@ -36,14 +36,36 @@ so that a fault surfaces in the phase that caused it:
             lengths, GQA groups 2-8, a causal offset, sq > sk non-causal,
             three tiles with the last ragged) and at 1025 and 383 rows,
             forward, dK/dV and dQ, within the same gate.
-4. model    the 438M LLaMA (random N(0, 0.02) weights from a seed) in bf16
+4. flash-segments  the segment-masked flash kernels (``kSegments``)
+            against their plain versions on the same ids, within the
+            kernel gate on rows with a visible key, rows with none exactly
+            0 (lse -1e30): (4, 1536, 12, 128) causal with packed documents
+            (lengths from np.random.RandomState(11).randint(32, 1537)) and
+            with all-zero ids (the mask's cost alone), both beside the
+            unmasked kernels; BERT-base (32, 128, 12, 64) non-causal with
+            seq_lens; GQA q (2, 512, 12, 128) on 4 kv heads causal with
+            seq_lens; cross attention sq 96 on sk 160 with a (q_ids,
+            k_ids) pair missing a segment; every flash-edge shape with sq
+            == sk with packed ids. The first four timed (wrapper, launch
+            alone, range table), with the bound from the exact pair
+            count, the dense-mask SDPA and ``varlen_attn``; packed must
+            beat all-zero ids.
+5. varlen   ``nn.functional.flash_attn_varlen_qkvpacked`` on qkv (6144, 3,
+            12, 128) bf16, causal, documents from RandomState(11) packed
+            to 6144: forward and backward, the three [seg] kernels'
+            launches gated, out and gradient within the kernel gate of the
+            masked plain version and 5e-2 of a per-document plain loop;
+            the step's time beside the per-document loop of the unmasked
+            kernels, the dense-mask SDPA and ``varlen_attn``; a
+            torch.profiler split; each [seg] kernel timed at this shape.
+6. model    the 438M LLaMA (random N(0, 0.02) weights from a seed) in bf16
             on the card against the same weights in f32 on the CPU through
             the plain versions: one bucket-128 prefill of 2 prompts and 4
             decode steps, logits within a stated relative L2 error; the
             same decode steps again through the fused decode layers
             (per-slot depths, ``megakernel_scope(True)``), within the same
             error of the CPU run.
-5. serving  the continuous-batching engine on that model: 8 slots, max_len
+7. serving  the continuous-batching engine on that model: 8 slots, max_len
             512, page 128, buckets (32, 128), 24 requests of 8-119 prompt
             tokens from np.random.RandomState(7), 64 new tokens each,
             greedy, segments of 32; in two arms on the same model and
@@ -53,27 +75,27 @@ so that a fault surfaces in the phase that caused it:
             forward kernels, the fused arm the megakernel 12 times per
             decode step and paged decode never. Both arms' tokens/s and
             how far their greedy streams agree are printed, not gated.
-6. grad     a 2-layer model at the 438M widths, bf16 on the card against
+8. grad     a 2-layer model at the 438M widths, bf16 on the card against
             f32 on the CPU, batch 1 x seq 256 through
             LlamaPretrainingCriterion: the loss and every parameter's
             gradient within stated tolerances; the labels= loss equals the
             criterion's on the card.
-7. train    the slice itself: the 438M model in bf16, AdamW(lr 1e-4,
+9. train    the slice itself: the 438M model in bf16, AdamW(lr 1e-4,
             multi_precision) and TrainStep over the criterion, batch 4 x
             seq 1536 ids from np.random.RandomState(0), 1 warm-up step and
             5 timed steps on the same batch: step ms, tokens/s, MFU, peak
             memory, losses (finite, falling, the first near ln 32000), and
             the launches of the path's seven kernels in one step, zeroed
             just before it and read just after.
-8. incubate FusedBiasDropoutResidualLayerNorm(768, dropout 0.1) in bf16 on
+10. incubate FusedBiasDropoutResidualLayerNorm(768, dropout 0.1) in bf16 on
             (32, 128, 768): three forward and backward passes, which must
             launch the kernel three times (counts zeroed just before,
             read just after); y and the five gradients within 1e-2
             relative L2 of an f32 CPU run at the masks the layer drew.
-9. bert-grad a 2-layer BERT at BERT-base's widths, bf16 on the card
+11. bert-grad a 2-layer BERT at BERT-base's widths, bf16 on the card
             against f32 on the CPU, batch 4 x seq 128: MLM logits, the
             pretraining loss and every gradient within stated tolerances.
-10. bert-train  bench.py section (c2): BERT-base in bf16, AdamW(lr 1e-4,
+12. bert-train  bench.py section (c2): BERT-base in bf16, AdamW(lr 1e-4,
             multi_precision), TrainStep over BertPretrainingCriterion,
             ids, MLM and NSP labels of batch 32 x seq 128 from
             np.random.RandomState(0), 1 warm-up step and 5 timed steps:
@@ -82,11 +104,11 @@ so that a fault surfaces in the phase that caused it:
             the same steps in f32 on the card through the plain versions
             only), and one step's launches: flash forward, dK/dV and dQ
             12 each; RMSNorm and RoPE none.
-11. kernels one JSON line listing every ported kernel, with the unfused
+13. kernels one JSON line listing every ported kernel, with the unfused
             serving arm's launches for the serving kernels, the fused
             arm's for the megakernel, the LLaMA training step's for the
-            backward kernels and the incubate phase's for the bdrln
-            kernel.
+            backward kernels, the incubate phase's for the bdrln kernel
+            and the varlen phase's for the three [seg] rows.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
@@ -133,6 +155,10 @@ INCUBATE_REL_L2 = 1e-2
 # the two trajectories part by more than one forward's rounding (1.8e-5
 # relative); a wrong kernel or update parts them by order 1
 BERT_TRAJ_REL = 5e-2
+# the varlen phase: out and the qkv gradient, bf16 kernels on the card
+# against a per-document loop of the plain versions in f32 (bf16 inputs):
+# the model phase's bound for bf16 rounding, here of one attention layer
+VARLEN_REL_L2 = 5e-2
 
 CFG_438M = dict(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
                 num_hidden_layers=12, num_attention_heads=12,
@@ -1249,6 +1275,465 @@ def flash_edge_phase():
     torch.cuda.synchronize()
 
 
+def packed_ids(b, s, seed, lo=32, hi=1537):
+    """(b, s) int32 ids of packed documents: each row takes documents of
+    np.random.RandomState(seed).randint(lo, hi) tokens (one stream over
+    the rows) until they fill s, the last one cut to fit; ids count the
+    documents of a row from 0. Returns (ids, the documents' lengths in
+    order)."""
+    rng = np.random.RandomState(seed)
+    ids, lens = np.empty((b, s), np.int32), []
+    for i in range(b):
+        pos, doc = 0, 0
+        while pos < s:
+            n = min(int(rng.randint(lo, hi)), s - pos)
+            ids[i, pos:pos + n] = doc
+            lens.append(n)
+            pos, doc = pos + n, doc + 1
+    return ids, lens
+
+
+def seg_pairs(fa, q_seg, k_seg, sq, sk, causal):
+    """The visible, same-segment (query, key) pairs of one head, counted
+    exactly from the ids (the work a masked kernel must do), and the
+    (B, 1, Sq, Sk) mask they come from."""
+    keep = fa._keep(sq, sk, causal, q_seg, k_seg, q_seg.device)
+    return int(keep.sum()), keep
+
+
+def event_median_ms(fn, calls=5):
+    """One warm-up call, then ``calls`` calls each between CUDA events:
+    the median in ms, every call's time and the last call's result."""
+    fn()
+    times = []
+    for _ in range(calls):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times, res
+
+
+def varlen_library(q, k, v, cu, max_len, causal):
+    """``torch.nn.attention.varlen.varlen_attn`` over (total, H, D) q, k,
+    v and ``cu`` boundaries, where the card's torch has it (a yardstick,
+    never called by the port): ``(fn, None)`` with ``fn(q, k, v)`` the
+    call on other tensors of the same layout, or ``(None, why not)``."""
+    try:
+        from torch.nn.attention import varlen
+    except ImportError as e:
+        return None, f"no torch.nn.attention.varlen ({e})"
+    import inspect
+    params = inspect.signature(varlen.varlen_attn).parameters
+    kw = ({"is_causal": causal} if "is_causal" in params
+          else {"window_size": (-1, 0) if causal else (-1, -1)})
+
+    def fn(q_, k_, v_):
+        return varlen.varlen_attn(q_, k_, v_, cu, cu, max_len, max_len, **kw)
+
+    try:  # the library's own refusal is reported, not the port's
+        fn(q, k, v)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError, NotImplementedError) as e:
+        return None, f"varlen_attn refused: {str(e).splitlines()[0][:200]}"
+    return fn, None
+
+
+def device_profile(fn, steps=2):
+    """``steps`` calls of ``fn`` under torch.profiler: device busy ms per
+    call (the kernels' device time), the device's idle share of the wall
+    time, and the kernels that took the most device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = float(getattr(e, "self_device_time_total", 0.0))
+            kernels[e.key[:80]] = (us, e.count)
+    busy = sum(us for us, _ in kernels.values())
+    return dict(
+        wall_ms_per_call=1e3 * wall / steps,
+        device_busy_ms_per_call=busy / 1e3 / steps,
+        device_idle_share=1.0 - busy / 1e6 / wall,
+        top_kernels=[dict(kernel=k, ms_per_call=us / 1e3 / steps,
+                          launches_per_call=n / steps)
+                     for k, (us, n) in sorted(kernels.items(),
+                                              key=lambda kv: -kv[1][0])[:8]])
+
+
+SEG_KERNELS = ("flash_attention[seg]", "flash_attention_bwd_dkdv[seg]",
+               "flash_attention_bwd_dq[seg]")
+
+
+def seg_check(fa, tag, q, k, v, do, causal, q_seg, k_seg, keep):
+    """The three masked kernels against their plain versions on the same
+    ids, within the kernel gate on rows with a visible key; rows with none
+    must be exactly 0 (out, dQ) with lse -1e30, in both versions. Returns
+    (errors by kernel, out, lse, delta)."""
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, q_seg, k_seg)
+    pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal, q_seg,
+                                              k_seg)
+    valid = keep.any(-1)[:, 0]  # (B, Sq)
+    empty = int((~valid).sum())
+    rows = valid[:, :, None, None].expand_as(out)
+    errs = {"flash_attention[seg]": compare(f"out{tag}", out[rows],
+                                            pout[rows])}
+    lse_ok = valid[:, None, :].expand_as(lse)
+    lse_err = (lse[lse_ok] - plse[lse_ok]).abs().max().item()
+    if lse_err > 1e-3:
+        raise PhaseFailed(f"flash_attention[seg]{tag}: lse off by "
+                          f"{lse_err:.3g}")
+    if empty and not (bool((out[~rows] == 0).all())
+                      and bool((pout[~rows] == 0).all())
+                      and bool((lse[~lse_ok] == fa.NEG_INF).all())
+                      and bool((plse[~lse_ok] == fa.NEG_INF).all())):
+        raise PhaseFailed(f"flash_attention[seg]{tag}: a row with no "
+                          f"visible key is not out 0, lse -1e30")
+    delta = fa._delta(out, do)
+    got_dk, got_dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                 causal, q_seg, k_seg)
+    got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
+                                       q_seg, k_seg)
+    want_dq, want_dk, want_dv = fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal, q_seg, k_seg)
+    errs["flash_attention_bwd_dkdv[seg]"] = max(
+        compare(f"dk{tag}", got_dk, want_dk),
+        compare(f"dv{tag}", got_dv, want_dv))
+    errs["flash_attention_bwd_dq[seg]"] = compare(f"dq{tag}", got_dq,
+                                                  want_dq)
+    if empty and not bool((got_dq[~rows] == 0).all()):
+        raise PhaseFailed(f"flash_attention_bwd_dq[seg]{tag}: a row with "
+                          f"no visible key has a nonzero dQ")
+    torch.cuda.synchronize()
+    return errs, empty, out, lse, delta
+
+
+def seg_times(fa, peaks, q, k, v, do, out, lse, delta, causal, q_seg,
+              k_seg, keep, pairs, calls=3, varlen_args=None):
+    """Device time per call of the three masked kernels (their wrappers,
+    the range tables included; ``kernel_ms`` the launch alone, the tables
+    built beforehand, and ``table_ms`` the tables alone), the plain
+    versions, the dense-mask SDPA (forward; ``autograd.grad`` for the
+    backward pair) and, given ``varlen_args`` (q, k, v as (total, H, D),
+    cu_seqlens, max length), ``varlen_attn``; each kernel's bound from the
+    exact pair count."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = dict(enable_gqa=True) if kvh != h else {}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        ol = torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=keep, **gqa)
+    dol = do.transpose(1, 2)
+    lib_bwd = graph_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), dol, retain_graph=True), calls=calls, replays=3,
+        stream=side)
+    lib_fwd = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep, **gqa), calls=calls, replays=3)
+    varlen_fwd = varlen_why = None
+    if varlen_args is not None:
+        fn, varlen_why = varlen_library(*varlen_args, causal)
+        if fn is not None:
+            varlen_fwd = graph_ms(lambda: fn(*varlen_args[:3]), calls=calls,
+                                  replays=3)
+    plain_bwd = graph_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal, q_seg, k_seg), calls=1, replays=2)
+    seg_bytes = (q_seg.numel() + k_seg.numel()) * 4
+    io = (q.numel() + 2 * k.numel() + do.numel()) * 2 + 2 * lse.numel() * 4
+    kernels = {
+        "flash_attention[seg]": (
+            lambda: fa.flash_attention_fwd(q, k, v, causal, q_seg, k_seg),
+            4 * d * h * pairs,
+            (2 * q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4,
+            graph_ms(lambda: fa.flash_attention_fwd_plain(
+                q, k, v, causal, q_seg, k_seg), calls=1, replays=2),
+            lib_fwd),
+        "flash_attention_bwd_dkdv[seg]": (
+            lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                causal, q_seg, k_seg),
+            8 * d * h * pairs, io + 2 * k.numel() * 2, plain_bwd, lib_bwd),
+        "flash_attention_bwd_dq[seg]": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                              causal, q_seg, k_seg),
+            6 * d * h * pairs, io + q.numel() * 2, plain_bwd, lib_bwd)}
+    # the launches alone, with the range tables built once beforehand
+    seg = fa._segments("flash_attention", q, k, q_seg, k_seg)
+    launch_only = {
+        "flash_attention[seg]": lambda: fa._launch_fwd(q, k, v, causal, seg),
+        "flash_attention_bwd_dkdv[seg]": lambda: fa._launch_dkdv(
+            q, k, v, do, lse, delta, causal, seg),
+        "flash_attention_bwd_dq[seg]": lambda: fa._launch_dq(
+            q, k, v, do, lse, delta, causal, seg)}
+    table_ms = graph_ms(lambda: fa._segments("flash_attention", q, k, q_seg,
+                                             k_seg), calls=calls, replays=3)
+    recs = {}
+    for kname, (fn, flops, nb, plain, lib) in kernels.items():
+        bms, by = bound_ms(nb + seg_bytes, flops, peaks)
+        ms = graph_ms(fn, calls=calls, replays=3)
+        recs[kname] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bms, bound_by=by, **rates(flops, ms, bms),
+                           kernel_ms=graph_ms(launch_only[kname], calls=calls,
+                                              replays=3),
+                           table_ms=table_ms)
+    recs["flash_attention[seg]"]["varlen_library_ms"] = varlen_fwd
+    if varlen_why:
+        recs["flash_attention[seg]"]["varlen_library"] = varlen_why
+    return recs
+
+
+def unmasked_times(fa, q, k, v, do, causal, calls=3):
+    """The unmasked kernels' times at the same shape, in the same call."""
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = fa._delta(out, do)
+    return {
+        "flash_attention[seg]": graph_ms(
+            lambda: fa.flash_attention_fwd(q, k, v, causal), calls=calls,
+            replays=3),
+        "flash_attention_bwd_dkdv[seg]": graph_ms(
+            lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                causal), calls=calls,
+            replays=3),
+        "flash_attention_bwd_dq[seg]": graph_ms(
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                              causal), calls=calls,
+            replays=3)}
+
+
+def flash_segments_phase(peaks):
+    """The three masked kernels (``kSegments``) against their plain
+    versions with the same ids, within the kernel gate; rows with no
+    visible key exactly 0. The timed cases (device time per call, the
+    bound from the exact pair count, its share, TFLOP/s, the dense-mask
+    SDPA and, for packed documents, ``varlen_attn``): the b-438M shape
+    (4, 1536, 12, 128) causal with packed documents (lengths from
+    np.random.RandomState(11).randint(32, 1537)) and with all-zero ids
+    (the mask's cost alone), both beside the unmasked kernels; BERT-base
+    (32, 128, 12, 64) non-causal with seq_lens from RandomState(12)
+    .randint(32, 129); GQA q (2, 512, 12, 128) on 4 kv heads causal with
+    seq_lens. Untimed: cross attention, sq 96 on sk 160 with a (q_ids,
+    k_ids) pair in which a query segment is missing from the keys, and
+    every FLASH_EDGE_CASES shape with sq == sk with packed ids."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def ids(a):
+        return torch.tensor(a, dtype=torch.int32, device="cuda")
+
+    b, s, h, d = 4, 1536, 12, 128
+    packed, lens = packed_ids(b, s, 11)
+    cases = [  # name, (b, sq, sk, h, kvh, d), causal, (q_seg, k_seg)
+        ("train_packed", (b, s, s, h, h, d), True, (ids(packed),) * 2),
+        ("train_zero_ids", (b, s, s, h, h, d), True,
+         (ids(np.zeros((b, s))),) * 2),
+        ("bert_seq_lens", (32, 128, 128, 12, 12, 64), False,
+         fa.build_segments(32, 128, 128, np.random.RandomState(12).randint(
+             32, 129, 32), device="cuda")),
+        ("gqa_seq_lens", (2, 512, 512, 12, 4, 128), True,
+         fa.build_segments(2, 512, 512, np.random.RandomState(13).randint(
+             32, 513, 2), device="cuda"))]
+    rng = np.random.RandomState(14)
+    q_cross = np.sort(rng.randint(0, 5, (2, 96)), 1)
+    k_cross = np.sort(rng.randint(0, 5, (2, 160)), 1)
+    k_cross[k_cross == 3] = 4  # segment 3 of the queries sees no key
+    cases.append(("cross_pair", (2, 96, 160, 8, 2, 128), False,
+                  (ids(q_cross), ids(k_cross))))
+    for i, (eb, sq, sk, eh, ekvh, ed, causal) in enumerate(FLASH_EDGE_CASES):
+        if sq == sk:
+            e_ids = ids(packed_ids(eb, sq, 15 + i, 1, max(2, sq // 2))[0])
+            cases.append((f"edge{i}", (eb, sq, sk, eh, ekvh, ed), causal,
+                          (e_ids, e_ids)))
+    results = {}
+    for name, (cb, sq, sk, ch, ckvh, cd), causal, (q_seg, k_seg) in cases:
+        tag = f"[{name}]"
+        q, do = randn(cb, sq, ch, cd), randn(cb, sq, ch, cd)
+        k, v = randn(cb, sk, ckvh, cd), randn(cb, sk, ckvh, cd)
+        pairs, keep = seg_pairs(fa, q_seg, k_seg, sq, sk, causal)
+        errs, empty, out, lse, delta = seg_check(
+            fa, tag, q, k, v, do, causal, q_seg, k_seg, keep)
+        rec = dict(case=name, shape=[cb, sq, sk, ch, ckvh, cd],
+                   causal=causal, pairs_per_head=pairs,
+                   dense_pairs_per_head=cb * sq * sk,
+                   rows_without_key=empty, max_abs_err=errs)
+        if name in ("train_packed", "train_zero_ids", "bert_seq_lens",
+                    "gqa_seq_lens"):
+            varlen_args = None
+            if name == "train_packed":
+                cu = ids(np.concatenate([[0], np.cumsum(lens)]))
+                varlen_args = (*(t.reshape(-1, *t.shape[2:])
+                                 for t in (q, k, v)), cu, max(lens))
+            times = seg_times(fa, peaks, q, k, v, do, out, lse, delta,
+                              causal, q_seg, k_seg, keep, pairs,
+                              varlen_args=varlen_args)
+            if name.startswith("train"):
+                for kname, ums in unmasked_times(fa, q, k, v, do,
+                                                 causal).items():
+                    times[kname]["unmasked_ms"] = ums
+            rec["times"] = times
+            results[name] = times
+        emit("flash-segments", **rec)
+        del keep
+        torch.cuda.synchronize()
+    # the skipping: packed documents must beat the same kernels with
+    # all-zero ids (nothing to skip)
+    slower = [k for k in SEG_KERNELS if results["train_packed"][k]["ms"]
+              >= results["train_zero_ids"][k]["ms"]]
+    if slower:
+        raise PhaseFailed(f"flash-segments: {slower} no faster on packed "
+                          f"documents than with all-zero ids")
+    torch.cuda.empty_cache()
+    return results
+
+
+VARLEN_TOTAL, VARLEN_STEPS = 6144, 5
+
+
+def varlen_phase(peaks):
+    """The varlen path at the 438M's attention width:
+    ``nn.functional.flash_attn_varlen_qkvpacked`` on qkv (6144, 3, 12,
+    128) bf16, causal, documents from np.random.RandomState(11)
+    .randint(32, 1537) packed to 6144 (cu_seqlens int32 on the card),
+    forward and backward through autograd. Launch counts are zeroed just
+    before the warm-up and the 5 timed steps and read just after: each
+    [seg] kernel must have launched. out and the qkv gradient are finite
+    and within the kernel gate of the masked plain version (f32 on the
+    card, from the forward kernel's out and lse) and within 5e-2
+    relative L2 of a per-document loop of the plain version. Beside the
+    step's time (median of 5 CUDA-event-timed steps after one warm-up):
+    a per-document loop of the port's unmasked flash_attention under
+    autograd, the dense-mask SDPA and, where the card's torch has it,
+    ``varlen_attn``. Then each [seg] kernel alone at this shape, for the
+    kernels line."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    total, h, d = VARLEN_TOTAL, 12, 128
+    packed, lens = packed_ids(1, total, 11)
+    bounds = np.concatenate([[0], np.cumsum(lens)])
+    cu = torch.tensor(bounds, dtype=torch.int32, device="cuda")
+    max_len = max(lens)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    qkv = torch.randn((total, 3, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dout = torch.randn((total, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+    def step():
+        x = qkv.detach().requires_grad_()
+        out, _ = F.flash_attn_varlen_qkvpacked(x, cu, cu, max_len, max_len,
+                                               causal=True)
+        out.backward(dout)
+        return out, x.grad
+
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    step_ms, step_all, (out, grad) = event_median_ms(step, VARLEN_STEPS)
+    torch.cuda.synchronize()
+    counts = {k: launch_counts[k] for k in SEG_KERNELS}
+    if not (bool(torch.isfinite(out.float()).all())
+            and bool(torch.isfinite(grad.float()).all())):
+        raise PhaseFailed("varlen: out or the qkv gradient is not finite")
+
+    # against the masked plain version, from the forward kernel's out, lse
+    seg = torch.tensor(packed, dtype=torch.int32, device="cuda")
+    q, k, v = (qkv[None, :, i].contiguous() for i in range(3))
+    do = dout[None]
+    out_k, lse_k = fa.flash_attention_fwd(q, k, v, True, seg, seg)
+    errs = {"out": compare("varlen out", out[None], fa.flash_attention_fwd_plain(
+        q, k, v, True, seg, seg)[0])}
+    want = fa.flash_attention_bwd_plain(q, k, v, out_k, lse_k, do, True, seg,
+                                        seg)
+    for i, nm in enumerate(("dq", "dk", "dv")):
+        errs[nm] = compare(f"varlen {nm}", grad[None, :, i], want[i])
+    del want
+    torch.cuda.empty_cache()
+    # against a per-document loop of the plain version
+    loop_out, loop_grad = [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        qi, ki, vi = (t[:, lo:hi] for t in (q, k, v))
+        o_i, l_i = fa.flash_attention_fwd_plain(qi, ki, vi, True)
+        loop_out.append(o_i[0])
+        loop_grad.append(torch.stack(fa.flash_attention_bwd_plain(
+            qi, ki, vi, o_i, l_i, do[:, lo:hi], True), 2)[0])
+    rel = {"out": rel_l2(out, torch.cat(loop_out))}
+    loop_grad = torch.cat(loop_grad)
+    for i, nm in enumerate(("dq", "dk", "dv")):
+        rel[nm] = rel_l2(grad[:, i], loop_grad[:, i])
+    if max(rel.values()) > VARLEN_REL_L2:
+        raise PhaseFailed(f"varlen: rel L2 against the per-document plain "
+                          f"loop {rel} beyond {VARLEN_REL_L2}")
+
+    # beside it: the port's unmasked kernels per document, the dense-mask
+    # SDPA and varlen_attn, each forward and backward
+    def loop_step():
+        x = qkv.detach().requires_grad_()
+        outs = [fa.flash_attention(*(x[None, lo:hi, i].contiguous()
+                                     for i in range(3)), True)[0]
+                for lo, hi in zip(bounds[:-1], bounds[1:])]
+        torch.cat(outs).backward(dout)
+
+    pairs, keep = seg_pairs(fa, seg, seg, total, total, True)
+
+    def sdpa_step():
+        x = qkv.detach().requires_grad_()
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *(x[None, :, i].transpose(1, 2) for i in range(3)),
+            attn_mask=keep)
+        o.transpose(1, 2).backward(do)
+
+    profile = device_profile(step)
+    beside = {"port_unmasked_loop_ms": event_median_ms(loop_step)[0],
+              "sdpa_dense_mask_ms": event_median_ms(sdpa_step)[0]}
+    varlen_args = (q[0], k[0], v[0], cu, max_len)
+    vfn, why = varlen_library(*varlen_args, True)
+    if vfn is not None:
+        def varlen_step():
+            x = qkv.detach().requires_grad_()
+            vfn(*(x[:, i].contiguous() for i in range(3))).backward(dout)
+
+        beside["varlen_attn_ms"] = event_median_ms(varlen_step)[0]
+    else:
+        beside["varlen_attn"] = why
+    delta = fa._delta(out_k, do)
+    kernels = seg_times(fa, peaks, q, k, v, do, out_k, lse_k, delta, True,
+                        seg, seg, keep, pairs, calls=2,
+                        varlen_args=varlen_args)
+    for kname in SEG_KERNELS:
+        kernels[kname]["max_abs_err"] = errs["out"] if kname.startswith(
+            "flash_attention[") else max(errs["dq"], errs["dk"], errs["dv"])
+    emit("varlen", qkv=[total, 3, h, d], documents=len(lens),
+         max_len=max_len, pairs_per_head=pairs,
+         dense_causal_pairs_per_head=total * (total + 1) // 2,
+         step_ms_median=step_ms, step_ms=step_all, step_profile=profile,
+         **beside,
+         max_abs_err=errs, rel_l2_vs_document_loop=rel,
+         tolerance=VARLEN_REL_L2, launches=counts, kernels=kernels)
+    missing = [k for k in SEG_KERNELS if counts[k] <= 0]
+    if missing:
+        raise PhaseFailed(f"varlen: {missing} not launched on the path")
+    del keep
+    torch.cuda.empty_cache()
+    return kernels, counts
+
+
 def rel_l2(got, want):
     got, want = got.detach().float().cpu(), want.detach().float().cpu()
     return float((got - want).norm() / want.norm())
@@ -1553,6 +2038,15 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
     ("bias_dropout_residual_ln",
      "paddle_tpu_torch/csrc/bias_dropout_residual_ln.cu",
      "paddle_tpu/ops/pallas/fused_ops.py:112", "incubate"),
+    # the masked=True instantiations of the three flash kernels
+    ("flash_attention[seg]", "paddle_tpu_torch/csrc/flash_attention.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:86", "varlen"),
+    ("flash_attention_bwd_dkdv[seg]",
+     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:181", "varlen"),
+    ("flash_attention_bwd_dq[seg]",
+     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:245", "varlen"),
 ]
 
 
@@ -1591,9 +2085,13 @@ def main():
     results.update(bdrln_phase(peaks))
     bert_flash_phase(peaks)
     flash_edge_phase()
+    flash_segments_phase(peaks)
+    seg_kernels, varlen_counts = varlen_phase(peaks)
+    results.update(seg_kernels)
     model = model_phase()
     torch.cuda.synchronize()
     counts = serving_phase(model, name, smi)
+    counts["varlen"] = varlen_counts
     del model
     torch.cuda.empty_cache()
     grad_phase()

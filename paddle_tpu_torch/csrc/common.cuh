@@ -144,6 +144,79 @@ __device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst,
   }
 }
 
+// ---- segment masking of the flash kernels. Ids are int32 per (batch row,
+// position); an entry counts only where the query's id equals the key's. A
+// tile pair is skipped when the id ranges of its two sides do not meet: no
+// id of one side can then equal an id of the other. The ranges come from a
+// table of (min, max) per kSegChunk positions, built with plain torch ops
+// before the launch (segment_ranges in ops/cuda/flash_attention.py).
+constexpr int kSegChunk = 32;
+
+struct SegIds {  // q == nullptr: no segment mask
+  const int *q, *k;              // (b, sq), (b, sk) ids
+  const int *q_lo, *q_hi;        // (b, ceil(sq / 32)) range table
+  const int *k_lo, *k_hi;        // (b, ceil(sk / 32))
+};
+
+// [min, max] of the ids at positions [row0, row0 + T) of one batch row,
+// from its n-entry range table; row0 is a multiple of kSegChunk and
+// entries past the table (positions past the end) add nothing.
+template <int T>
+__device__ __forceinline__ int2 seg_range(const int* lo, const int* hi, int n,
+                                          int row0) {
+  static_assert(T % kSegChunk == 0, "tiles of whole chunks");
+  int mn = 0x7fffffff, mx = -0x7fffffff - 1;
+#pragma unroll
+  for (int i = 0; i < T / kSegChunk; ++i) {
+    const int c = row0 / kSegChunk + i;
+    if (c < n) {
+      mn = min(mn, __ldg(lo + c));
+      mx = max(mx, __ldg(hi + c));
+    }
+  }
+  return make_int2(mn, mx);
+}
+
+// Bit j: tile base + j of a side of T-row tiles (tiles below `end`) has an
+// id range that meets `want`. Every warp computes the same mask with one
+// ballot, so the threads of a block walk the same tiles.
+template <int T>
+__device__ __forceinline__ unsigned seg_window(const int* lo, const int* hi,
+                                               int n, int base, int end,
+                                               int2 want) {
+  const int j = base + static_cast<int>(threadIdx.x % 32);
+  bool meet = false;
+  if (j < end) {
+    const int2 r = seg_range<T>(lo, hi, n, j * T);
+    meet = r.x <= want.y && r.y >= want.x;
+  }
+  return __ballot_sync(0xffffffffu, meet);
+}
+
+// The tiles to visit in order, 32 at a time: `todo` holds the bits of the
+// current window [base, base + 32) not yet taken.
+struct SegWalk {
+  int base;
+  unsigned todo;
+  template <class Window>
+  __device__ __forceinline__ void start(int from, Window window) {
+    base = from;
+    todo = window(base);
+  }
+  // the next tile to visit, or end
+  template <class Window>
+  __device__ __forceinline__ int next(int end, Window window) {
+    while (todo == 0) {
+      base += 32;
+      if (base >= end) return end;
+      todo = window(base);
+    }
+    const int j = __ffs(todo) - 1;
+    todo &= todo - 1;
+    return base + j;
+  }
+};
+
 }  // namespace ptt
 
 PTT_EXPORT const char* ptt_error_string(int code);

@@ -12,12 +12,36 @@
 // walks 64-key tiles up to the tile's causal limit (tiles past it are
 // skipped, not masked). Rows past sq are zero-filled and never stored, so
 // any length rides the kernel: the serving bucket 32 and ragged lengths.
-// Segment-id masking is not ported: no caller passes it.
+//
+// Segment masking (the Pallas kernel's masked=True, :87-122) is the
+// kSegments instantiation: an entry counts only where the query's int32 id
+// equals the key's. Each block stages its 64 query ids in shared memory
+// beside its Q rows, and each key tile's 64 ids with the tile, in the same
+// cp.async ring. In the m16n8k16 accumulator layout lane l holds rows l/4
+// and l/4 + 8 and columns 2(l%4) + {0, 1} of each n-block; those ids are
+// compared on every tile the block visits, and a masked S entry becomes
+// -1e30 before the row max, as the causal mask does. A key tile whose id
+// range does not meet the query tile's is skipped: no key of it can match
+// (ptt::SegWalk over a host-built table of (min, max) per 32 positions;
+// the ring prefetches the next tile that is not skipped). For packed
+// documents with monotone ids that leaves the tiles on the documents'
+// diagonal blocks. The unmasked instantiation's code path is unchanged.
+//
+// A query row with no visible key (causal with sq > sk, or a segment that
+// is missing from the keys) gets out = 0 and lse = -1e30, whether its
+// tiles are visited or skipped: while a row's max is -1e30 its P is 0
+// (mb = 0 below), so l = 0 and O = 0. The plain version in
+// ops/cuda/flash_attention.py defines such rows the same way; the Pallas
+// kernel leaves them "finite garbage" that depends on its tiles.
 //
 // Bound on the H100: operations at the training shape (4, 1536, 12, 128)
 // causal (28.99 GFLOP, 29.3 us at the bf16 tensor-core peak), bytes at the
 // serving prefill (8, 128, 12, 128) (12.6 MB, 3.8 us at 3.35 TB/s) and at
-// BERT's (32, 128, 12, 64). Design, for the tensor cores:
+// BERT's (32, 128, 12, 64). With segments the bound is the visible,
+// same-segment (query, key) pairs x 4 D flops over 989 TFLOP/s, or the
+// bytes (q, k, v, the ids in; out, lse out) over 3.35 TB/s if larger; the
+// pairs are counted from the ids (chip_smoke.py). Design, for the tensor
+// cores:
 // - Every product is a bf16 mma.sync.m16n8k16 with f32 accumulators. A
 //   warp holds its 16 rows of Q as A fragments in registers (loaded once
 //   with ldmatrix); S = Q K^T lands in registers, row max and row sum
@@ -50,19 +74,21 @@ constexpr int kBK = 64;  // keys per tile
 constexpr int kThreads = kBQ / 16 * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int D, bool kSegments>
 constexpr int smem_bytes() {
-  return (kBQ + 4 * kBK) * (D + 8) * 2;  // Q, and two stages of K and V
+  // Q, and two stages of K and V; with segments the Q tile's ids and two
+  // stages of key ids
+  return (kBQ + 4 * kBK) * (D + 8) * 2 + (kSegments ? (kBQ + 2 * kBK) * 4 : 0);
 }
 
-template <int D>
+template <int D, bool kSegments>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int sq, int sk, int heads, int kv_heads, float scale,
-                 int causal) {
+                 const ptt::SegIds seg, int sq, int sk, int heads,
+                 int kv_heads, float scale, int causal) {
   constexpr int S = D + 8;      // shared row stride, bf16
   constexpr int kKd = D / 16;   // k-steps of Q K^T
   constexpr int kNs = kBK / 8;  // score n-blocks of a key tile
@@ -71,6 +97,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   auto* qs = reinterpret_cast<__nv_bfloat16*>(fwd_smem);
   __nv_bfloat16* ks = qs + kBQ * S;      // [2][kBK][S]
   __nv_bfloat16* vs = ks + 2 * kBK * S;  // [2][kBK][S]
+  int* qid_s = reinterpret_cast<int*>(vs + 2 * kBK * S);  // [kBQ]
+  int* kid_s = qid_s + kBQ;                               // [2][kBK]
 
   // the last query tiles see the most keys: schedule them first
   const int n_qt = (sq + kBQ - 1) / kBQ;
@@ -93,11 +121,42 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   if (causal) k_end = max(min(sk, min(q0 + kBQ, sq) + off), 0);
   const int n_kt = (k_end + kBK - 1) / kBK;
 
+  // segments: the key tiles whose id range meets this query tile's
+  const int nq32 = (sq + ptt::kSegChunk - 1) / ptt::kSegChunk;
+  const int nk32 = (sk + ptt::kSegChunk - 1) / ptt::kSegChunk;
+  auto window = [&](int base) {
+    const int2 want = ptt::seg_range<kBQ>(seg.q_lo + b * nq32,
+                                          seg.q_hi + b * nq32, nq32, q0);
+    return ptt::seg_window<kBK>(seg.k_lo + b * nk32, seg.k_hi + b * nk32,
+                                nk32, base, n_kt, want);
+  };
+  ptt::SegWalk walk;
+  // K, V (and with segments the key ids) of tile kt into a stage
+  auto stage_kv = [&](int kt, int stage) {
+    const int k0 = kt * kBK, at = stage * kBK * S;
+    ptt::cp_async_rows<kBK, D, kThreads>(ks + at, kb, kv_row, k0, sk);
+    ptt::cp_async_rows<kBK, D, kThreads>(vs + at, vb, kv_row, k0, sk);
+    if (kSegments && threadIdx.x < kBK) {
+      const int c = k0 + threadIdx.x;
+      const int* kid = seg.k + static_cast<long long>(b) * sk;
+      ptt::cp_async_4(kid_s + stage * kBK + threadIdx.x, kid + (c < sk ? c : 0),
+                      c < sk ? 4 : 0);
+    }
+  };
+
   ptt::cp_async_rows<kBQ, D, kThreads>(qs, qb, q_row, q0, sq);
-  if (n_kt > 0) {
-    ptt::cp_async_rows<kBK, D, kThreads>(ks, kb, kv_row, 0, sk);
-    ptt::cp_async_rows<kBK, D, kThreads>(vs, vb, kv_row, 0, sk);
+  if (kSegments && threadIdx.x < kBQ) {
+    const int r = q0 + threadIdx.x;
+    const int* qid = seg.q + static_cast<long long>(b) * sq;
+    ptt::cp_async_4(qid_s + threadIdx.x, qid + (r < sq ? r : 0),
+                    r < sq ? 4 : 0);
   }
+  int kt = 0;  // the first key tile (the walk's reads overlap the Q copies)
+  if (kSegments) {
+    walk.start(0, window);
+    kt = walk.next(n_kt, window);
+  }
+  if (kt < n_kt) stage_kv(kt, 0);
   ptt::cp_async_commit();
 
   const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
@@ -109,19 +168,20 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m[2] = {ptt::kNegInf, ptt::kNegInf}, l[2] = {0.f, 0.f};
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK, stage = kt & 1;
-    if (kt + 1 < n_kt) {
-      const int nxt = (stage ^ 1) * kBK * S;
-      ptt::cp_async_rows<kBK, D, kThreads>(ks + nxt, kb, kv_row, k0 + kBK, sk);
-      ptt::cp_async_rows<kBK, D, kThreads>(vs + nxt, vb, kv_row, k0 + kBK, sk);
+  // it counts the tiles visited; unmasked it equals kt
+  for (int it = 0; kt < n_kt; ++it) {
+    const int nkt = kSegments ? walk.next(n_kt, window) : kt + 1;
+    const int step = kSegments ? it : kt;
+    const int k0 = kt * kBK, stage = step & 1;
+    if (nkt < n_kt) {
+      stage_kv(nkt, stage ^ 1);
       ptt::cp_async_commit();
       ptt::cp_async_wait<1>();
     } else {
       ptt::cp_async_wait<0>();
     }
     __syncthreads();
-    if (kt == 0) {
+    if (step == 0) {
 #pragma unroll
       for (int kk = 0; kk < kKd; ++kk) {
         ptt::ldmatrix_x4<false>(
@@ -152,16 +212,29 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     const bool need_mask =
-        k0 + kBK > sk || (causal && k0 + kBK - 1 > q0 + off);
+        kSegments || k0 + kBK > sk || (causal && k0 + kBK - 1 > q0 + off);
+    int rid[2] = {0, 0};  // this thread's rows' ids
+    if (kSegments) {
+      rid[0] = qid_s[warp * 16 + g];
+      rid[1] = qid_s[warp * 16 + g + 8];
+    }
 #pragma unroll
     for (int n = 0; n < kNs; ++n) {
+      int2 cid = make_int2(0, 0);  // the ids of columns 2t, 2t + 1
+      if (kSegments) {
+        cid = *reinterpret_cast<const int2*>(kid_s + stage * kBK + n * 8 +
+                                             2 * t);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         s[n][e] *= scale;
         if (need_mask) {
           const int c = k0 + n * 8 + 2 * t + (e & 1);
           const int r = row + (e >> 1) * 8;
-          if (c >= sk || (causal && c > r + off)) s[n][e] = ptt::kNegInf;
+          if (c >= sk || (causal && c > r + off) ||
+              (kSegments && (e & 1 ? cid.y : cid.x) != rid[e >> 1])) {
+            s[n][e] = ptt::kNegInf;
+          }
         }
       }
     }
@@ -221,6 +294,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     __syncthreads();  // every warp is done with this stage
+    kt = nkt;
   }
   ptt::cp_async_wait<0>();  // with no key tile, the Q copies
   __syncthreads();          // Q rows are free for the output
@@ -264,30 +338,51 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D>
+template <int D, bool kSegments>
 int launch_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
-               const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int b,
-               int sq, int sk, int heads, int kv_heads, float scale,
-               int causal, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
+               const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+               const ptt::SegIds& seg, int b, int sq, int sk, int heads,
+               int kv_heads, float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D, kSegments>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<D, kSegments>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (sq + kBQ - 1) / kBQ * heads * b;
-  flash_fwd_kernel<D><<<blocks, kThreads, smem, stream>>>(
-      q, k, v, o, lse, sq, sk, heads, kv_heads, scale, causal);
+  flash_fwd_kernel<D, kSegments><<<blocks, kThreads, smem, stream>>>(
+      q, k, v, o, lse, seg, sq, sk, heads, kv_heads, scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
+               const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+               const ptt::SegIds& seg, int b, int sq, int sk, int heads,
+               int kv_heads, float scale, int causal, cudaStream_t stream) {
+  if (seg.q != nullptr) {
+    return launch_fwd<D, true>(q, k, v, o, lse, seg, b, sq, sk, heads,
+                               kv_heads, scale, causal, stream);
+  }
+  return launch_fwd<D, false>(q, k, v, o, lse, seg, b, sq, sk, heads,
+                              kv_heads, scale, causal, stream);
 }
 
 }  // namespace
 
 // q, o: (b, sq, heads, d); k, v: (b, sk, kv_heads, d), all bf16
 // row-major, 16-byte aligned; lse: (b, heads, sq) f32. d is 64 or 128.
+// q_seg (b, sq) and k_seg (b, sk) int32 ids with their range tables
+// (min, max per 32 positions: q_lo, q_hi (b, ceil(sq / 32)); k_lo, k_hi
+// (b, ceil(sk / 32))), 4-byte aligned; q_seg null: no segment mask.
 PTT_EXPORT int ptt_flash_attention_fwd(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
+                                       const int* q_seg, const int* k_seg,
+                                       const int* q_lo, const int* q_hi,
+                                       const int* k_lo, const int* k_hi,
                                        int b, int sq, int sk, int heads,
                                        int kv_heads, int d, float scale,
                                        int causal, void* stream) {
+  const ptt::SegIds seg{q_seg, k_seg, q_lo, q_hi, k_lo, k_hi};
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
@@ -295,12 +390,12 @@ PTT_EXPORT int ptt_flash_attention_fwd(const void* q, const void* k,
   auto* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 128) {
-    return launch_fwd<128>(qp, kp, vp, op, lp, b, sq, sk, heads, kv_heads,
-                           scale, causal, st);
+    return launch_fwd<128>(qp, kp, vp, op, lp, seg, b, sq, sk, heads,
+                           kv_heads, scale, causal, st);
   }
   if (d == 64) {
-    return launch_fwd<64>(qp, kp, vp, op, lp, b, sq, sk, heads, kv_heads,
-                          scale, causal, st);
+    return launch_fwd<64>(qp, kp, vp, op, lp, seg, b, sq, sk, heads,
+                          kv_heads, scale, causal, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,13 +17,32 @@
 // registers and writes them once: no atomics, the same bits every run.
 // The dQ block owns a tile of query rows of one (b, h), loops over the
 // causal range of key tiles and writes each dQ row once, also without
-// atomics. Segment-id masking is not ported (ROADMAP Queue 2a item 1).
+// atomics.
+//
+// Segment masking (the Pallas kernels' masked=True, :224-226 and :278-280)
+// is the kSegments instantiation of both kernels: an entry counts only
+// where the query's int32 id equals the key's. A block keeps the ids of its
+// own rows (dK/dV: its key rows, in registers; dQ: its query rows, in
+// shared memory beside Q) and stages the streamed side's 64 ids with each
+// tile in the same cp.async ring. Every visited tile takes the per-element
+// mask, in the accumulator layout (lane l: rows l/4, l/4 + 8; columns
+// 2(l%4) + {0, 1} of each n-block), and P of a masked entry is set to 0
+// explicitly: a query row that sees no key has lse = -1e30, where
+// exp(S - lse) would give inf rather than 0, so such a row adds nothing to
+// dQ, dK or dV. A tile pair whose id ranges do not meet is skipped
+// (ptt::SegWalk over the host-built (min, max) table per 32 positions; the
+// ring prefetches the next tile that is not skipped). dK/dV walks the
+// query tiles from its causal start for each head of the group; dQ walks
+// the key tiles up to its causal limit. The unmasked instantiations keep
+// their code path.
 //
 // Bound on the H100 at the training shape (4, 1536, 12, 128), causal,
 // 56.66 M (query, key) pairs: operations. dK/dV does 4 products of
 // 2 * D flops per pair (58.0 GFLOP, 58.7 us at the bf16 tensor-core
 // peak), dQ 3 (43.5 GFLOP, 44.0 us); the bytes (q, k, v, dO, lse, delta
-// in, the gradients out) take ~22 us.
+// in, the gradients out) take ~22 us. With segments the pairs are the
+// visible, same-segment ones, counted from the ids (chip_smoke.py), and
+// the bytes add the ids.
 //
 // dK/dV runs on the tensor cores. A block of 8 warps owns BK = 64 key rows
 // (32 where 64-row tiles would leave SMs idle) and walks 64-row query
@@ -73,15 +92,16 @@ constexpr int kDkdvThreads = 256;  // 8 warps
 constexpr int kBQd = 64;           // query rows per tile of the loop
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D, int BK>
+template <int D, int BK, bool kSegments>
 constexpr size_t dkdv_smem_bytes() {
   // K, V; two stages of Q and dO; P^T and dS^T as hi and lo bf16 parts;
-  // two stages of lse and delta
+  // two stages of lse and delta (and with segments of the query ids)
   return static_cast<size_t>(2 * BK + 4 * kBQd) * (D + 8) * 2 +
-         static_cast<size_t>(4 * BK) * (kBQd + 8) * 2 + 4 * kBQd * 4;
+         static_cast<size_t>(4 * BK) * (kBQd + 8) * 2 +
+         (kSegments ? 6 : 4) * kBQd * 4;
 }
 
-template <int D, int BK>
+template <int D, int BK, bool kSegments>
 __global__ void __launch_bounds__(kDkdvThreads)
 flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -90,8 +110,9 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv, int sq, int sk,
-                      int heads, int kv_heads, float scale, int causal) {
+                      __nv_bfloat16* __restrict__ dv, const ptt::SegIds seg,
+                      int sq, int sk, int heads, int kv_heads, float scale,
+                      int causal) {
   constexpr int S = D + 8;           // shared row stride of K, V, Q, dO
   constexpr int PS = kBQd + 8;       // shared row stride of P^T, dS^T
   constexpr int kRowG = BK / 16;     // warps along the key rows
@@ -108,6 +129,7 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* dss = pts + 2 * BK * PS;   // dS^T [hi, lo][BK][PS]
   auto* lse_s = reinterpret_cast<float*>(dss + 2 * BK * PS);  // [2][kBQd]
   float* dlt_s = lse_s + 2 * kBQd;                        // [2][kBQd]
+  int* qid_s = reinterpret_cast<int*>(dlt_s + 2 * kBQd);  // [2][kBQd]
 
   // key tile 0 loops over the most query tiles when causal: schedule first
   const int kvb = gridDim.x / ((sk + BK - 1) / BK);
@@ -123,12 +145,23 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 
   // causal: query rows r with r + off < k0 see nothing of this key tile
   const int q_first = causal ? max(k0 - off, 0) / kBQd : 0;
-  const int nq = max((sq + kBQd - 1) / kBQd - q_first, 0);
-  const int total = group * nq;  // (query head of the group, query tile)
+  const int n_qt = (sq + kBQd - 1) / kBQd;
 
-  // step it of the loop -> stage: Q, dO, lse and delta of its tile
-  auto prefetch = [&](int it, int stage) {
-    const int h = kh * group + it / nq, q0 = (q_first + it % nq) * kBQd;
+  // segments: the query tiles whose id range meets this key tile's
+  const int nq32 = (sq + ptt::kSegChunk - 1) / ptt::kSegChunk;
+  const int nk32 = (sk + ptt::kSegChunk - 1) / ptt::kSegChunk;
+  auto window = [&](int base) {
+    const int2 want = ptt::seg_range<BK>(seg.k_lo + b * nk32,
+                                         seg.k_hi + b * nk32, nk32, k0);
+    return ptt::seg_window<kBQd>(seg.q_lo + b * nq32, seg.q_hi + b * nq32,
+                                 nq32, base, n_qt, want);
+  };
+  ptt::SegWalk walk;
+
+  // the step (query head gi of the group, query tile qt) -> stage: Q, dO,
+  // lse and delta of its tile (and with segments its query ids)
+  auto prefetch = [&](int gi, int qt, int stage) {
+    const int h = kh * group + gi, q0 = qt * kBQd;
     const long long q_base = (static_cast<long long>(b) * sq * heads + h) * D;
     ptt::cp_async_rows<kBQd, D, kDkdvThreads>(qs + stage * kBQd * S,
                                               q + q_base, q_row, q0, sq);
@@ -140,12 +173,24 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     if (threadIdx.x < 2 * kBQd) {
       ptt::cp_async_4((threadIdx.x < kBQd ? lse_s : dlt_s) + stage * kBQd + i,
                       src + row_base + (r < sq ? r : 0), r < sq ? 4 : 0);
+    } else if (kSegments && threadIdx.x < 3 * kBQd) {
+      const int* qid = seg.q + static_cast<long long>(b) * sq;
+      ptt::cp_async_4(qid_s + stage * kBQd + i, qid + (r < sq ? r : 0),
+                      r < sq ? 4 : 0);
     }
   };
 
   ptt::cp_async_rows<BK, D, kDkdvThreads>(ks, k + kv_base, kv_row, k0, sk);
   ptt::cp_async_rows<BK, D, kDkdvThreads>(vs, v + kv_base, kv_row, k0, sk);
-  if (total > 0) prefetch(0, 0);
+  // the first step (the walk's reads overlap the K/V copies); gi == group:
+  // no step at all
+  int gi = 0, qt = q_first;
+  if (kSegments) {
+    walk.start(q_first, window);
+    qt = walk.next(n_qt, window);
+  }
+  if (qt >= n_qt) gi = group;
+  if (gi < group) prefetch(gi, qt, 0);
   ptt::cp_async_commit();
 
   // this warp's key rows k0 + 16 rg + (g, g + 8), head dims cg * DW + ...
@@ -156,22 +201,40 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
   const int c_row = k0 + rg * 16 + g;
   const float scale_log2 = scale * kLog2e;
+  int cid[2] = {0, 0};  // with segments: the ids of key rows c_row, + 8
+  if (kSegments) {
+    const int* kid = seg.k + static_cast<long long>(b) * sk;
+    cid[0] = c_row < sk ? kid[c_row] : 0;
+    cid[1] = c_row + 8 < sk ? kid[c_row + 8] : 0;
+  }
 
-  for (int it = 0; it < total; ++it) {
+  for (int it = 0; gi < group; ++it) {
+    // the next step: the next query tile of this head, else the first of
+    // the next head
+    int ngi = gi, nqt = kSegments ? walk.next(n_qt, window) : qt + 1;
+    if (nqt >= n_qt) {
+      ++ngi;
+      nqt = q_first;
+      if (kSegments) {
+        walk.start(q_first, window);
+        nqt = walk.next(n_qt, window);
+      }
+    }
     const int stage = it & 1;
-    if (it + 1 < total) {
-      prefetch(it + 1, stage ^ 1);
+    if (ngi < group) {
+      prefetch(ngi, nqt, stage ^ 1);
       ptt::cp_async_commit();
       ptt::cp_async_wait<1>();
     } else {
       ptt::cp_async_wait<0>();
     }
     __syncthreads();
-    const int q0 = (q_first + it % nq) * kBQd;
+    const int q0 = qt * kBQd;
     const __nv_bfloat16* qst = qs + stage * kBQd * S;
     const __nv_bfloat16* dost = dos + stage * kBQd * S;
     const float* lse_t = lse_s + stage * kBQd;
     const float* dlt_t = dlt_s + stage * kBQd;
+    const int* qid_t = qid_s + stage * kBQd;
 
     // S^T = K Q^T and dP^T = V dO^T: 16 key rows x QW queries per warp
     float st[QW / 8][4], dpt[QW / 8][4];
@@ -202,16 +265,23 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
     // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) scale, each
     // split into two bf16 parts in shared memory for the gradient products
     const bool need_mask =
-        q0 + kBQd > sq || (causal && k0 + BK - 1 > q0 + off);
+        kSegments || q0 + kBQd > sq || (causal && k0 + BK - 1 > q0 + off);
 #pragma unroll
     for (int n = 0; n < QW / 8; ++n) {
+      int2 rid = make_int2(0, 0);  // the ids of query columns 2t, 2t + 1
+      if (kSegments) {
+        rid = *reinterpret_cast<const int2*>(qid_t + cg * QW + n * 8 + 2 * t);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int rl = cg * QW + n * 8 + 2 * t + (e & 1);
         float p = exp2f(fmaf(st[n][e], scale_log2, -lse_t[rl] * kLog2e));
         if (need_mask) {
           const int r = q0 + rl, c = c_row + (e >> 1) * 8;
-          if (r >= sq || (causal && c > r + off)) p = 0.f;
+          if (r >= sq || (causal && c > r + off) ||
+              (kSegments && (e & 1 ? rid.y : rid.x) != cid[e >> 1])) {
+            p = 0.f;
+          }
         }
         st[n][e] = p;
         dpt[n][e] = p * (dpt[n][e] - dlt_t[rl]) * scale;
@@ -257,6 +327,8 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     __syncthreads();  // every warp is done with this stage and P^T, dS^T
+    gi = ngi;
+    qt = nqt;
   }
   ptt::cp_async_wait<0>();  // with no query tile, the K/V copies
   __syncthreads();
@@ -293,15 +365,14 @@ constexpr int kBQq = 64;   // query rows of a dQ block: 4 warps x 16
 constexpr int kBKq = 64;   // keys per tile of the dQ loop
 constexpr int kDqThreads = kBQq / 16 * 32;
 
-template <int D>
+template <int D, bool kSegments>
 constexpr size_t dq_smem_bytes() {
-  // Q and dO, two stages of K and V
-  return static_cast<size_t>(2 * kBQq + 4 * kBKq) * (D + 8) * 2;
+  // Q and dO, two stages of K and V; with segments the query ids and two
+  // stages of key ids
+  return static_cast<size_t>(2 * kBQq + 4 * kBKq) * (D + 8) * 2 +
+         (kSegments ? (kBQq + 2 * kBKq) * 4 : 0);
 }
 
-// kSegments is the slot of the segment-id mask (ROADMAP Queue 2a item 1):
-// p = 0 where the query's segment differs from the key's, beside the
-// causal term below. It is not ported, and no launch instantiates it.
 template <int D, bool kSegments>
 __global__ void __launch_bounds__(kDqThreads)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
@@ -310,9 +381,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int sq, int sk,
-                    int heads, int kv_heads, float scale, int causal) {
-  static_assert(!kSegments, "segment-id masking: ROADMAP Queue 2a item 1");
+                    __nv_bfloat16* __restrict__ dq, const ptt::SegIds seg,
+                    int sq, int sk, int heads, int kv_heads, float scale,
+                    int causal) {
   constexpr int BQ = kBQq;
   constexpr int kThreadsQ = kDqThreads;
   constexpr int S = D + 8;         // shared row stride, bf16
@@ -324,6 +395,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* dos = qs + BQ * S;
   __nv_bfloat16* ks = dos + BQ * S;       // [2][kBKq][S]
   __nv_bfloat16* vs = ks + 2 * kBKq * S;  // [2][kBKq][S]
+  int* qid_s = reinterpret_cast<int*>(vs + 2 * kBKq * S);  // [BQ]
+  int* kid_s = qid_s + BQ;                                 // [2][kBKq]
 
   // the last query tiles see the most keys: schedule them first
   const int n_qt = (sq + BQ - 1) / BQ;
@@ -346,12 +419,43 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   if (causal) k_end = max(min(sk, min(q0 + BQ, sq) + off), 0);
   const int n_kt = (k_end + kBKq - 1) / kBKq;
 
+  // segments: the key tiles whose id range meets this query tile's
+  const int nq32 = (sq + ptt::kSegChunk - 1) / ptt::kSegChunk;
+  const int nk32 = (sk + ptt::kSegChunk - 1) / ptt::kSegChunk;
+  auto window = [&](int base) {
+    const int2 want = ptt::seg_range<BQ>(seg.q_lo + b * nq32,
+                                         seg.q_hi + b * nq32, nq32, q0);
+    return ptt::seg_window<kBKq>(seg.k_lo + b * nk32, seg.k_hi + b * nk32,
+                                 nk32, base, n_kt, want);
+  };
+  ptt::SegWalk walk;
+  // K, V (and with segments the key ids) of tile kt into a stage
+  auto stage_kv = [&](int kt, int stage) {
+    const int k0 = kt * kBKq, at = stage * kBKq * S;
+    ptt::cp_async_rows<kBKq, D, kThreadsQ>(ks + at, kb, kv_row, k0, sk);
+    ptt::cp_async_rows<kBKq, D, kThreadsQ>(vs + at, vb, kv_row, k0, sk);
+    if (kSegments && threadIdx.x < kBKq) {
+      const int c = k0 + threadIdx.x;
+      const int* kid = seg.k + static_cast<long long>(b) * sk;
+      ptt::cp_async_4(kid_s + stage * kBKq + threadIdx.x,
+                      kid + (c < sk ? c : 0), c < sk ? 4 : 0);
+    }
+  };
+
   ptt::cp_async_rows<BQ, D, kThreadsQ>(qs, q + q_base, q_row, q0, sq);
   ptt::cp_async_rows<BQ, D, kThreadsQ>(dos, dout + q_base, q_row, q0, sq);
-  if (n_kt > 0) {
-    ptt::cp_async_rows<kBKq, D, kThreadsQ>(ks, kb, kv_row, 0, sk);
-    ptt::cp_async_rows<kBKq, D, kThreadsQ>(vs, vb, kv_row, 0, sk);
+  if (kSegments && threadIdx.x < BQ) {
+    const int r = q0 + threadIdx.x;
+    const int* qid = seg.q + static_cast<long long>(b) * sq;
+    ptt::cp_async_4(qid_s + threadIdx.x, qid + (r < sq ? r : 0),
+                    r < sq ? 4 : 0);
   }
+  int kt = 0;  // the first key tile (the walk's reads overlap the copies)
+  if (kSegments) {
+    walk.start(0, window);
+    kt = walk.next(n_kt, window);
+  }
+  if (kt < n_kt) stage_kv(kt, 0);
   ptt::cp_async_commit();
 
   // this thread's rows: row and row + 8. Rows past sq read Q = dO = 0 and
@@ -372,14 +476,12 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBKq, stage = kt & 1;
-    if (kt + 1 < n_kt) {
-      const int nxt = (stage ^ 1) * kBKq * S;
-      ptt::cp_async_rows<kBKq, D, kThreadsQ>(ks + nxt, kb, kv_row, k0 + kBKq,
-                                             sk);
-      ptt::cp_async_rows<kBKq, D, kThreadsQ>(vs + nxt, vb, kv_row, k0 + kBKq,
-                                             sk);
+  // it counts the tiles visited; unmasked it equals kt
+  for (int it = 0; kt < n_kt; ++it) {
+    const int nkt = kSegments ? walk.next(n_kt, window) : kt + 1;
+    const int k0 = kt * kBKq, stage = (kSegments ? it : kt) & 1;
+    if (nkt < n_kt) {
+      stage_kv(nkt, stage ^ 1);
       ptt::cp_async_commit();
       ptt::cp_async_wait<1>();
     } else {
@@ -418,16 +520,29 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     // P = exp(S scale - lse) and dS = P (dP - delta) scale, in place of dP;
     // the mask only on tiles that cross the diagonal or the end of the keys
     const bool need_mask =
-        k0 + kBKq > sk || (causal && k0 + kBKq - 1 > q0 + off);
+        kSegments || k0 + kBKq > sk || (causal && k0 + kBKq - 1 > q0 + off);
+    int rid[2] = {0, 0};  // this thread's rows' ids
+    if (kSegments) {
+      rid[0] = qid_s[warp * 16 + g];
+      rid[1] = qid_s[warp * 16 + g + 8];
+    }
 #pragma unroll
     for (int n = 0; n < kNs; ++n) {
+      int2 cid = make_int2(0, 0);  // the ids of columns 2t, 2t + 1
+      if (kSegments) {
+        cid = *reinterpret_cast<const int2*>(kid_s + stage * kBKq + n * 8 +
+                                             2 * t);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(fmaf(s[n][e], scale_log2, -lse2[e >> 1]));
         if (need_mask) {
           const int c = k0 + n * 8 + 2 * t + (e & 1);
           const int r = row + (e >> 1) * 8;
-          if (c >= sk || (causal && c > r + off)) p = 0.f;
+          if (c >= sk || (causal && c > r + off) ||
+              (kSegments && (e & 1 ? cid.y : cid.x) != rid[e >> 1])) {
+            p = 0.f;
+          }
         }
         dp[n][e] = p * (dp[n][e] - dlt[e >> 1]) * scale;
       }
@@ -456,6 +571,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     __syncthreads();  // every warp is done with this stage
+    kt = nkt;
   }
   ptt::cp_async_wait<0>();  // with no key tile, the Q and dO copies
   __syncthreads();          // Q rows are free for the output
@@ -486,24 +602,32 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
 struct Args {
   const __nv_bfloat16 *q, *k, *v, *dout;
   const float *lse, *delta;
+  ptt::SegIds seg;
   int b, sq, sk, heads, kv_heads;
   float scale;
   int causal;
   cudaStream_t stream;
 };
 
-template <int D, int BK>
+template <int D, int BK, bool kSegments>
 int launch_dkdv_tile(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
-  constexpr size_t smem = dkdv_smem_bytes<D, BK>();
+  constexpr size_t smem = dkdv_smem_bytes<D, BK, kSegments>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<D, BK>,
+      flash_bwd_dkdv_kernel<D, BK, kSegments>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (a.sk + BK - 1) / BK * a.kv_heads * a.b;
-  flash_bwd_dkdv_kernel<D, BK><<<blocks, kDkdvThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, dk, dv, a.sq, a.sk, a.heads,
-      a.kv_heads, a.scale, a.causal);
+  flash_bwd_dkdv_kernel<D, BK, kSegments>
+      <<<blocks, kDkdvThreads, smem, a.stream>>>(
+          a.q, a.k, a.v, a.dout, a.lse, a.delta, dk, dv, a.seg, a.sq, a.sk,
+          a.heads, a.kv_heads, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int BK>
+int launch_dkdv_tile(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
+  if (a.seg.q != nullptr) return launch_dkdv_tile<D, BK, true>(a, dk, dv);
+  return launch_dkdv_tile<D, BK, false>(a, dk, dv);
 }
 
 // 64-key tiles, or 32 where 64 would leave SMs without a block (the GQA
@@ -522,22 +646,30 @@ int launch_dkdv(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
   return launch_dkdv_tile<D, 32>(a, dk, dv);
 }
 
-template <int D>
+template <int D, bool kSegments>
 int launch_dq(const Args& a, __nv_bfloat16* dq) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+  constexpr size_t smem = dq_smem_bytes<D, kSegments>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D, false>,
+      flash_bwd_dq_kernel<D, kSegments>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (a.sq + kBQq - 1) / kBQq * a.heads * a.b;
-  flash_bwd_dq_kernel<D, false><<<blocks, kDqThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, dq, a.sq, a.sk, a.heads,
+  flash_bwd_dq_kernel<D, kSegments><<<blocks, kDqThreads, smem, a.stream>>>(
+      a.q, a.k, a.v, a.dout, a.lse, a.delta, dq, a.seg, a.sq, a.sk, a.heads,
       a.kv_heads, a.scale, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dq(const Args& a, __nv_bfloat16* dq) {
+  if (a.seg.q != nullptr) return launch_dq<D, true>(a, dq);
+  return launch_dq<D, false>(a, dq);
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, int b, int sq, int sk,
+               const void* lse, const void* delta, const int* q_seg,
+               const int* k_seg, const int* q_lo, const int* q_hi,
+               const int* k_lo, const int* k_hi, int b, int sq, int sk,
                int heads, int kv_heads, float scale, int causal,
                void* stream) {
   return Args{static_cast<const __nv_bfloat16*>(q),
@@ -546,6 +678,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
               static_cast<const __nv_bfloat16*>(dout),
               static_cast<const float*>(lse),
               static_cast<const float*>(delta),
+              ptt::SegIds{q_seg, k_seg, q_lo, q_hi, k_lo, k_hi},
               b, sq, sk, heads, kv_heads, scale, causal,
               static_cast<cudaStream_t>(stream)};
 }
@@ -553,14 +686,18 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, dout: (b, sq, heads, d); k, v, dk, dv: (b, sk, kv_heads, d), all bf16
-// row-major; lse, delta: (b, heads, sq) f32. d is 64 or 128.
+// row-major; lse, delta: (b, heads, sq) f32. d is 64 or 128. The segment
+// ids and range tables as ptt_flash_attention_fwd takes them; q_seg null:
+// no segment mask.
 PTT_EXPORT int ptt_flash_attention_bwd_dkdv(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int b, int sq,
-    int sk, int heads, int kv_heads, int d, float scale, int causal,
-    void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, b, sq, sk, heads,
-                           kv_heads, scale, causal, stream);
+    const void* lse, const void* delta, void* dk, void* dv, const int* q_seg,
+    const int* k_seg, const int* q_lo, const int* q_hi, const int* k_lo,
+    const int* k_hi, int b, int sq, int sk, int heads, int kv_heads, int d,
+    float scale, int causal, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, q_seg, k_seg, q_lo,
+                           q_hi, k_lo, k_hi, b, sq, sk, heads, kv_heads,
+                           scale, causal, stream);
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   if (d == 128) return launch_dkdv<128>(a, dkp, dvp);
@@ -571,10 +708,13 @@ PTT_EXPORT int ptt_flash_attention_bwd_dkdv(
 // dq: (b, sq, heads, d) bf16; the other arguments as above.
 PTT_EXPORT int ptt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dq, int b, int sq, int sk,
-    int heads, int kv_heads, int d, float scale, int causal, void* stream) {
-  const Args a = make_args(q, k, v, dout, lse, delta, b, sq, sk, heads,
-                           kv_heads, scale, causal, stream);
+    const void* lse, const void* delta, void* dq, const int* q_seg,
+    const int* k_seg, const int* q_lo, const int* q_hi, const int* k_lo,
+    const int* k_hi, int b, int sq, int sk, int heads, int kv_heads, int d,
+    float scale, int causal, void* stream) {
+  const Args a = make_args(q, k, v, dout, lse, delta, q_seg, k_seg, q_lo,
+                           q_hi, k_lo, k_hi, b, sq, sk, heads, kv_heads,
+                           scale, causal, stream);
   auto* dqp = static_cast<__nv_bfloat16*>(dq);
   if (d == 128) return launch_dq<128>(a, dqp);
   if (d == 64) return launch_dq<64>(a, dqp);

@@ -9,8 +9,15 @@ differentiable), :func:`flash_attention_fwd` (JAX's ``_fwd`` :137 over
 ``_fwd_kernel``: out and lse), and ``_bwd_dkdv_kernel`` and
 ``_bwd_dq_kernel`` behind its custom_vjp. Layout is the public
 (B, S, H, D) of ``scaled_dot_product_attention``; the kernels read it in
-place, so no transpose runs around them. Segment-id masking (``seq_lens``,
-``segment_ids``) is not ported yet: the public function raises on it.
+place, so no transpose runs around them. Segment masking (``seq_lens``,
+``segment_ids``; JAX's ``masked=True`` kernels) folds into (B, S) int32 ids
+by :func:`build_segments` (JAX's :399): an entry counts only where the
+query's id equals the key's, besides the causal term.
+
+A query row with no visible key (causal with sq > sk, or a segment missing
+from the keys) gets out = 0 and lse = -1e30 in every version here, and adds
+nothing to dQ, dK or dV. JAX leaves such rows "finite garbage" whose value
+depends on its tiles, so the port defines them once.
 """
 from __future__ import annotations
 
@@ -25,32 +32,107 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_bwd_dkdv",
            "flash_attention_bwd_dq", "FlashAttentionFunction",
-           "refuse_segments"]
+           "build_segments", "segment_ranges"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)  # the kernels' instantiations
+CHUNK = 32  # rows per entry of the segment-range table
 
 
-def _causal_keep(sq, sk, device):
-    """(Sq, Sk) bool: row r sees keys ``c <= r + (Sk - Sq)``."""
-    return torch.ones(sq, sk, dtype=torch.bool, device=device).tril(sk - sq)
+def build_segments(b, sq, sk, seq_lens=None, segment_ids=None, *,
+                   device=None):
+    """Fold per-sequence valid lengths and/or packed-segment ids into (B,
+    Sq) and (B, Sk) int32 segment ids on ``device``, the port's copy of
+    JAX's ``build_segments``. Padding positions get -1, so they match only
+    other padding of the same row. ``segment_ids`` is one (B, S) array
+    (shared: requires sq == sk) or a ``(q_ids, k_ids)`` pair for cross
+    attention. Returns ``(q_seg, k_seg)``, or ``(None, None)`` when neither
+    is given."""
+    if seq_lens is None and segment_ids is None:
+        return None, None
+
+    def ids(a):
+        return torch.as_tensor(a, device=device).to(torch.int32)
+
+    if segment_ids is not None:
+        if isinstance(segment_ids, (tuple, list)):
+            q_seg, k_seg = ids(segment_ids[0]), ids(segment_ids[1])
+        else:
+            if sq != sk:
+                raise ValueError(
+                    f"a single shared segment_ids array requires sq == sk "
+                    f"(got sq={sq}, sk={sk}); pass a (q_ids, k_ids) pair "
+                    f"for cross-attention")
+            q_seg = k_seg = ids(segment_ids)
+    else:
+        q_seg = torch.zeros((b, sq), dtype=torch.int32, device=device)
+        k_seg = q_seg if sq == sk else torch.zeros(
+            (b, sk), dtype=torch.int32, device=device)
+    if seq_lens is not None:
+        lens = ids(seq_lens)[:, None]
+
+        def cut(seg):
+            pos = torch.arange(seg.shape[1], device=device)[None]
+            return torch.where(pos < lens, seg, -1).to(torch.int32)
+
+        # one array for both sides stays one (the kernels then build one
+        # range table)
+        q_seg, k_seg = (cut(q_seg),) * 2 if k_seg is q_seg else (cut(q_seg),
+                                                                 cut(k_seg))
+    return q_seg, k_seg
 
 
-def flash_attention_fwd_plain(q, k, v, causal=True):
+def segment_ranges(seg):
+    """(min, max) of each CHUNK ids of a (B, S) id array: two (B, ceil(S /
+    CHUNK)) int32 tensors, the last chunk's tail filled with its row's last
+    id. The kernels skip a tile pair whose id ranges do not meet: no id of
+    one side can equal an id of the other there. Bookkeeping of plain torch
+    ops before a launch (one launch when S is a multiple of CHUNK)."""
+    b, s = seg.shape
+    n = -(-s // CHUNK)
+    if n * CHUNK != s:
+        seg = torch.cat([seg, seg[:, -1:].expand(b, n * CHUNK - s)], 1)
+    lo, hi = torch.aminmax(seg.view(b, n, CHUNK), dim=-1)
+    return lo, hi
+
+
+def _keep(sq, sk, causal, q_seg, k_seg, device):
+    """Which (query, key) entries count, as a bool mask broadcasting to
+    (B, H, Sq, Sk), or None when all do: causal rows see keys ``c <= r +
+    (Sk - Sq)``, and with segments only keys of the row's own id."""
+    keep = None
+    if causal:
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=device).tril(
+            sk - sq)
+    if q_seg is not None:
+        same = (q_seg[:, None, :, None] == k_seg[:, None, None, :])
+        keep = same if keep is None else same & keep
+    return keep
+
+
+def flash_attention_fwd_plain(q, k, v, causal=True, q_seg=None, k_seg=None):
     """q (B, Sq, H, D), k/v (B, Sk, KVH, D) -> (out like q, lse (B, H, Sq)
     f32). Softmax in f32 of ``(q * scale) . k``; causal rows see keys
-    ``c <= r + (Sk - Sq)``; query head h reads kv head ``h // (H // KVH)``."""
+    ``c <= r + (Sk - Sq)``; with (B, Sq) ``q_seg`` and (B, Sk) ``k_seg``
+    an entry counts only where the ids are equal; query head h reads kv
+    head ``h // (H // KVH)``. A row with no visible key gets out = 0 and
+    lse = -1e30, as in the kernel."""
     b, sq, h, d = q.shape
     sk, group = k.shape[1], h // k.shape[2]
     qf = _build.upcast(q).transpose(1, 2) * (1.0 / math.sqrt(d))
     kf = _build.upcast(k).transpose(1, 2).repeat_interleave(group, dim=1)
     vf = _build.upcast(v).transpose(1, 2).repeat_interleave(group, dim=1)
     s = qf @ kf.transpose(-1, -2)
-    if causal:
-        s = s.masked_fill(~_causal_keep(sq, sk, q.device), NEG_INF)
+    keep = _keep(sq, sk, causal, q_seg, k_seg, q.device)
+    if keep is not None:
+        s = s.masked_fill(~keep, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
-    out = torch.softmax(s, dim=-1) @ vf
+    p = torch.softmax(s, dim=-1)
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)  # all 0 on a row that sees no key
+        lse = lse.masked_fill(~keep.any(-1), NEG_INF)
+    out = p @ vf
     return out.transpose(1, 2).to(q.dtype), lse
 
 
@@ -67,49 +149,75 @@ def _check(name, q, k, v):
                          f"{HEAD_DIMS} and heads a multiple of kv heads")
 
 
-def flash_attention_fwd(q, k, v, causal=True):
+def _segments(name, q, k, q_seg, k_seg):
+    """``(pointers, tensors)`` of a launch's segments: the six pointers of
+    the ids and their range tables, each side's, all null without segments
+    (the unmasked kernels), and the tensors behind them, kept alive
+    through the launch. Ids are (B, Sq) and (B, Sk) int32 on the card,
+    contiguous; 4-byte alignment is all the kernels need of them."""
+    if q_seg is None and k_seg is None:
+        return (None,) * 6, ()
+    if q_seg is None or k_seg is None:
+        raise ValueError(f"{name}: q_seg and k_seg go together")
+    b, sq = q.shape[:2]
+    for arg, t, s in (("q_seg", q_seg, sq), ("k_seg", k_seg, k.shape[1])):
+        _build.expect(name, arg, t, torch.int32, 2)
+        if tuple(t.shape) != (b, s):
+            raise ValueError(f"{name}: {arg} must be {(b, s)}, got "
+                             f"{tuple(t.shape)}")
+    q_rng = segment_ranges(q_seg)
+    shared = (k_seg.data_ptr() == q_seg.data_ptr()
+              and k_seg.shape == q_seg.shape)  # one id array: one table
+    k_rng = q_rng if shared else segment_ranges(k_seg)
+    keep = (q_seg, k_seg, *q_rng, *k_rng)  # alive through the launch
+    return tuple(t.data_ptr() for t in keep), keep
+
+
+def flash_attention_fwd(q, k, v, causal=True, q_seg=None, k_seg=None):
     """Attention forward with lse (see :func:`flash_attention_fwd_plain`).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (bf16, contiguous, 16-byte aligned, D in {64, 128}, H a multiple of
-    KVH) or raises."""
+    KVH; ids int32 (B, Sq) and (B, Sk)) or raises. A launch with segments
+    counts as ``flash_attention[seg]``."""
     if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal)
+        return flash_attention_fwd_plain(q, k, v, causal, q_seg, k_seg)
+    return _launch_fwd(q, k, v, causal,
+                       _segments("flash_attention", q, k, q_seg, k_seg))
+
+
+def _launch_fwd(q, k, v, causal, seg):
     name = "flash_attention"
     _check(name, q, k, v)
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     fn = _build.function("ptt_flash_attention_fwd",
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                          _P])
+                         [_P] * 11 + [_I] * 6 + [_F, _I, _P])
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), b, sq, k.shape[1], h, k.shape[2], d,
-                    1.0 / math.sqrt(d), int(bool(causal)),
+                    lse.data_ptr(), *seg[0], b, sq, k.shape[1], h, k.shape[2],
+                    d, 1.0 / math.sqrt(d), int(bool(causal)),
                     _build.stream_of(q)), name)
-    _build.launch_counts[name] += 1
+    _build.launch_counts[name + ("[seg]" if seg[1] else "")] += 1
     return out, lse
-
-
-def refuse_segments(seq_lens, segment_ids):
-    """Raise on segment masking, which the kernels do not take yet."""
-    if seq_lens is not None or segment_ids is not None:
-        raise NotImplementedError(
-            "flash attention: seq_lens / segment_ids (segment masking) are "
-            "not ported yet (ROADMAP Queue 2a item 1)")
 
 
 def flash_attention(q, k, v, is_causal=False, seq_lens=None,
                     segment_ids=None):
     """(B, S, H, D) attention, the JAX package's public flash attention:
     returns ``out`` only, non-causal unless ``is_causal``, GQA by index.
-    Under autograd it records :class:`FlashAttentionFunction` (the forward
-    kernel, then dK/dV and dQ); otherwise :func:`flash_attention_fwd`
-    alone. ``seq_lens`` and ``segment_ids`` raise ``NotImplementedError``
-    on every device."""
-    refuse_segments(seq_lens, segment_ids)
+    ``seq_lens`` (B,) masks queries and keys past each row's length and
+    ``segment_ids`` keeps attention within equal ids (packed sequences);
+    both fold into ids by :func:`build_segments` and compose with
+    ``is_causal``. A padding row attends to its row's padding; a row with
+    no visible key gives 0. Under autograd it records
+    :class:`FlashAttentionFunction` (the forward kernel, then dK/dV and
+    dQ); otherwise :func:`flash_attention_fwd` alone."""
+    q_seg, k_seg = build_segments(q.shape[0], q.shape[1], k.shape[1],
+                                  seq_lens, segment_ids, device=q.device)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttentionFunction.apply(q, k, v, bool(is_causal))
-    return flash_attention_fwd(q, k, v, bool(is_causal))[0]
+        return FlashAttentionFunction.apply(q, k, v, bool(is_causal), q_seg,
+                                            k_seg)
+    return flash_attention_fwd(q, k, v, bool(is_causal), q_seg, k_seg)[0]
 
 
 def _delta(out, do):
@@ -119,13 +227,16 @@ def _delta(out, do):
         1, 2).contiguous()
 
 
-def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True):
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True, q_seg=None,
+                              k_seg=None):
     """``(dq, dk, dv)`` of :func:`flash_attention_fwd_plain` from the
     forward's ``out`` and ``lse`` and the output gradient ``do``, by the FA2
-    formulas over the full score matrix, in f32: ``P = exp(S - lse)``,
-    ``dV = P^T dO``, ``dS = P * (dO V^T - delta) * scale`` with
-    ``delta = rowsum(dO * O)``, ``dQ = dS K``, ``dK = dS^T Q``; a GQA kv
-    head's dK and dV sum over its group of query heads."""
+    formulas over the full score matrix, in f32: ``P = exp(S - lse)``, set
+    to 0 on every masked entry (causal or segment; a row with no visible
+    key, whose lse is -1e30, so adds nothing), ``dV = P^T dO``,
+    ``dS = P * (dO V^T - delta) * scale`` with ``delta = rowsum(dO * O)``,
+    ``dQ = dS K``, ``dK = dS^T Q``; a GQA kv head's dK and dV sum over its
+    group of query heads."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     group = h // kvh
@@ -136,8 +247,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True):
     dof = _build.upcast(do).transpose(1, 2)
     p = torch.exp((qf @ kf.transpose(-1, -2)) * scale
                   - _build.upcast(lse)[..., None])
-    if causal:
-        p = p.masked_fill(~_causal_keep(sq, sk, q.device), 0.0)
+    keep = _keep(sq, sk, causal, q_seg, k_seg, q.device)
+    if keep is not None:
+        p = p.masked_fill(~keep, 0.0)
     ds = p * (dof @ vf.transpose(-1, -2) - _delta(out, do)[..., None]) * scale
     dq = ds @ kf
     dk = (ds.transpose(-1, -2) @ qf).view(b, kvh, group, sk, d).sum(2)
@@ -169,62 +281,81 @@ def _bwd_sizes(q, k, causal):
             int(bool(causal)), _build.stream_of(q))
 
 
-def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=True):
-    """Launch the dK/dV kernel (CUDA tensors only): ``(dk, dv)`` like k
-    and v, from ``delta = rowsum(dO * O)`` (B, H, Sq) f32."""
+def _launch_dkdv(q, k, v, do, lse, delta, causal, seg):
     name = "flash_attention_bwd_dkdv"
     ptrs = _bwd_args(name, q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.function("ptt_" + name, [_P] * 8 + [_I] * 6 + [_F, _I, _P])
-    _build.check(fn(*ptrs, dk.data_ptr(), dv.data_ptr(),
+    fn = _build.function("ptt_" + name, [_P] * 14 + [_I] * 6 + [_F, _I, _P])
+    _build.check(fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *seg[0],
                     *_bwd_sizes(q, k, causal)), name)
-    _build.launch_counts[name] += 1
+    _build.launch_counts[name + ("[seg]" if seg[1] else "")] += 1
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True):
-    """Launch the dQ kernel (CUDA tensors only): ``dq`` like q."""
+def _launch_dq(q, k, v, do, lse, delta, causal, seg):
     name = "flash_attention_bwd_dq"
     ptrs = _bwd_args(name, q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    fn = _build.function("ptt_" + name, [_P] * 7 + [_I] * 6 + [_F, _I, _P])
-    _build.check(fn(*ptrs, dq.data_ptr(), *_bwd_sizes(q, k, causal)), name)
-    _build.launch_counts[name] += 1
+    fn = _build.function("ptt_" + name, [_P] * 13 + [_I] * 6 + [_F, _I, _P])
+    _build.check(fn(*ptrs, dq.data_ptr(), *seg[0], *_bwd_sizes(q, k, causal)),
+                 name)
+    _build.launch_counts[name + ("[seg]" if seg[1] else "")] += 1
     return dq
 
 
-def flash_attention_bwd(q, k, v, out, lse, do, causal=True):
+def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=True,
+                             q_seg=None, k_seg=None):
+    """Launch the dK/dV kernel (CUDA tensors only): ``(dk, dv)`` like k
+    and v, from ``delta = rowsum(dO * O)`` (B, H, Sq) f32. With segment
+    ids the launch counts as ``flash_attention_bwd_dkdv[seg]``."""
+    return _launch_dkdv(q, k, v, do, lse, delta, causal, _segments(
+        "flash_attention_bwd_dkdv", q, k, q_seg, k_seg))
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True, q_seg=None,
+                           k_seg=None):
+    """Launch the dQ kernel (CUDA tensors only): ``dq`` like q. With
+    segment ids the launch counts as ``flash_attention_bwd_dq[seg]``."""
+    return _launch_dq(q, k, v, do, lse, delta, causal, _segments(
+        "flash_attention_bwd_dq", q, k, q_seg, k_seg))
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal=True, q_seg=None,
+                        k_seg=None):
     """``(dq, dk, dv)`` as :func:`flash_attention_bwd_plain`. A CPU tensor
-    takes the plain version; a CUDA tensor forms ``delta`` in torch and
-    launches the dK/dV kernel and the dQ kernel (what the forward takes,
-    plus bf16 ``out``/``do`` like q and f32 ``lse`` (B, H, Sq), all
-    contiguous) or raises."""
+    takes the plain version; a CUDA tensor forms ``delta`` and the segment
+    range tables in torch and launches the dK/dV kernel and the dQ kernel
+    (what the forward takes, plus bf16 ``out``/``do`` like q and f32
+    ``lse`` (B, H, Sq), all contiguous) or raises."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
+                                         q_seg, k_seg)
     _build.expect("flash_attention_bwd", "out", out, torch.bfloat16, 4)
     if out.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, out "
                          f"{tuple(out.shape)}")
+    seg = _segments("flash_attention_bwd", q, k, q_seg, k_seg)
     delta = _delta(out, do)
-    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = _launch_dkdv(q, k, v, do, lse, delta, causal, seg)
+    dq = _launch_dq(q, k, v, do, lse, delta, causal, seg)
     return dq, dk, dv
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """``out = flash_attention_fwd(q, k, v, causal)[0]``; saves q, k, v,
-    out and lse, and its backward is :func:`flash_attention_bwd`."""
+    """``out = flash_attention_fwd(q, k, v, causal, q_seg, k_seg)[0]``;
+    saves q, k, v, the ids, out and lse, and its backward is
+    :func:`flash_attention_bwd` (no gradient for the ids)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        out, lse = flash_attention_fwd(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, q_seg=None, k_seg=None):
+        out, lse = flash_attention_fwd(q, k, v, causal, q_seg, k_seg)
         ctx.causal = causal
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, k_seg)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, q_seg, k_seg = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
-                                         ctx.causal)
-        return dq, dk, dv, None
+                                         ctx.causal, q_seg, k_seg)
+        return dq, dk, dv, None, None, None

@@ -23,7 +23,7 @@ import math
 import torch
 
 from .cuda._build import upcast
-from .cuda.flash_attention import flash_attention, refuse_segments
+from .cuda.flash_attention import build_segments, flash_attention
 from .cuda.fused_ops import RopeFunction, bias_dropout_residual_ln, fused_rope
 from .cuda.rms_norm import RMSNormFunction
 from .cuda.rms_norm import rms_norm as _rms_norm_rows
@@ -116,31 +116,34 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     """Attention core in the (B, S, H, D) layout, GQA when H > KVH, with
     the JAX package's argument order. ``generator`` is the port's
     counterpart of JAX's ``rng_key``: the ``torch.Generator`` that dropout
-    on the probabilities draws from. ``seq_lens`` and ``segment_ids``
-    raise ``NotImplementedError`` (segment masking is not ported yet).
+    on the probabilities draws from. ``seq_lens`` (B,) and ``segment_ids``
+    (one (B, S) array, or a ``(q_ids, k_ids)`` pair) mask by segment on
+    both routes, as in JAX.
 
     As in JAX, the arguments pick the route: with no ``attn_mask`` and
     ``dropout_p`` 0 it takes :func:`flash_attention` (the forward kernel,
-    and dK/dV and dQ under autograd); otherwise the plain composition, the
-    counterpart of JAX's XLA route: f32 scores, a boolean ``attn_mask``
-    masks with -inf and any other is added, softmax, dropout on the
-    probabilities when ``training``, drawn from ``generator``. JAX also
-    sends lengths that are not multiples of its block of 128 to the
-    composition; the port's flash kernels take any length, so the port
-    does not."""
+    and dK/dV and dQ under autograd, masked by segment when ids are
+    given); otherwise the plain composition, the counterpart of JAX's XLA
+    route: f32 scores, a causal -inf mask, a boolean ``attn_mask`` masks
+    with -inf and any other is added, then -1e30 where the segments
+    differ, softmax, dropout on the probabilities when ``training``, drawn
+    from ``generator``. On that route a row with no visible key is JAX's
+    (a uniform softmax over its -1e30 entries); on the kernel route it is
+    0. JAX also sends lengths that are not multiples of its block of 128
+    to the composition; the port's flash kernels take any length, so the
+    port does not."""
     if attn_mask is None and not dropout_p > 0.0:
         return flash_attention(q, k, v, is_causal=is_causal,
                                seq_lens=seq_lens, segment_ids=segment_ids)
-    refuse_segments(seq_lens, segment_ids)
-    sq, d = q.shape[1], q.shape[3]
+    b, sq, d = q.shape[0], q.shape[1], q.shape[3]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     if kh.shape[1] != qh.shape[1]:
         rep = qh.shape[1] // kh.shape[1]
         kh = kh.repeat_interleave(rep, dim=1)
         vh = vh.repeat_interleave(rep, dim=1)
     logits = upcast((qh @ kh.transpose(-1, -2)) * (1.0 / math.sqrt(d)))
+    sk = kh.shape[2]
     if is_causal:
-        sk = kh.shape[2]
         causal = torch.ones(sq, sk, dtype=torch.bool,
                             device=q.device).tril(sk - sq)
         logits = logits.masked_fill(~causal, float("-inf"))
@@ -149,6 +152,12 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
             logits = logits.masked_fill(~attn_mask, float("-inf"))
         else:
             logits = logits + attn_mask.to(logits.dtype)
+    q_seg, k_seg = build_segments(b, sq, sk, seq_lens, segment_ids,
+                                  device=q.device)
+    if q_seg is not None:
+        # -1e30, not -inf: a row with no visible key stays finite, as JAX's
+        logits = logits.masked_fill(
+            q_seg[:, None, :, None] != k_seg[:, None, None, :], -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     probs = dropout(probs, p=dropout_p, training=training,
                     generator=generator)

@@ -4,7 +4,8 @@ GQA groups up to 8, causal offsets, empty rows, clamped positions, row
 counts off the RMSNorm backward's strip; the decode megakernel at a small
 size, at the 438M serving decode and on GQA; the bias-dropout-residual-
 LayerNorm kernel at BERT-base's shape, in f32, at odd widths and off
-alignment), the refusals of what the kernels do not take, a tiny model
+alignment; the segment-masked flash kernels with seq_lens, packed ids and
+a pair), the refusals of what the kernels do not take, a tiny model
 served fused and unfused, a tiny model trained on the card, the incubate
 layer and a small BERT trained on the card.
 
@@ -171,6 +172,62 @@ def test_flash_attention_bwd_kernels(gen, b, sq, sk, h, kvh, d, causal):
         _close(a, w)
 
 
+def _segment_ids(kind, b, sq, sk):
+    """Ids of one kind: ``seq_lens`` (padding -1), ``packed`` documents
+    of 1-40 tokens (shared, sq == sk), or a ``pair`` for cross attention
+    in which query segment 3 is missing from the keys."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    rng = np.random.RandomState(sq + sk)
+    if kind == "seq_lens":
+        return fa.build_segments(b, sq, sk, rng.randint(1, sk + 1, b),
+                                 device="cuda")
+    if kind == "packed":
+        ids = np.empty((b, sq), np.int32)
+        for i in range(b):
+            pos, doc = 0, 0
+            while pos < sq:
+                n = rng.randint(1, 41)
+                ids[i, pos:pos + n] = doc
+                pos, doc = pos + n, doc + 1
+        t = torch.tensor(ids, device="cuda")
+        return t, t
+    q = np.sort(rng.randint(0, 5, (b, sq)), 1)
+    k = np.sort(rng.randint(0, 5, (b, sk)), 1)
+    k[k == 3] = 4
+    return (torch.tensor(q, dtype=torch.int32, device="cuda"),
+            torch.tensor(k, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("kind", ["seq_lens", "packed", "pair"])
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal", [
+    (1, 100, 100, 8, 4, 64, True),     # GQA group 2, S off the 64-row tile
+    (1, 150, 150, 12, 12, 128, True),  # MHA, three tiles, the last ragged
+])
+def test_flash_attention_segment_kernels(gen, kind, b, sq, sk, h, kvh, d,
+                                         causal):
+    """The three masked kernels against their plain versions on the same
+    ids: out and lse, then dQ, dK and dV from the kernel's out and lse;
+    rows with no visible key are exactly 0 with lse -1e30."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    q_seg, k_seg = _segment_ids(kind, b, sq, sk)
+    q, do = _randn(gen, b, sq, h, d), _randn(gen, b, sq, h, d)
+    k, v = _randn(gen, b, sk, kvh, d), _randn(gen, b, sk, kvh, d)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, q_seg, k_seg)
+    pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal, q_seg, k_seg)
+    _close(out, pout)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+    if kind == "pair":
+        none = (q_seg == 3)[:, :, None, None].expand_as(out)
+        assert bool(none.any()) and bool((out[none] == 0).all())
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, q_seg, k_seg)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal, q_seg,
+                                        k_seg)
+    for a, w in zip(got, want):
+        _close(a, w)
+
+
 def test_kernels_refuse_what_they_do_not_take(gen):
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -200,9 +257,15 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         fa.flash_attention(z, y, y)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_attention_bwd(y, y, y, y, lse, z)
-    # segment masking is not ported: the public function raises on it
-    with pytest.raises(NotImplementedError, match="Queue 2a item 1"):
-        fa.flash_attention(y, y, y, seq_lens=torch.tensor([8], device="cuda"))
+    # segment masking: the public function takes seq_lens on the card
+    # (the masked kernel) and agrees with the plain version
+    lens = torch.tensor([5], device="cuda")
+    _close(fa.flash_attention(y, y, y, seq_lens=lens),
+           fa.flash_attention_fwd_plain(y, y, y, False, *fa.build_segments(
+               1, 8, 8, lens, device="cuda"))[0])
+    with pytest.raises(TypeError, match="int32"):
+        fa.flash_attention_fwd(y, y, y, True, lens[None].float(),
+                               lens[None].float())
     q = _randn(gen, 1, 32, 64)
     kp = _randn(gen, 2, 16, 2, 64)  # 16 query heads per kv head
     with pytest.raises(ValueError, match="query heads per kv head"):

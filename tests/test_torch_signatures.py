@@ -8,8 +8,8 @@ mode), the public ``flash_attention(q, k, v, is_causal=False,
 seq_lens=None, segment_ids=None)`` returning ``out`` (JAX
 ``ops/pallas/flash_attention.py:431``), ``scaled_dot_product_attention``
 in JAX's argument order (:732) and ``rotary_position_embedding`` with
-``use_neox_rotary_style`` (:804). Segment masking is not ported: the port
-raises on ``seq_lens`` and ``segment_ids``.
+``use_neox_rotary_style`` (:804), and ``seq_lens`` / ``segment_ids`` on
+the flash and composition routes.
 
 Inputs come from numpy with a seed, in f32 on the CPU, where each port
 kernel runs its plain version. Tolerances: 1e-6 where both sides compute
@@ -220,29 +220,49 @@ def test_rope_signature_matches_jax(call):
     _close(gk, wk, KERNEL)
 
 
-SEGMENT_CALLS = {
-    "flash_seq_lens": lambda q, m: fa.flash_attention(
-        q, q, q, seq_lens=torch.tensor([3])),
-    "flash_segment_ids": lambda q, m: fa.flash_attention(
-        q, q, q, True, None, torch.zeros(1, 8, dtype=torch.int32)),
-    "sdpa_seq_lens": lambda q, m: nn_kernels.scaled_dot_product_attention(
-        q, q, q, is_causal=True, seq_lens=torch.tensor([3])),
-    "sdpa_segment_ids": lambda q, m: nn_kernels.scaled_dot_product_attention(
-        q, q, q, segment_ids=torch.zeros(1, 8, dtype=torch.int32)),
-    "sdpa_mask_and_seq_lens":
-        lambda q, m: nn_kernels.scaled_dot_product_attention(
-            q, q, q, m, seq_lens=torch.tensor([3])),
+SEGMENT_CALLS = {  # name -> (port call, JAX call) on (q, mask, lens, ids)
+    "flash_seq_lens": (
+        lambda q, m, n, i: fa.flash_attention(q, q, q, seq_lens=n),
+        lambda q, m, n, i: jax_fa.flash_attention(q, q, q, seq_lens=n)),
+    "flash_segment_ids": (
+        lambda q, m, n, i: fa.flash_attention(q, q, q, True, None, i),
+        lambda q, m, n, i: jax_fa.flash_attention(q, q, q, True, None, i)),
+    "sdpa_seq_lens": (
+        lambda q, m, n, i: nn_kernels.scaled_dot_product_attention(
+            q, q, q, is_causal=True, seq_lens=n),
+        lambda q, m, n, i: jax_nn.scaled_dot_product_attention(
+            q, q, q, is_causal=True, seq_lens=n)),
+    "sdpa_segment_ids": (
+        lambda q, m, n, i: nn_kernels.scaled_dot_product_attention(
+            q, q, q, segment_ids=i),
+        lambda q, m, n, i: jax_nn.scaled_dot_product_attention(
+            q, q, q, segment_ids=i)),
+    "sdpa_mask_and_seq_lens": (
+        lambda q, m, n, i: nn_kernels.scaled_dot_product_attention(
+            q, q, q, m, seq_lens=n),
+        lambda q, m, n, i: jax_nn.scaled_dot_product_attention(
+            q, q, q, m, seq_lens=n)),
 }
 
 
 @pytest.mark.parametrize("call", sorted(SEGMENT_CALLS))
 def test_segment_masking_raises(call):
-    """Segment masking is not ported: every route raises rather than
-    computing something JAX does not."""
-    q = _t(_np(np.random.RandomState(5), 1, 8, 2, 64))
-    mask = torch.ones(1, 2, 8, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="Queue 2a item 1"):
-        SEGMENT_CALLS[call](q, mask)
+    """``seq_lens`` and ``segment_ids`` take the JAX signatures on every
+    route and give JAX's result: the flash routes against JAX's masked
+    Pallas kernels (interpret mode), the composition (with a mask)
+    against JAX's -1e30 fill. (1, 128, 2, 64), one row of 37 valid
+    tokens, packed ids; every row sees a key. Nothing raises any more;
+    the test keeps its name."""
+    rng = np.random.RandomState(5)
+    q = _np(rng, 1, 128, 2, 64)
+    mask = rng.rand(1, 2, 128, 128) < 0.8
+    mask[..., 0] = True
+    lens = np.array([37], np.int32)
+    ids = np.repeat(np.arange(4, dtype=np.int32), [20, 50, 30, 28])[None]
+    port, ref = SEGMENT_CALLS[call]
+    want = ref(_j(q), _j(mask), _j(lens), _j(ids))
+    got = port(_t(q), _t(mask), _t(lens), _t(ids))
+    _close(got, want, KERNEL)
 
 
 def test_flash_attention_fwd_keeps_out_and_lse():
