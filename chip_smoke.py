@@ -104,11 +104,35 @@ so that a fault surfaces in the phase that caused it:
             the same steps in f32 on the card through the plain versions
             only), and one step's launches: flash forward, dK/dV and dQ
             12 each; RMSNorm and RoPE none.
-13. kernels one JSON line listing every ported kernel, with the unfused
+13. head-dims  the kernels at the widths off 64 and 128, each against
+            its plain version within the kernel gate and timed beside its
+            bound, the plain version and F.scaled_dot_product_attention:
+            flash forward, dK/dV and dQ at Phi-3-mini's (4, 1536, 32, 96)
+            and (8, 128, 32, 96) causal, at (2, 2048, 16, 256) causal on
+            2 kv heads (Qwen3-Next's full-attention layers), at (4, 1536,
+            32, 80) causal through the padded route (Phi-2's widths,
+            printed beside the native 96) and at (2, 256, 4, 32); paged
+            decode at q (8, 32, 96) and q (8, 16, 256) on 2 kv heads in
+            e2's pool layout; RMSNorm at width 3072 and RoPE at head dim
+            96 (with k=None too). Then the flash-edge cases again at head
+            dims 96 and 256.
+14. phi3-serve  a LLaMA at Phi-3-mini's widths (CFG_PHI3: 32 layers,
+            hidden 3072, 32 heads of 96) behind the engine on e2's
+            traffic, the default decode_megakernel=1 (the megakernel
+            declines head dim 96): all 24 requests finished, tokens/s,
+            launches per decode step, the four unfused kernels launched;
+            gated first on a 2-layer model's logits (prefill and 4 decode
+            steps) against f32 on the CPU within MODEL_REL_L2.
+15. phi3-train  the same widths at 4 layers (a depth cut): the train
+            phase's step, batch 4 x seq 1536, 1 warm-up and 5 timed
+            steps (step ms, MFU, peak memory, losses finite and
+            falling); then phi3-grad, the grad phase at those widths.
+16. kernels one JSON line listing every ported kernel, with the unfused
             serving arm's launches for the serving kernels, the fused
             arm's for the megakernel, the LLaMA training step's for the
-            backward kernels, the incubate phase's for the bdrln kernel
-            and the varlen phase's for the three [seg] rows.
+            backward kernels, the incubate phase's for the bdrln kernel,
+            the varlen phase's for the three [seg] rows and the Phi-3
+            paths' for the eight [d=96] / [h=3072] rows.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
@@ -387,40 +411,10 @@ def kernel_phase(peaks):
     torch.cuda.synchronize()
 
     # paged decode: 8 slots of the serving engine's pool (max_len 512,
-    # page 128: 4 columns + 1 scratch column, 32 real pages + the dump
-    # page), scattered tables with dump-page tails, serving-like lengths
-    b, page, per_seq = 8, 128, 4
-    n_pages = b * per_seq + 1
-    dump = n_pages - 1
-    rng = np.random.RandomState(0)
-    lens = rng.randint(9, 184, b).astype(np.int32)
-    perm = rng.permutation(b * per_seq)
-    tables = np.full((b, per_seq + 1), dump, np.int32)
-    used = 0
-    for i, n in enumerate(lens):
-        np_ = -(-int(n) // page)
-        tables[i, :np_] = perm[used:used + np_]
-        used += np_
-    kp, vp = randn(n_pages, page, heads, hd), randn(n_pages, page, heads, hd)
-    dq = randn(b, heads, hd)
-    tab = torch.tensor(tables, device=dev)
-    ln = torch.tensor(lens, device=dev)
-    got = da.paged_attention(dq, kp, vp, tab, ln, pages_per_seq=per_seq)
-    err = compare("paged_attention", got, da.paged_attention_plain(
-        dq, kp, vp, tab, ln, pages_per_seq=per_seq))
-    toks = int(np.minimum(lens, per_seq * page).sum())
-    nb = 2 * dq.numel() * 2 + 2 * toks * heads * hd * 2 + tab.numel() * 4 + b * 4
-    bms, by = bound_ms(nb, 4 * toks * heads * hd, peaks)
-    results["paged_attention"] = rec = dict(
-        shape=[b, heads, hd], lengths=lens.tolist(), max_abs_err=err,
-        ms=graph_ms(lambda: da.paged_attention(dq, kp, vp, tab, ln,
-                                               pages_per_seq=per_seq)),
-        plain_ms=graph_ms(lambda: da.paged_attention_plain(
-            dq, kp, vp, tab, ln, pages_per_seq=per_seq)),
-        library_ms=None,
-        eager_ms=eager_ms(lambda: da.paged_attention(
-            dq, kp, vp, tab, ln, pages_per_seq=per_seq)),
-        bound_ms=bms, bound_by=by)
+    # page 128), scattered tables with dump-page tails, serving-like
+    # lengths
+    results["paged_attention"] = rec = paged_row(
+        da, peaks, e2_pool(randn, heads, heads, hd))
     emit("kernel", name="paged_attention", **rec)
     torch.cuda.synchronize()
     return results
@@ -565,44 +559,61 @@ def megakernel_phase(peaks):
     return {"fused_decode_layer": rec}
 
 
-def model_phase():
+def card_and_cpu(cfg, seeds):
+    """The model of ``cfg`` in bf16 on the card (random N(0, 0.02) weights
+    from ``seed(seeds[0])``) and the same weights in f32 on the CPU."""
     from paddle_tpu_torch import seed
-    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.models.llama import PagedKVCache
-    from paddle_tpu_torch.ops.cuda import launch_counts
-    from paddle_tpu_torch.ops.cuda.decode_megakernel import megakernel_scope
+    from paddle_tpu_torch.models import LlamaForCausalLM
 
-    cfg = LlamaConfig(**CFG_438M)
     card = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                            generator=seed(0, "cuda"))
+                            generator=seed(seeds[0], "cuda"))
     cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
-                           generator=seed(1, "cpu"))
+                           generator=seed(seeds[1], "cpu"))
     cpu.load_state_dict({k: v.float().cpu()
                          for k, v in card.state_dict().items()})
+    return card, cpu
+
+
+def prefill_decode(model, prompts, steps, fused=False):
+    """Last-position logits (f32, on the CPU) of a bucket prefill of
+    ``prompts`` (B, S) into paged caches (page 128), then of each decode
+    step's tokens in ``steps`` (n, B); ``fused`` gives the caches per-slot
+    (B,) depths and decodes under megakernel_scope(True)."""
+    from paddle_tpu_torch.models.llama import PagedKVCache
+    from paddle_tpu_torch.ops.cuda.decode_megakernel import megakernel_scope
+
+    cfg, b = model.config, prompts.shape[0]
+    caches = [PagedKVCache(b, 256, cfg.num_key_value_heads, cfg.head_dim,
+                           page_size=128, device=model.device,
+                           dtype=model.dtype)
+              for _ in range(cfg.num_hidden_layers)]
+    with torch.no_grad():
+        outs = [model(torch.tensor(prompts, device=model.device),
+                      caches=caches)[:, -1].float().cpu()]
+        if fused:
+            for c in caches:
+                c.length = torch.full((b,), c.length, dtype=torch.int32,
+                                      device=model.device)
+        with megakernel_scope(fused):
+            for tok in steps:
+                outs.append(model(torch.tensor(tok[:, None],
+                                               device=model.device),
+                                  caches=caches)[:, -1].float().cpu())
+    return outs
+
+
+def model_phase():
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    cfg = LlamaConfig(**CFG_438M)
+    card, cpu = card_and_cpu(cfg, (0, 1))
     rng = np.random.RandomState(0)
     prompts = rng.randint(0, cfg.vocab_size, (2, 128))
     steps = rng.randint(0, cfg.vocab_size, (4, 2))
 
     def run(model, fused=False):
-        """Prefill, then the decode steps; ``fused`` gives the caches
-        per-slot (B,) depths and decodes under megakernel_scope(True)."""
-        caches = [PagedKVCache(2, 256, cfg.num_key_value_heads, cfg.head_dim,
-                               page_size=128, device=model.device,
-                               dtype=model.dtype)
-                  for _ in range(cfg.num_hidden_layers)]
-        with torch.no_grad():
-            outs = [model(torch.tensor(prompts, device=model.device),
-                          caches=caches)[:, -1].float().cpu()]
-            if fused:
-                for c in caches:
-                    c.length = torch.full((2,), c.length, dtype=torch.int32,
-                                          device=model.device)
-            with megakernel_scope(fused):
-                for tok in steps:
-                    outs.append(model(torch.tensor(tok[:, None],
-                                                   device=model.device),
-                                      caches=caches)[:, -1].float().cpu())
-        return outs
+        return prefill_decode(model, prompts, steps, fused)
 
     t0 = time.monotonic()
     got, want = run(card), run(cpu)
@@ -736,11 +747,153 @@ def serving_phase(model, name, smi):
     return {"serving": u_counts, "serving_fused": f_counts}
 
 
+FLASH_NAMES = ("flash_attention", "flash_attention_bwd_dkdv",
+               "flash_attention_bwd_dq")
+
+
+def e2_pool(randn, heads, kvh, hd, seed=0):
+    """Paged decode inputs in the serving engine's pool layout (8 slots,
+    max_len 512, page 128: 4 columns + 1 scratch column, 32 real pages +
+    the dump page), scattered tables with dump-page tails, lengths of
+    np.random.RandomState(seed).randint(9, 184). Returns (q, k_pages,
+    v_pages, tables, lengths, lengths as numpy, pages per sequence)."""
+    b, page, per_seq = 8, 128, 4
+    n_pages = b * per_seq + 1
+    dump = n_pages - 1
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(9, 184, b).astype(np.int32)
+    perm = rng.permutation(b * per_seq)
+    tables = np.full((b, per_seq + 1), dump, np.int32)
+    used = 0
+    for i, n in enumerate(lens):
+        np_ = -(-int(n) // page)
+        tables[i, :np_] = perm[used:used + np_]
+        used += np_
+    kp, vp = randn(n_pages, page, kvh, hd), randn(n_pages, page, kvh, hd)
+    q = randn(b, heads, hd)
+    return (q, kp, vp, torch.tensor(tables, device="cuda"),
+            torch.tensor(lens, device="cuda"), lens, per_seq)
+
+
+def paged_row(da, peaks, pool):
+    """The paged decode kernel against its plain version on ``pool``
+    (``e2_pool``'s tuple), timed; the bound counts the K/V rows the
+    lengths reach."""
+    q, kp, vp, tab, ln, lens, per_seq = pool
+    b, heads, hd = q.shape
+    kvh, page = kp.shape[2], kp.shape[1]
+    args = (q, kp, vp, tab, ln)
+    got = da.paged_attention(*args, pages_per_seq=per_seq)
+    err = compare(f"paged_attention(d={hd})", got, da.paged_attention_plain(
+        *args, pages_per_seq=per_seq))
+    toks = int(np.minimum(lens, per_seq * page).sum())
+    nb = (2 * q.numel() * 2 + 2 * toks * kvh * hd * 2 + tab.numel() * 4
+          + b * 4)
+    bms, by = bound_ms(nb, 4 * toks * heads * hd, peaks)
+    return dict(
+        shape=[b, heads, hd], kv_heads=kvh, lengths=lens.tolist(),
+        max_abs_err=err,
+        ms=graph_ms(lambda: da.paged_attention(*args,
+                                               pages_per_seq=per_seq)),
+        plain_ms=graph_ms(lambda: da.paged_attention_plain(
+            *args, pages_per_seq=per_seq)),
+        library_ms=None,
+        eager_ms=eager_ms(lambda: da.paged_attention(
+            *args, pages_per_seq=per_seq)),
+        bound_ms=bms, bound_by=by)
+
+
+def flash_rows(peaks, gen, case, b, s, h, kvh, d, causal):
+    """The three flash kernels at one (b, s, h, kvh, d) shape against
+    their plain versions on the same inputs (out and lse, then dK, dV and
+    dQ from the kernel's out and lse), within the kernel gate; each timed
+    (a CUDA graph of 3 calls) beside its bound, the plain version and
+    ``F.scaled_dot_product_attention`` (forward; forward + backward for
+    the backward pair). A head dim off the built widths runs the padded
+    route, and its time includes the pads and slices. Returns {kernel
+    name: row}."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    tag = f"({case}: {b}, {s}, {h}, {kvh}, {d})"
+    q, do = randn(b, s, h, d), randn(b, s, h, d)
+    k, v = randn(b, s, kvh, d), randn(b, s, kvh, d)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal)
+    errs = {"flash_attention": compare(f"flash_attention{tag}", out, pout)}
+    lse_err = (lse - plse).abs().max().item()
+    if lse_err > 1e-3:
+        raise PhaseFailed(f"flash_attention{tag}: lse off by {lse_err:.3g}")
+    del pout, plse
+    delta = fa._delta(out, do)
+    got_dk, got_dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                 causal)
+    got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal)
+    want_dq, want_dk, want_dv = fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal)
+    errs["flash_attention_bwd_dkdv"] = max(
+        compare(f"dk{tag}", got_dk, want_dk),
+        compare(f"dv{tag}", got_dv, want_dv))
+    errs["flash_attention_bwd_dq"] = compare(f"dq{tag}", got_dq, want_dq)
+    del want_dq, want_dk, want_dv
+    torch.cuda.empty_cache()
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    io = (q.numel() + 2 * k.numel() + do.numel()) * 2 + 2 * lse.numel() * 4
+    gqa = kvh != h
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_fwd = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=gqa), calls=3, replays=3)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        ol = torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=causal, enable_gqa=gqa)
+    dol = do.transpose(1, 2)
+    lib_bwd = graph_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), dol, retain_graph=True), calls=3, replays=3,
+        stream=side)
+    plain_bwd = graph_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal), calls=2, replays=2)
+    kernels = {
+        "flash_attention": (
+            lambda: fa.flash_attention_fwd(q, k, v, causal),
+            4 * d * pairs, 4 * q.numel() * 2 + lse.numel() * 4,
+            graph_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, causal),
+                     calls=2, replays=2), lib_fwd),
+        "flash_attention_bwd_dkdv": (
+            lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                causal),
+            8 * d * pairs, io + 2 * k.numel() * 2, plain_bwd, lib_bwd),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                              causal),
+            6 * d * pairs, io + q.numel() * 2, plain_bwd, lib_bwd)}
+    rows = {}
+    route = ("native" if d in fa.HEAD_DIMS
+             else f"padded to {fa.native_head_dim(d)}")
+    for kname, (fn, flops, nb, plain, lib) in kernels.items():
+        bms, by = bound_ms(nb, flops, peaks)
+        rec = dict(case=case, shape=[b, s, h, d], kv_heads=kvh,
+                   causal=causal, route=route, max_abs_err=errs[kname],
+                   ms=graph_ms(fn, calls=3, replays=3), plain_ms=plain,
+                   library_ms=lib, bound_ms=bms, bound_by=by)
+        if kname == "flash_attention":
+            rec["lse_err"] = lse_err
+        rec.update(rates(flops, rec["ms"], bms))
+        emit("kernel", name=kname, **rec)
+        rows[kname] = rec
+    torch.cuda.synchronize()
+    return rows
+
+
 def train_kernel_phase(peaks):
     """The training path's kernels at the training shape: (4, 1536) tokens
     of the 438M model, 12 heads of 128, causal."""
     from paddle_tpu_torch.models.llama import _rope_tables
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import fused_ops as fo
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
@@ -848,105 +1001,23 @@ def train_kernel_phase(peaks):
     torch.cuda.synchronize()
 
     # flash forward, then dK/dV and dQ, at the training shape (MHA), and
-    # dK/dV and dQ on a GQA case (12 heads on 4 kv heads, S = 512), which
-    # the 438M model does not exercise
-    for case, (bb, ss, kvh) in (("train", (b, s, heads)),
-                                ("gqa", (2, 512, 4))):
-        q = randn(bb, ss, heads, hd)
-        k, v = randn(bb, ss, kvh, hd), randn(bb, ss, kvh, hd)
-        do = randn(bb, ss, heads, hd)
-        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-        pairs = bb * heads * ss * (ss + 1) // 2
-        if case == "train":
-            pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
-            err = compare("flash_attention(S=1536)", out, pout)
-            lse_err = (lse - plse).abs().max().item()
-            if lse_err > 1e-3:
-                raise PhaseFailed(f"flash_attention(S=1536): lse off by "
-                                  f"{lse_err:.3g}")
-            bms, by = bound_ms(4 * q.numel() * 2 + lse.numel() * 4,
-                               4 * hd * pairs, peaks)
-            ms = graph_ms(lambda: fa.flash_attention_fwd(q, k, v, True),
-                          calls=3, replays=3)
-            emit("kernel", name="flash_attention", case="train_shape",
-                 shape=list(q.shape), max_abs_err=err, lse_err=lse_err,
-                 ms=ms,
-                 plain_ms=graph_ms(lambda: fa.flash_attention_fwd_plain(
-                     q, k, v, True), calls=3, replays=3),
-                 library_ms=graph_ms(
-                     lambda: torch.nn.functional.scaled_dot_product_attention(
-                         *(t.transpose(1, 2) for t in (q, k, v)),
-                         is_causal=True), calls=3, replays=3),
-                 eager_ms=eager_ms(
-                     lambda: fa.flash_attention_fwd(q, k, v, True), calls=5),
-                 bound_ms=bms, bound_by=by, **rates(4 * hd * pairs, ms, bms))
-            torch.cuda.synchronize()
-        delta = fa._delta(out, do)
-        want_dq, want_dk, want_dv = fa.flash_attention_bwd_plain(
-            q, k, v, out, lse, do, True)
-        got_dk, got_dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta)
-        got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
-        errs = {"flash_attention_bwd_dkdv": max(
-                    compare(f"dk ({case})", got_dk, want_dk),
-                    compare(f"dv ({case})", got_dv, want_dv)),
-                "flash_attention_bwd_dq": compare(f"dq ({case})", got_dq,
-                                                  want_dq)}
-        io = (q.numel() + 2 * k.numel() + do.numel()) * 2 + 2 * lse.numel() * 4
-        # one library time for the dK/dV + dQ pair (GQA through
-        # enable_gqa), its backward captured on its forward's stream
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
-                          for t in (q, k, v))
-            ol = torch.nn.functional.scaled_dot_product_attention(
-                ql, kl, vl, is_causal=True, enable_gqa=kvh != heads)
-        dol = do.transpose(1, 2)
-        lib = graph_ms(lambda: torch.autograd.grad(
-            ol, (ql, kl, vl), dol, retain_graph=True), calls=3,
-            replays=3, stream=side)
-        plain = graph_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, out, lse, do, True), calls=3, replays=3)
-        kernels = {
-            "flash_attention_bwd_dkdv": (
-                lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta),
-                8 * hd * pairs, io + 2 * k.numel() * 2),
-            "flash_attention_bwd_dq": (
-                lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta),
-                6 * hd * pairs, io + q.numel() * 2)}
-        for kname, (fn, flops, nb) in kernels.items():
-            bms, by = bound_ms(nb, flops, peaks)
-            rec = dict(case=case, shape=list(q.shape), kv_heads=kvh,
-                       max_abs_err=errs[kname],
-                       ms=graph_ms(fn, calls=3, replays=3),
-                       eager_ms=eager_ms(fn, calls=5), bound_ms=bms,
-                       bound_by=by, plain_ms=plain, library_ms=lib)
-            rec.update(rates(flops, rec["ms"], bms))
-            if case == "train":
-                results[kname] = rec
-            emit("kernel", name=kname, **rec)
-        torch.cuda.synchronize()
+    # on a GQA case (12 heads on 4 kv heads, S = 512), which the 438M
+    # model does not exercise
+    rows = flash_rows(peaks, gen, "train", b, s, heads, heads, hd, True)
+    results.update({k: rows[k] for k in FLASH_NAMES[1:]})
+    flash_rows(peaks, gen, "gqa", 2, 512, heads, 4, hd, True)
     return results
 
 
-def grad_phase():
-    """Gradients of a 2-layer model at the 438M widths, bf16 on the card
-    through the kernels against f32 on the CPU through the plain
-    versions."""
-    from paddle_tpu_torch import seed
-    from paddle_tpu_torch.models import (
-        LlamaConfig,
-        LlamaForCausalLM,
-        LlamaPretrainingCriterion,
-    )
+def grad_phase(base=CFG_438M, phase="grad"):
+    """Gradients of a 2-layer model at ``base``'s widths (the 438M
+    model's unless given), bf16 on the card through the kernels against
+    f32 on the CPU through the plain versions."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaPretrainingCriterion
     from paddle_tpu_torch.ops.cuda import launch_counts
 
-    cfg = LlamaConfig(**{**CFG_438M, "num_hidden_layers": 2})
-    card = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                            generator=seed(2, "cuda"))
-    cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
-                           generator=seed(3, "cpu"))
-    cpu.load_state_dict({k: v.float().cpu()
-                         for k, v in card.state_dict().items()})
+    cfg = LlamaConfig(**{**base, "num_hidden_layers": 2})
+    card, cpu = card_and_cpu(cfg, (2, 3))
     ids = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 256))
     crit = LlamaPretrainingCriterion()
     t0 = time.monotonic()
@@ -969,7 +1040,7 @@ def grad_phase():
     loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
     labels_rel = abs(labels_loss - losses["card"]) / abs(losses["card"])
     worst = max(rel, key=rel.get)
-    emit("grad", losses=losses, loss_rel=loss_rel,
+    emit(phase, losses=losses, loss_rel=loss_rel,
          loss_tolerance=GRAD_LOSS_REL, grad_rel_l2=rel,
          grad_rel_l2_max=[worst, rel[worst]], grad_tolerance=GRAD_REL_L2,
          labels_loss=labels_loss, labels_rel=labels_rel,
@@ -977,7 +1048,7 @@ def grad_phase():
          seconds=time.monotonic() - t0)
     if (loss_rel > GRAD_LOSS_REL or rel[worst] > GRAD_REL_L2
             or not np.isfinite(rel[worst]) or labels_rel > LABELS_REL):
-        raise PhaseFailed(f"grad: loss rel {loss_rel:.3g}, worst gradient "
+        raise PhaseFailed(f"{phase}: loss rel {loss_rel:.3g}, worst gradient "
                           f"{worst} rel L2 {rel[worst]:.3g}, labels= rel "
                           f"{labels_rel:.3g}")
 
@@ -990,13 +1061,13 @@ TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope", "fused_rope_bwd",
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1536, 5
 
 
-def train_workload():
+def train_workload(base=CFG_438M):
     """bench.py section (b)'s training step on the card: the 438M model
-    in bf16 (random weights from seed 0), AdamW(learning_rate=1e-4,
-    multi_precision=True), TrainStep over LlamaPretrainingCriterion, and
-    one batch of TRAIN_BATCH x TRAIN_SEQ ids from np.random.RandomState(0).
-    Returns (model, optimizer, step, ids, labels); the labels are the
-    ids."""
+    (or ``base``'s) in bf16 (random weights from seed 0),
+    AdamW(learning_rate=1e-4, multi_precision=True), TrainStep over
+    LlamaPretrainingCriterion, and one batch of TRAIN_BATCH x TRAIN_SEQ
+    ids from np.random.RandomState(0). Returns (model, optimizer, step,
+    ids, labels); the labels are the ids."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (
@@ -1006,7 +1077,7 @@ def train_workload():
     )
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = LlamaConfig(**CFG_438M)
+    cfg = LlamaConfig(**base)
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                              generator=seed(0, "cuda"))
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
@@ -1031,13 +1102,13 @@ def timed_steps(step, ids, labels, steps=TRAIN_STEPS):
             [events[i].elapsed_time(events[i + 1]) for i in range(steps)])
 
 
-def train_phase(name, smi, peaks):
-    """The training slice: TrainStep on the 438M model at batch 4 x seq
-    1536, bench.py section (b)'s configuration."""
+def train_phase(name, smi, peaks, base=CFG_438M, phase="train"):
+    """The training slice: TrainStep on the 438M model (or ``base``'s) at
+    batch 4 x seq 1536, bench.py section (b)'s configuration."""
     from paddle_tpu_torch.ops.cuda import launch_counts
 
     torch.cuda.reset_peak_memory_stats()
-    model, _, step, ids, labels = train_workload()
+    model, _, step, ids, labels = train_workload(base)
     cfg, (batch, seqlen), steps = model.config, ids.shape, TRAIN_STEPS
     n_params = sum(p.numel() for p in model.parameters())
     # the warm-up step, with the launch counts zeroed just before it and
@@ -1054,22 +1125,22 @@ def train_phase(name, smi, peaks):
     flops_per_token = (6 * n_params
                        + 12 * cfg.num_hidden_layers * cfg.hidden_size * seqlen)
     mfu = tokens_per_sec * flops_per_token / peaks[1]
-    emit("train", params=n_params, batch=batch, seq=seqlen, steps=steps,
+    emit(phase, params=n_params, batch=batch, seq=seqlen, steps=steps,
          step_ms=step_ms, step_ms_median=steady,
          tokens_per_sec=tokens_per_sec, flops_per_token=flops_per_token,
          mfu=mfu, max_memory_allocated=torch.cuda.max_memory_allocated(),
          losses=losses, launches_per_step=counts, card=name, nvidia_smi=smi)
     first, last = losses[0], losses[-1]
     if not all(np.isfinite(losses)):
-        raise PhaseFailed(f"train: a loss is not finite: {losses}")
+        raise PhaseFailed(f"{phase}: a loss is not finite: {losses}")
     if abs(first - np.log(cfg.vocab_size)) > 1.0:
-        raise PhaseFailed(f"train: first loss {first:.4f} is more than 1.0 "
-                          f"from ln {cfg.vocab_size}")
+        raise PhaseFailed(f"{phase}: first loss {first:.4f} is more than "
+                          f"1.0 from ln {cfg.vocab_size}")
     if not last < first:
-        raise PhaseFailed(f"train: loss did not fall: {losses}")
+        raise PhaseFailed(f"{phase}: loss did not fall: {losses}")
     missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
     if missing:
-        raise PhaseFailed(f"train: {missing} not launched in a step")
+        raise PhaseFailed(f"{phase}: {missing} not launched in a step")
     return counts
 
 
@@ -1152,75 +1223,9 @@ def bert_flash_phase(peaks):
     """The flash kernels at BERT-base's attention, BERT_ATTN non-causal
     (head_dim 64), against their plain versions, beside
     ``F.scaled_dot_product_attention`` forward and forward + backward."""
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa
-
-    gen = torch.Generator(device="cuda").manual_seed(6)
     b, s, h, d = BERT_ATTN
-    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=False)
-    pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal=False)
-    err = compare("flash_attention(bert)", out, pout)
-    lse_err = (lse - plse).abs().max().item()
-    if lse_err > 1e-3:
-        raise PhaseFailed(f"flash_attention(bert): lse off by {lse_err:.3g}")
-    pairs = b * h * s * s
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    bms, by = bound_ms(4 * q.numel() * 2 + lse.numel() * 4, 4 * d * pairs,
-                       peaks)
-    results = {"flash_attention": dict(
-        case="bert_shape", shape=list(q.shape), causal=False,
-        max_abs_err=err, lse_err=lse_err,
-        ms=graph_ms(lambda: fa.flash_attention_fwd(q, k, v, False), calls=5),
-        plain_ms=graph_ms(lambda: fa.flash_attention_fwd_plain(q, k, v,
-                                                               False),
-                          calls=5),
-        library_ms=graph_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt), calls=5),
-        bound_ms=bms, bound_by=by)}
-    results["flash_attention"].update(rates(
-        4 * d * pairs, results["flash_attention"]["ms"], bms))
-    delta = fa._delta(out, do)
-    want_dq, want_dk, want_dv = fa.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, False)
-    got_dk, got_dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
-                                                 False)
-    got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, False)
-    errs = {"flash_attention_bwd_dkdv": max(
-                compare("dk (bert)", got_dk, want_dk),
-                compare("dv (bert)", got_dv, want_dv)),
-            "flash_attention_bwd_dq": compare("dq (bert)", got_dq, want_dq)}
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        ql, kl, vl = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        ol = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl)
-    dol = do.transpose(1, 2)
-    lib = graph_ms(lambda: torch.autograd.grad(ol, (ql, kl, vl), dol,
-                                               retain_graph=True),
-                   calls=5, stream=side)
-    plain = graph_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, out, lse, do, False), calls=5)
-    io = 4 * q.numel() * 2 + 2 * lse.numel() * 4
-    for kname, fn, flops, nb in (
-            ("flash_attention_bwd_dkdv", lambda: fa.flash_attention_bwd_dkdv(
-                q, k, v, do, lse, delta, False), 8 * d * pairs,
-             io + 2 * k.numel() * 2),
-            ("flash_attention_bwd_dq", lambda: fa.flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, False), 6 * d * pairs,
-             io + q.numel() * 2)):
-        bms, by = bound_ms(nb, flops, peaks)
-        results[kname] = dict(case="bert_shape", shape=list(q.shape),
-                              causal=False, max_abs_err=errs[kname],
-                              ms=graph_ms(fn, calls=5), plain_ms=plain,
-                              library_ms=lib, bound_ms=bms, bound_by=by)
-        results[kname].update(rates(flops, results[kname]["ms"], bms))
-    for kname, rec in results.items():
-        emit("kernel", name=kname, **rec)
-    torch.cuda.synchronize()
-    return results
+    return flash_rows(peaks, torch.Generator(device="cuda").manual_seed(6),
+                      "bert_shape", b, s, h, h, d, False)
 
 
 # shapes off the main path's tiles, those of tests/test_torch_cuda.py's
@@ -1239,10 +1244,11 @@ FLASH_EDGE_CASES = [
 ]
 
 
-def flash_edge_phase():
+def flash_edge_phase(widths=None):
     """The flash forward, dK/dV and dQ kernels against their plain versions
     at FLASH_EDGE_CASES, within the kernel gate: out and lse (within
-    1e-3), then dK, dV and dQ from the forward kernel's out and lse."""
+    1e-3), then dK, dV and dQ from the forward kernel's out and lse. With
+    ``widths``, every case runs again at each of those head dims."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1251,7 +1257,10 @@ def flash_edge_phase():
         return torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16)
 
-    for b, sq, sk, h, kvh, d, causal in FLASH_EDGE_CASES:
+    cases = [(b, sq, sk, h, kvh, dd, causal)
+             for b, sq, sk, h, kvh, d, causal in FLASH_EDGE_CASES
+             for dd in (widths or (d,))]
+    for b, sq, sk, h, kvh, d, causal in cases:
         tag = f"({b}, {sq}, {sk}, {h}, {kvh}, {d}, causal={causal})"
         q, do = randn(b, sq, h, d), randn(b, sq, h, d)
         k, v = randn(b, sk, kvh, d), randn(b, sk, kvh, d)
@@ -2016,6 +2025,244 @@ def bert_train_phase(name, smi, peaks):
     return counts
 
 
+# ---- head dims off 64 and 128, and a LLaMA at Phi-3-mini's widths
+
+# Phi-3-mini-4k-instruct's published config.json
+# (huggingface.co/microsoft/Phi-3-mini-4k-instruct): LLaMA's architecture,
+# 32 heads of 96 on 32 kv heads, untied embeddings, silu, no biases; bf16
+# with random N(0, 0.02) weights from a seed (no checkpoint is loaded).
+# Departures: Phi-3 stores q/k/v and gate/up fused, here they are separate
+# projections (the same function); its sliding_window of 2047 never binds,
+# as every sequence here is at most 1536 tokens.
+CFG_PHI3 = dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+                num_hidden_layers=32, num_attention_heads=32,
+                num_key_value_heads=32, max_position_embeddings=4096,
+                rms_norm_eps=1e-5, rope_theta=10000.0)
+# phi3-train's depth cut: 4 of the 32 layers (about 0.65 B parameters,
+# ~10.4 GB with f32 masters and moments)
+PHI3_TRAIN_LAYERS = 4
+
+# the flash kernels at the new widths: (case, b, s, heads, kv heads, d,
+# causal), sq == sk
+HEAD_DIM_FLASH_CASES = [
+    ("phi3 train", 4, 1536, 32, 32, 96, True),
+    ("phi3 prefill bucket", 8, 128, 32, 32, 96, True),
+    ("qwen3-next full attention", 2, 2048, 16, 2, 256, True),
+    ("phi2 widths, padded to 96", 4, 1536, 32, 32, 80, True),
+    ("d 32", 2, 256, 4, 4, 32, True),
+]
+def head_dims_phase(peaks):
+    """The kernels at the widths off 64 and 128: the flash kernels at
+    HEAD_DIM_FLASH_CASES (Phi-3's training and prefill shapes at 96,
+    Qwen3-Next's full-attention widths at 256 on 2 kv heads, Phi-2's 80 on
+    the padded route, 32); paged decode at Phi-3's q (8, 32, 96) and at
+    q (8, 16, 256) on 2 kv heads in e2's pool layout; RMSNorm at width
+    3072 (decode and training rows) and RoPE at head dim 96 (prefill and
+    training shapes, both directions). Returns the Phi-3 path's rows by
+    kernel for the kernels line."""
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
+    from paddle_tpu_torch.ops.cuda import rms_norm as rn
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    results = {}
+    flash = {case[0]: flash_rows(peaks, gen, *case, causal)
+             for *case, causal in HEAD_DIM_FLASH_CASES}
+    results["flash_attention[d=96]"] = flash["phi3 prefill bucket"][
+        "flash_attention"]
+    for kname in FLASH_NAMES[1:]:
+        results[f"{kname}[d=96]"] = flash["phi3 train"][kname]
+    native, padded = flash["phi3 train"], flash["phi2 widths, padded to 96"]
+    emit("head-dims", padded_route={
+        kname: dict(padded_ms=padded[kname]["ms"],
+                    native_96_ms=native[kname]["ms"],
+                    ratio=padded[kname]["ms"] / native[kname]["ms"])
+        for kname in FLASH_NAMES})
+
+    for heads, kvh, hd in ((32, 32, 96), (16, 2, 256)):
+        rec = paged_row(da, peaks, e2_pool(randn, heads, kvh, hd))
+        emit("kernel", name="paged_attention", case=f"d {hd}", **rec)
+        if hd == 96:
+            results["paged_attention[d=96]"] = rec
+
+    # RMSNorm at Phi-3's width: a decode step's (8, 3072), then the
+    # training step's (6144, 3072) forward and backward
+    hidden, n = 3072, TRAIN_BATCH * TRAIN_SEQ
+    w = (1.0 + 0.1 * randn(hidden, dtype=torch.float32)).to(torch.bfloat16)
+    x8 = randn(8, hidden)
+    err = rms_norm_variants(rn, x8, w, randn(hidden), "rms_norm(8, 3072)")
+    bms, by = bound_ms(2 * 8 * hidden * 2 + hidden * 2 + 8 * 4,
+                       4 * 8 * hidden, peaks)
+    results["rms_norm[h=3072]"] = rec = dict(
+        shape=[8, hidden], max_abs_err=err,
+        ms=graph_ms(lambda: rn.rms_norm(x8, w, epsilon=1e-5)),
+        plain_ms=graph_ms(lambda: rn.rms_norm_plain(x8, w, epsilon=1e-5)),
+        library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
+            x8, (hidden,), w, 1e-5)),
+        bound_ms=bms, bound_by=by)
+    emit("kernel", name="rms_norm", case="phi3 decode", **rec)
+    x, g = randn(n, hidden), randn(n, hidden)
+    _, r = rn.rms_norm(x, w, epsilon=1e-5)
+    err = max(compare(f"rms_norm_bwd(3072) {nm}", got, want)
+              for nm, got, want in zip(("dx", "dw", "db"),
+                                       rn.rms_norm_bwd(x, w, r, g),
+                                       rn.rms_norm_bwd_plain(x, w, r, g)))
+    bms, by = bound_ms(3 * n * hidden * 2 + hidden * 2 + n * 4
+                       + 2 * hidden * 2, 11 * n * hidden, peaks)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+        yl = torch.nn.functional.rms_norm(xl, (hidden,), wl, 1e-5)
+    results["rms_norm_bwd[h=3072]"] = rec = dict(
+        shape=[n, hidden], max_abs_err=err,
+        ms=graph_ms(lambda: rn.rms_norm_bwd(x, w, r, g), calls=10),
+        plain_ms=graph_ms(lambda: rn.rms_norm_bwd_plain(x, w, r, g),
+                          calls=10),
+        library_ms=graph_ms(lambda: torch.autograd.grad(
+            yl, (xl, wl), g, retain_graph=True), calls=10, stream=side),
+        bound_ms=bms, bound_by=by)
+    emit("kernel", name="rms_norm_bwd", case="phi3 train", **rec)
+
+    # RoPE at head dim 96: the prefill bucket's q, k (8, 128, 32, 96) at
+    # arange positions, then the training step's adjoint (4, 1536, 32, 96)
+    cos, sin = _rope_tables(96, CFG_PHI3["max_position_embeddings"],
+                            CFG_PHI3["rope_theta"], "cuda")
+    for rname, (bb, ss), inverse in (("fused_rope", (8, 128), False),
+                                     ("fused_rope_bwd", (TRAIN_BATCH,
+                                                         TRAIN_SEQ), True)):
+        q, k = randn(bb, ss, 32, 96), randn(bb, ss, 32, 96)
+        pos = torch.arange(ss, device="cuda", dtype=torch.int32).expand(
+            bb, ss).contiguous()
+        err = max(compare(f"{rname}(d=96)", got, want) for got, want in zip(
+            fo.fused_rope(q, k, cos, sin, pos, inverse),
+            fo.fused_rope_plain(q, k, cos, sin, pos, inverse)))
+        got, none = fo.fused_rope(q, None, cos, sin, pos, inverse)
+        err = max(err, compare(f"{rname}(d=96, k=None)", got,
+                               fo.fused_rope_plain(q, None, cos, sin, pos,
+                                                   inverse)[0]))
+        if none is not None:
+            raise PhaseFailed(f"{rname}: k=None gave a k")
+        pairs = q.numel()  # d / 2 pairs a row of q and of k
+        bms, by = bound_ms(2 * 2 * q.numel() * 2 + pos.numel() * 4
+                           + 2 * ss * 96 * 4, 6 * pairs, peaks)
+        results[f"{rname}[d=96]"] = rec = dict(
+            shape=list(q.shape), max_abs_err=err,
+            ms=graph_ms(lambda: fo.fused_rope(q, k, cos, sin, pos, inverse),
+                        calls=10),
+            plain_ms=graph_ms(lambda: fo.fused_rope_plain(q, k, cos, sin,
+                                                          pos, inverse),
+                              calls=10),
+            library_ms=None, bound_ms=bms, bound_by=by)
+        emit("kernel", name=rname, case="phi3", **rec)
+    torch.cuda.synchronize()
+    return results
+
+
+PHI3_SERVE_KERNELS = ("rms_norm", "fused_rope", "flash_attention",
+                      "paged_attention")
+
+
+def phi3_serve_phase(name, smi):
+    """The 32-layer model at Phi-3-mini's widths behind the engine on e2's
+    traffic (``serving_workload``: 8 slots, max_len 512, page 128,
+    buckets (32, 128), 24 requests of 8-119 prompt tokens from
+    RandomState(7), 64 new tokens each, greedy, segments of 32), the
+    engine's default ``decode_megakernel=1``: the megakernel declines head
+    dim 96, so the decode layers run unfused (JAX's probe declines this
+    model too: its q/k/v/o weights pass its VMEM budget). Launch counts
+    are zeroed just before the run and read just after it. First the gate:
+    a 2-layer model of the same widths, bf16 on the card against f32 on
+    the CPU, a bucket-128 prefill of 2 prompts and 4 decode steps through
+    the paged cache, logits within MODEL_REL_L2. Returns the counts."""
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    t0 = time.monotonic()
+    small = LlamaConfig(**{**CFG_PHI3, "num_hidden_layers": 2})
+    card, cpu = card_and_cpu(small, (20, 21))
+    rng = np.random.RandomState(0)
+    prompts = rng.randint(0, small.vocab_size, (2, 128))
+    steps = rng.randint(0, small.vocab_size, (4, 2))
+    got = prefill_decode(card, prompts, steps)
+    want = prefill_decode(cpu, prompts, steps)
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(got, want)]
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    del card, cpu
+    torch.cuda.empty_cache()
+    gate_s = time.monotonic() - t0
+    if not finite or max(rel) > MODEL_REL_L2:
+        raise PhaseFailed(f"phi3-serve: 2-layer logits finite={finite}, "
+                          f"rel L2 {rel}")
+
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = LlamaConfig(**CFG_PHI3)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=seed(0, "cuda"))
+    n_params = sum(p.numel() for p in model.parameters())
+    vocab = cfg.vocab_size
+    eng, reqs = serving_workload(model)
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    outs, stats = eng.run(reqs, max_new_tokens=SERVE_NEW_TOKENS,
+                          segment=SERVE_SEGMENT)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    decode_steps = stats["segments"] * SERVE_SEGMENT
+    ok = all(len(o) == SERVE_NEW_TOKENS and o.min() >= 0 and o.max() < vocab
+             for o in outs)
+    finite = all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
+    emit("phi3-serve", layers=cfg.num_hidden_layers, params=n_params,
+         head_dim=cfg.head_dim, megakernel=stats["megakernel"],
+         requests=len(outs), new_tokens=SERVE_NEW_TOKENS,
+         finished=sum(len(o) == SERVE_NEW_TOKENS for o in outs),
+         tokens_per_sec=stats["tokens_per_sec"], wall_s=stats["wall_s"],
+         useful_tokens=stats["useful_tokens"], segments=stats["segments"],
+         decode_steps=decode_steps, mean_occupancy=stats["mean_occupancy"],
+         launches=counts,
+         paged_attention_per_decode_step=counts.get("paged_attention", 0)
+         / decode_steps,
+         kernel_launches_per_decode_step=sum(counts.values()) / decode_steps,
+         kv_finite=finite, max_memory_allocated=torch.cuda.max_memory_allocated(),
+         gate_rel_l2=rel, gate_tolerance=MODEL_REL_L2,
+         gate_seconds=gate_s, card=name, nvidia_smi=smi)
+    if (not ok or not finite or stats["megakernel"]
+            or stats["useful_tokens"] != len(reqs) * SERVE_NEW_TOKENS):
+        raise PhaseFailed(f"phi3-serve: outputs ok={ok}, kv finite={finite},"
+                          f" megakernel {stats['megakernel']}, tokens "
+                          f"{stats['useful_tokens']}")
+    missing = [k for k in PHI3_SERVE_KERNELS if counts.get(k, 0) <= 0]
+    if missing or counts.get("fused_decode_layer", 0):
+        raise PhaseFailed(f"phi3-serve: launches {counts}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phi3_train_phase(name, smi, peaks):
+    """Phi-3-mini's widths at PHI3_TRAIN_LAYERS layers (a depth cut) through
+    ``train_phase``: batch 4 x seq 1536 ids (RandomState(0)), AdamW(1e-4,
+    multi_precision, decay 0.01), LlamaPretrainingCriterion, TrainStep,
+    a warm-up step and 5 timed steps; then the gradients of a 2-layer
+    copy against f32 on the CPU (``grad_phase``). Returns the warm-up
+    step's launch counts."""
+    counts = train_phase(name, smi, peaks,
+                         {**CFG_PHI3, "num_hidden_layers": PHI3_TRAIN_LAYERS},
+                         "phi3-train")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    grad_phase(CFG_PHI3, "phi3-grad")
+    return counts
+
+
 KERNELS = [  # name, source, the Pallas kernel it replaces, the path
     ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
      "paddle_tpu/ops/pallas/rms_norm.py:59", "serving"),
@@ -2047,6 +2294,31 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
     ("flash_attention_bwd_dq[seg]",
      "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/pallas/flash_attention.py:245", "varlen"),
+    # the Phi-3 paths' kernels at their widths (head dim 96, hidden 3072),
+    # the launches counted under the kernel's own name (last field)
+    ("flash_attention[d=96]", "paddle_tpu_torch/csrc/flash_attention.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:86", "phi3-serve",
+     "flash_attention"),
+    ("paged_attention[d=96]", "paddle_tpu_torch/csrc/decode_attention.cu",
+     "paddle_tpu/ops/pallas/decode_attention.py:58", "phi3-serve",
+     "paged_attention"),
+    ("rms_norm[h=3072]", "paddle_tpu_torch/csrc/rms_norm.cu",
+     "paddle_tpu/ops/pallas/rms_norm.py:59", "phi3-serve", "rms_norm"),
+    ("fused_rope[d=96]", "paddle_tpu_torch/csrc/rope.cu",
+     "paddle_tpu/ops/pallas/fused_ops.py:47", "phi3-serve", "fused_rope"),
+    ("flash_attention_bwd_dkdv[d=96]",
+     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:181", "phi3-train",
+     "flash_attention_bwd_dkdv"),
+    ("flash_attention_bwd_dq[d=96]",
+     "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:245", "phi3-train",
+     "flash_attention_bwd_dq"),
+    ("rms_norm_bwd[h=3072]", "paddle_tpu_torch/csrc/rms_norm.cu",
+     "paddle_tpu/ops/pallas/rms_norm.py:100", "phi3-train", "rms_norm_bwd"),
+    ("fused_rope_bwd[d=96]", "paddle_tpu_torch/csrc/rope.cu",
+     "paddle_tpu/ops/pallas/fused_ops.py:47", "phi3-train",
+     "fused_rope_bwd"),
 ]
 
 
@@ -2106,11 +2378,18 @@ def main():
     torch.cuda.empty_cache()
     counts["bert-train"] = bert_train_phase(name, smi, peaks)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    results.update(head_dims_phase(peaks))
+    flash_edge_phase(widths=(96, 256))
+    counts["phi3-serve"] = phi3_serve_phase(name, smi)
+    torch.cuda.synchronize()
+    counts["phi3-train"] = phi3_train_phase(name, smi, peaks)
+    torch.cuda.synchronize()
 
     line = []
-    for kname, source, replaces, path in KERNELS:
+    for kname, source, replaces, path, *counter in KERNELS:
         r = results[kname]
-        launches = counts[path].get(kname, 0)
+        launches = counts[path].get(counter[0] if counter else kname, 0)
         if launches <= 0:
             raise PhaseFailed(f"{kname} was not launched on the {path} path")
         line.append({"name": kname, "route": "cuda", "source": source,

@@ -65,19 +65,39 @@
 // - 87 KB of shared memory at D = 128 (46 KB at 64): two blocks per SM.
 //   The output tile is written through the block's Q rows in shared
 //   memory, 16 bytes per lane.
+//
+// Head dims. The kernel is instantiated at D = 32, 64, 96, 128 and 256
+// (ptt_flash_attention_fwd); the wrapper in ops/cuda/flash_attention.py
+// zero-pads any other D <= 256 to the next of these and passes the scale
+// of the true D, as the Pallas kernel takes any d <= 256
+// (flash_attention_supported, :67-82). Every loop over D runs in k-steps
+// of 16 and n-blocks of 8 (ldmatrix.x4 covers 16 columns), so D = 96 is 6
+// k-steps and 12 n-blocks, and a K/V row is D / 8 16-byte chunks. At
+// D = 256 the f32 O accumulator alone is 128 registers a thread, so the
+// block walks 32-key tiles (the scores take 16 registers, not 32) and
+// reads Q's fragments from shared memory at each k-step rather than
+// holding all 64 of them in registers; its shared memory is then 101 KB,
+// and two blocks still fit an SM. D <= 128 keeps 64-key tiles and Q in
+// registers, its code unchanged.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;  // query rows per block: 4 warps x 16
-constexpr int kBK = 64;  // keys per tile
 constexpr int kThreads = kBQ / 16 * 32;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// keys per tile, and whether a warp holds its Q fragments in registers
+template <int D>
+constexpr int kKeyTile = D <= 128 ? 64 : 32;
+template <int D>
+constexpr bool kQInRegisters = D <= 128;
 
 template <int D, bool kSegments>
 constexpr int smem_bytes() {
   // Q, and two stages of K and V; with segments the Q tile's ids and two
   // stages of key ids
+  constexpr int kBK = kKeyTile<D>;
   return (kBQ + 4 * kBK) * (D + 8) * 2 + (kSegments ? (kBQ + 2 * kBK) * 4 : 0);
 }
 
@@ -89,6 +109,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                  const ptt::SegIds seg, int sq, int sk, int heads,
                  int kv_heads, float scale, int causal) {
+  static_assert(D % 16 == 0 && D <= 256, "head dims of whole k-steps");
+  constexpr int kBK = kKeyTile<D>;
+  constexpr bool kQRegs = kQInRegisters<D>;
   constexpr int S = D + 8;      // shared row stride, bf16
   constexpr int kKd = D / 16;   // k-steps of Q K^T
   constexpr int kNs = kBK / 8;  // score n-blocks of a key tile
@@ -160,7 +183,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   ptt::cp_async_commit();
 
   const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
-  uint32_t qa[kKd][4];
+  uint32_t qa[kQRegs ? kKd : 1][4];  // Q's A fragments, held when kQRegs
   float acc[kNo][4];
 #pragma unroll
   for (int n = 0; n < kNo; ++n)
@@ -181,7 +204,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       ptt::cp_async_wait<0>();
     }
     __syncthreads();
-    if (step == 0) {
+    if (kQRegs && step == 0) {
 #pragma unroll
       for (int kk = 0; kk < kKd; ++kk) {
         ptt::ldmatrix_x4<false>(
@@ -200,14 +223,19 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKd; ++kk) {
+      if (!kQRegs) {  // this k-step's Q fragment, from the Q rows
+        ptt::ldmatrix_x4<false>(
+            qa[0], qs + (warp * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8);
+      }
+      const uint32_t(&qf)[4] = qa[kQRegs ? kk : 0];
 #pragma unroll
       for (int j = 0; j < kBK / 16; ++j) {
         uint32_t bk[4];
         ptt::ldmatrix_x4<false>(
             bk, kst + (j * 16 + (quad >> 1) * 8 + (lane & 7)) * S + kk * 16 +
                     (quad & 1) * 8);
-        ptt::mma_bf16(s[2 * j], qa[kk], bk[0], bk[1]);
-        ptt::mma_bf16(s[2 * j + 1], qa[kk], bk[2], bk[3]);
+        ptt::mma_bf16(s[2 * j], qf, bk[0], bk[1]);
+        ptt::mma_bf16(s[2 * j + 1], qf, bk[2], bk[3]);
       }
     }
 
@@ -370,7 +398,8 @@ int launch_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
 }  // namespace
 
 // q, o: (b, sq, heads, d); k, v: (b, sk, kv_heads, d), all bf16
-// row-major, 16-byte aligned; lse: (b, heads, sq) f32. d is 64 or 128.
+// row-major, 16-byte aligned; lse: (b, heads, sq) f32. d is 32, 64, 96,
+// 128 or 256; scale is the caller's (1 / sqrt of the unpadded head dim).
 // q_seg (b, sq) and k_seg (b, sk) int32 ids with their range tables
 // (min, max per 32 positions: q_lo, q_hi (b, ceil(sq / 32)); k_lo, k_hi
 // (b, ceil(sk / 32))), 4-byte aligned; q_seg null: no segment mask.
@@ -389,13 +418,23 @@ PTT_EXPORT int ptt_flash_attention_fwd(const void* q, const void* k,
   auto* op = static_cast<__nv_bfloat16*>(o);
   auto* lp = static_cast<float*>(lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d == 128) {
-    return launch_fwd<128>(qp, kp, vp, op, lp, seg, b, sq, sk, heads,
-                           kv_heads, scale, causal, st);
+  switch (d) {
+    case 32:
+      return launch_fwd<32>(qp, kp, vp, op, lp, seg, b, sq, sk, heads,
+                            kv_heads, scale, causal, st);
+    case 64:
+      return launch_fwd<64>(qp, kp, vp, op, lp, seg, b, sq, sk, heads,
+                            kv_heads, scale, causal, st);
+    case 96:
+      return launch_fwd<96>(qp, kp, vp, op, lp, seg, b, sq, sk, heads,
+                            kv_heads, scale, causal, st);
+    case 128:
+      return launch_fwd<128>(qp, kp, vp, op, lp, seg, b, sq, sk, heads,
+                             kv_heads, scale, causal, st);
+    case 256:
+      return launch_fwd<256>(qp, kp, vp, op, lp, seg, b, sq, sk, heads,
+                             kv_heads, scale, causal, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (d == 64) {
-    return launch_fwd<64>(qp, kp, vp, op, lp, seg, b, sq, sk, heads,
-                          kv_heads, scale, causal, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }

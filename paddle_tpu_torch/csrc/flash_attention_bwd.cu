@@ -82,6 +82,19 @@
 // through the warp's Q rows in shared memory. The tensor cores do 4 products'
 // work where the function needs 3; the mask runs only on the key tiles that
 // cross the diagonal or the end of the keys.
+//
+// Head dims: both kernels are instantiated at D = 32, 64, 96, 128 and 256,
+// as the forward (csrc/flash_attention.cu); the wrapper pads any other
+// D <= 256 to the next of these. Every loop over D steps by 16. dK/dV
+// splits D over kColG = 8 / (BK / 16) warps in slices of DW = D / kColG,
+// which must be whole 16-column slices: 64-key tiles (kColG 2) take any of
+// the five widths up to 128, 32-key tiles (kColG 4) only D % 64 == 0, so
+// D = 32 and 96 always take 64-key tiles. At D = 256 a 64-key tile would
+// need 235 KB of shared memory and 128 registers of dK and dV a thread, so
+// it takes 32-key tiles (189 KB, one block of 8 warps an SM). dQ's f32
+// accumulator is 16 x D a warp, 128 registers a thread at D = 256, so
+// there it walks 32-key tiles (S and dP 32 registers, not 64). D <= 128
+// keeps its tiles and code.
 #include "common.cuh"
 
 namespace {
@@ -120,6 +133,7 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int QW = kBQd / kColG;   // queries per warp in S^T, dP^T
   constexpr int DW = D / kColG;      // head dims per warp in dK, dV
   static_assert(QW % 16 == 0 && DW % 16 == 0, "warp tiles of 16");
+  static_assert(BK * (D / 8) % kDkdvThreads == 0, "whole write-back rounds");
   extern __shared__ __align__(16) unsigned char dkdv_smem[];
   auto* ks = reinterpret_cast<__nv_bfloat16*>(dkdv_smem);
   __nv_bfloat16* vs = ks + BK * S;
@@ -362,13 +376,17 @@ flash_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 // ---- dQ on the tensor cores (see the note at the top of the file)
 
 constexpr int kBQq = 64;   // query rows of a dQ block: 4 warps x 16
-constexpr int kBKq = 64;   // keys per tile of the dQ loop
 constexpr int kDqThreads = kBQq / 16 * 32;
+
+// keys per tile of the dQ loop
+template <int D>
+constexpr int kDqKeyTile = D <= 128 ? 64 : 32;
 
 template <int D, bool kSegments>
 constexpr size_t dq_smem_bytes() {
   // Q and dO, two stages of K and V; with segments the query ids and two
   // stages of key ids
+  constexpr int kBKq = kDqKeyTile<D>;
   return static_cast<size_t>(2 * kBQq + 4 * kBKq) * (D + 8) * 2 +
          (kSegments ? (kBQq + 2 * kBKq) * 4 : 0);
 }
@@ -384,7 +402,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ dq, const ptt::SegIds seg,
                     int sq, int sk, int heads, int kv_heads, float scale,
                     int causal) {
+  static_assert(D % 16 == 0 && D <= 256, "head dims of whole k-steps");
   constexpr int BQ = kBQq;
+  constexpr int kBKq = kDqKeyTile<D>;
   constexpr int kThreadsQ = kDqThreads;
   constexpr int S = D + 8;         // shared row stride, bf16
   constexpr int kKd = D / 16;      // k-steps of S and dP
@@ -631,19 +651,27 @@ int launch_dkdv_tile(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
 }
 
 // 64-key tiles, or 32 where 64 would leave SMs without a block (the GQA
-// case: 2 x 4 kv heads x 512 keys is 64 blocks of 64 keys on 132 SMs)
+// case: 2 x 4 kv heads x 512 keys is 64 blocks of 64 keys on 132 SMs);
+// D = 32 and 96 take only 64 (a 32-key tile's D / 4 slices would not be
+// whole k-steps), D = 256 only 32 (see the note at the top of the file)
 template <int D>
 int launch_dkdv(const Args& a, __nv_bfloat16* dk, __nv_bfloat16* dv) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if ((a.sk + 63) / 64 * a.kv_heads * a.b >= sms) {
+  if constexpr (D > 128) {
+    return launch_dkdv_tile<D, 32>(a, dk, dv);
+  } else if constexpr (D % 64 != 0) {
     return launch_dkdv_tile<D, 64>(a, dk, dv);
+  } else {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if ((a.sk + 63) / 64 * a.kv_heads * a.b >= sms) {
+      return launch_dkdv_tile<D, 64>(a, dk, dv);
+    }
+    return launch_dkdv_tile<D, 32>(a, dk, dv);
   }
-  return launch_dkdv_tile<D, 32>(a, dk, dv);
 }
 
 template <int D, bool kSegments>
@@ -686,7 +714,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, dout: (b, sq, heads, d); k, v, dk, dv: (b, sk, kv_heads, d), all bf16
-// row-major; lse, delta: (b, heads, sq) f32. d is 64 or 128. The segment
+// row-major; lse, delta: (b, heads, sq) f32. d is 32, 64, 96, 128 or 256;
+// scale is the caller's (1 / sqrt of the unpadded head dim). The segment
 // ids and range tables as ptt_flash_attention_fwd takes them; q_seg null:
 // no segment mask.
 PTT_EXPORT int ptt_flash_attention_bwd_dkdv(
@@ -700,9 +729,14 @@ PTT_EXPORT int ptt_flash_attention_bwd_dkdv(
                            scale, causal, stream);
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
-  if (d == 128) return launch_dkdv<128>(a, dkp, dvp);
-  if (d == 64) return launch_dkdv<64>(a, dkp, dvp);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 32: return launch_dkdv<32>(a, dkp, dvp);
+    case 64: return launch_dkdv<64>(a, dkp, dvp);
+    case 96: return launch_dkdv<96>(a, dkp, dvp);
+    case 128: return launch_dkdv<128>(a, dkp, dvp);
+    case 256: return launch_dkdv<256>(a, dkp, dvp);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // dq: (b, sq, heads, d) bf16; the other arguments as above.
@@ -716,7 +750,12 @@ PTT_EXPORT int ptt_flash_attention_bwd_dq(
                            q_hi, k_lo, k_hi, b, sq, sk, heads, kv_heads,
                            scale, causal, stream);
   auto* dqp = static_cast<__nv_bfloat16*>(dq);
-  if (d == 128) return launch_dq<128>(a, dqp);
-  if (d == 64) return launch_dq<64>(a, dqp);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 32: return launch_dq<32>(a, dqp);
+    case 64: return launch_dq<64>(a, dqp);
+    case 96: return launch_dq<96>(a, dqp);
+    case 128: return launch_dq<128>(a, dqp);
+    case 256: return launch_dq<256>(a, dqp);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

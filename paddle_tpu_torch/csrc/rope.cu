@@ -92,6 +92,8 @@ int launch_rope(const void* q, const void* k, void* q_out, void* k_out,
 
 // q: (tokens, q_heads, d), k: (tokens, k_heads, d) bf16; positions:
 // (tokens,) int32; tables: (table_rows, d) f32. Outputs like q and k.
+// k_heads = 0 rotates q alone (total pairs = q pairs): k and k_out are
+// then never read or written and may be null.
 PTT_EXPORT int ptt_rope_fwd(const void* q, const void* k, void* q_out,
                             void* k_out, const void* positions,
                             const void* cos_table, const void* sin_table,

@@ -18,6 +18,15 @@ A query row with no visible key (causal with sq > sk, or a segment missing
 from the keys) gets out = 0 and lse = -1e30 in every version here, and adds
 nothing to dQ, dK or dV. JAX leaves such rows "finite garbage" whose value
 depends on its tiles, so the port defines them once.
+
+Head dims: the kernels are built at the widths of :data:`HEAD_DIMS`, and
+take any other head dim up to :data:`MAX_HEAD_DIM` (JAX's
+``flash_attention_supported`` bound) by the padded route
+(:func:`padded_fwd`, :func:`padded_bwd`): q, k, v (and dO) zero-padded to
+the next built width, the kernels launched with the scale of the true
+head dim, out, dQ, dK and dV sliced back. Zero columns add nothing to
+q . k and give zero output and gradient columns, so the result is the
+unpadded function's; such launches count as ``<kernel>[pad]``.
 """
 from __future__ import annotations
 
@@ -32,11 +41,13 @@ __all__ = ["flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_bwd_dkdv",
            "flash_attention_bwd_dq", "FlashAttentionFunction",
-           "build_segments", "segment_ranges"]
+           "build_segments", "segment_ranges", "native_head_dim",
+           "padded_fwd", "padded_bwd", "HEAD_DIMS", "MAX_HEAD_DIM"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the kernels' instantiations
+HEAD_DIMS = (32, 64, 96, 128, 256)  # the kernels' instantiations
+MAX_HEAD_DIM = 256  # the widest head dim the kernels take, padded or not
 CHUNK = 32  # rows per entry of the segment-range table
 
 
@@ -111,16 +122,61 @@ def _keep(sq, sk, causal, q_seg, k_seg, device):
     return keep
 
 
-def flash_attention_fwd_plain(q, k, v, causal=True, q_seg=None, k_seg=None):
+def native_head_dim(d):
+    """The kernels' width that serves head dim ``d``: ``d`` itself when it
+    is one of :data:`HEAD_DIMS`, else the next of them (the padded route).
+    Raises ``ValueError`` past :data:`MAX_HEAD_DIM`."""
+    for w in HEAD_DIMS:
+        if d <= w:
+            return w
+    raise ValueError(f"flash_attention: head_dim {d} is past the kernels' "
+                     f"{MAX_HEAD_DIM} (scaled_dot_product_attention takes "
+                     f"the plain composition there)")
+
+
+def _pad_to(t, width):
+    d = t.shape[-1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
+
+
+def padded_fwd(fwd, q, k, v, causal=True, q_seg=None, k_seg=None):
+    """``fwd`` (a forward with the signature of
+    :func:`flash_attention_fwd_plain`) at the next built width: q, k, v
+    zero-padded to :func:`native_head_dim`, ``scale`` that of the true head
+    dim, out sliced back; lse is unchanged by the zero columns."""
+    d = q.shape[-1]
+    w = native_head_dim(d)
+    out, lse = fwd(_pad_to(q, w), _pad_to(k, w), _pad_to(v, w), causal,
+                   q_seg, k_seg, scale=1.0 / math.sqrt(d))
+    return out[..., :d].contiguous(), lse
+
+
+def padded_bwd(bwd, q, k, v, out, lse, do, causal=True, q_seg=None,
+               k_seg=None):
+    """``bwd`` (a backward with the signature of
+    :func:`flash_attention_bwd_plain`) at the next built width, as
+    :func:`padded_fwd`: ``delta = rowsum(dO * O)`` is the same at either
+    width, and dQ, dK, dV are sliced back."""
+    d = q.shape[-1]
+    w = native_head_dim(d)
+    grads = bwd(*(_pad_to(t, w) for t in (q, k, v, out)), lse, _pad_to(do, w),
+                causal, q_seg, k_seg, scale=1.0 / math.sqrt(d))
+    return tuple(g[..., :d].contiguous() for g in grads)
+
+
+def flash_attention_fwd_plain(q, k, v, causal=True, q_seg=None, k_seg=None,
+                              *, scale=None):
     """q (B, Sq, H, D), k/v (B, Sk, KVH, D) -> (out like q, lse (B, H, Sq)
-    f32). Softmax in f32 of ``(q * scale) . k``; causal rows see keys
-    ``c <= r + (Sk - Sq)``; with (B, Sq) ``q_seg`` and (B, Sk) ``k_seg``
-    an entry counts only where the ids are equal; query head h reads kv
-    head ``h // (H // KVH)``. A row with no visible key gets out = 0 and
-    lse = -1e30, as in the kernel."""
+    f32). Softmax in f32 of ``(q * scale) . k``, ``scale`` 1 / sqrt(D)
+    unless given; causal rows see keys ``c <= r + (Sk - Sq)``; with (B,
+    Sq) ``q_seg`` and (B, Sk) ``k_seg`` an entry counts only where the ids
+    are equal; query head h reads kv head ``h // (H // KVH)``. A row with
+    no visible key gets out = 0 and lse = -1e30, as in the kernel."""
     b, sq, h, d = q.shape
     sk, group = k.shape[1], h // k.shape[2]
-    qf = _build.upcast(q).transpose(1, 2) * (1.0 / math.sqrt(d))
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qf = _build.upcast(q).transpose(1, 2) * scale
     kf = _build.upcast(k).transpose(1, 2).repeat_interleave(group, dim=1)
     vf = _build.upcast(v).transpose(1, 2).repeat_interleave(group, dim=1)
     s = qf @ kf.transpose(-1, -2)
@@ -143,10 +199,10 @@ def _check(name, q, k, v):
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
     b, sq, h, d = q.shape
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
-            or d not in HEAD_DIMS or h % k.shape[2] or sq == 0):
+            or d > MAX_HEAD_DIM or h % k.shape[2] or sq == 0):
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}; head_dim must be one of "
-                         f"{HEAD_DIMS} and heads a multiple of kv heads")
+                         f"v {tuple(v.shape)}; head_dim must be at most "
+                         f"{MAX_HEAD_DIM} and heads a multiple of kv heads")
 
 
 def _segments(name, q, k, q_seg, k_seg):
@@ -176,16 +232,29 @@ def _segments(name, q, k, q_seg, k_seg):
 def flash_attention_fwd(q, k, v, causal=True, q_seg=None, k_seg=None):
     """Attention forward with lse (see :func:`flash_attention_fwd_plain`).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16, contiguous, 16-byte aligned, D in {64, 128}, H a multiple of
-    KVH; ids int32 (B, Sq) and (B, Sk)) or raises. A launch with segments
-    counts as ``flash_attention[seg]``."""
+    (bf16, contiguous, 16-byte aligned, D at most 256, H a multiple of KVH;
+    ids int32 (B, Sq) and (B, Sk)) or raises. A head dim off
+    :data:`HEAD_DIMS` takes the padded route. A launch with segments counts
+    as ``flash_attention[seg]``, a padded one with ``[pad]`` appended."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, q_seg, k_seg)
-    return _launch_fwd(q, k, v, causal,
-                       _segments("flash_attention", q, k, q_seg, k_seg))
+    seg = _segments("flash_attention", q, k, q_seg, k_seg)
+    if q.shape[-1] in HEAD_DIMS:
+        return _launch_fwd(q, k, v, causal, seg)
+
+    def launch(q, k, v, causal, q_seg, k_seg, scale):
+        return _launch_fwd(q, k, v, causal, seg, scale)
+
+    return padded_fwd(launch, q, k, v, causal)
 
 
-def _launch_fwd(q, k, v, causal, seg):
+def _suffix(seg, scale):
+    """The launch count's name suffix: ``[seg]`` for segment ids, ``[pad]``
+    for the padded route (a scale given for a padded width)."""
+    return ("[seg]" if seg[1] else "") + ("" if scale is None else "[pad]")
+
+
+def _launch_fwd(q, k, v, causal, seg, scale=None):
     name = "flash_attention"
     _check(name, q, k, v)
     b, sq, h, d = q.shape
@@ -195,9 +264,9 @@ def _launch_fwd(q, k, v, causal, seg):
                          [_P] * 11 + [_I] * 6 + [_F, _I, _P])
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     lse.data_ptr(), *seg[0], b, sq, k.shape[1], h, k.shape[2],
-                    d, 1.0 / math.sqrt(d), int(bool(causal)),
-                    _build.stream_of(q)), name)
-    _build.launch_counts[name + ("[seg]" if seg[1] else "")] += 1
+                    d, 1.0 / math.sqrt(d) if scale is None else scale,
+                    int(bool(causal)), _build.stream_of(q)), name)
+    _build.launch_counts[name + _suffix(seg, scale)] += 1
     return out, lse
 
 
@@ -228,7 +297,7 @@ def _delta(out, do):
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True, q_seg=None,
-                              k_seg=None):
+                              k_seg=None, *, scale=None):
     """``(dq, dk, dv)`` of :func:`flash_attention_fwd_plain` from the
     forward's ``out`` and ``lse`` and the output gradient ``do``, by the FA2
     formulas over the full score matrix, in f32: ``P = exp(S - lse)``, set
@@ -236,11 +305,12 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True, q_seg=None,
     key, whose lse is -1e30, so adds nothing), ``dV = P^T dO``,
     ``dS = P * (dO V^T - delta) * scale`` with ``delta = rowsum(dO * O)``,
     ``dQ = dS K``, ``dK = dS^T Q``; a GQA kv head's dK and dV sum over its
-    group of query heads."""
+    group of query heads. ``scale`` is 1 / sqrt(D) unless given."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     group = h // kvh
-    scale = 1.0 / math.sqrt(d)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
     qf = _build.upcast(q).transpose(1, 2)
     kf = _build.upcast(k).transpose(1, 2).repeat_interleave(group, dim=1)
     vf = _build.upcast(v).transpose(1, 2).repeat_interleave(group, dim=1)
@@ -275,49 +345,69 @@ def _bwd_args(name, q, k, v, do, lse, delta):
             lse.data_ptr(), delta.data_ptr())
 
 
-def _bwd_sizes(q, k, causal):
+def _bwd_sizes(q, k, causal, scale):
     b, sq, h, d = q.shape
-    return (b, sq, k.shape[1], h, k.shape[2], d, 1.0 / math.sqrt(d),
+    return (b, sq, k.shape[1], h, k.shape[2], d,
+            1.0 / math.sqrt(d) if scale is None else scale,
             int(bool(causal)), _build.stream_of(q))
 
 
-def _launch_dkdv(q, k, v, do, lse, delta, causal, seg):
+def _launch_dkdv(q, k, v, do, lse, delta, causal, seg, scale=None):
     name = "flash_attention_bwd_dkdv"
     ptrs = _bwd_args(name, q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = _build.function("ptt_" + name, [_P] * 14 + [_I] * 6 + [_F, _I, _P])
     _build.check(fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *seg[0],
-                    *_bwd_sizes(q, k, causal)), name)
-    _build.launch_counts[name + ("[seg]" if seg[1] else "")] += 1
+                    *_bwd_sizes(q, k, causal, scale)), name)
+    _build.launch_counts[name + _suffix(seg, scale)] += 1
     return dk, dv
 
 
-def _launch_dq(q, k, v, do, lse, delta, causal, seg):
+def _launch_dq(q, k, v, do, lse, delta, causal, seg, scale=None):
     name = "flash_attention_bwd_dq"
     ptrs = _bwd_args(name, q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     fn = _build.function("ptt_" + name, [_P] * 13 + [_I] * 6 + [_F, _I, _P])
-    _build.check(fn(*ptrs, dq.data_ptr(), *seg[0], *_bwd_sizes(q, k, causal)),
-                 name)
-    _build.launch_counts[name + ("[seg]" if seg[1] else "")] += 1
+    _build.check(fn(*ptrs, dq.data_ptr(), *seg[0],
+                    *_bwd_sizes(q, k, causal, scale)), name)
+    _build.launch_counts[name + _suffix(seg, scale)] += 1
     return dq
+
+
+def _pad_launch(launch, q, k, v, do, lse, delta, causal, seg):
+    """``launch`` on the inputs as they are at a built head dim, else on
+    q, k, v and dO zero-padded to the next built width with the true
+    scale, its outputs sliced back (the padded route)."""
+    d = q.shape[-1]
+    if d in HEAD_DIMS:
+        return launch(q, k, v, do, lse, delta, causal, seg)
+    w = native_head_dim(d)
+    got = launch(*(_pad_to(t, w) for t in (q, k, v, do)), lse, delta, causal,
+                 seg, 1.0 / math.sqrt(d))
+    if isinstance(got, tuple):
+        return tuple(g[..., :d].contiguous() for g in got)
+    return got[..., :d].contiguous()
 
 
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=True,
                              q_seg=None, k_seg=None):
     """Launch the dK/dV kernel (CUDA tensors only): ``(dk, dv)`` like k
     and v, from ``delta = rowsum(dO * O)`` (B, H, Sq) f32. With segment
-    ids the launch counts as ``flash_attention_bwd_dkdv[seg]``."""
-    return _launch_dkdv(q, k, v, do, lse, delta, causal, _segments(
-        "flash_attention_bwd_dkdv", q, k, q_seg, k_seg))
+    ids the launch counts as ``flash_attention_bwd_dkdv[seg]``; a head dim
+    off :data:`HEAD_DIMS` takes the padded route (``[pad]``)."""
+    return _pad_launch(_launch_dkdv, q, k, v, do, lse, delta, causal,
+                       _segments("flash_attention_bwd_dkdv", q, k, q_seg,
+                                 k_seg))
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True, q_seg=None,
                            k_seg=None):
     """Launch the dQ kernel (CUDA tensors only): ``dq`` like q. With
-    segment ids the launch counts as ``flash_attention_bwd_dq[seg]``."""
-    return _launch_dq(q, k, v, do, lse, delta, causal, _segments(
-        "flash_attention_bwd_dq", q, k, q_seg, k_seg))
+    segment ids the launch counts as ``flash_attention_bwd_dq[seg]``; a
+    head dim off :data:`HEAD_DIMS` takes the padded route (``[pad]``)."""
+    return _pad_launch(_launch_dq, q, k, v, do, lse, delta, causal,
+                       _segments("flash_attention_bwd_dq", q, k, q_seg,
+                                 k_seg))
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal=True, q_seg=None,
@@ -326,7 +416,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, q_seg=None,
     takes the plain version; a CUDA tensor forms ``delta`` and the segment
     range tables in torch and launches the dK/dV kernel and the dQ kernel
     (what the forward takes, plus bf16 ``out``/``do`` like q and f32
-    ``lse`` (B, H, Sq), all contiguous) or raises."""
+    ``lse`` (B, H, Sq), all contiguous) or raises; a head dim off
+    :data:`HEAD_DIMS` takes the padded route, padding q, k, v and dO
+    once for both kernels."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          q_seg, k_seg)
@@ -335,10 +427,16 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, q_seg=None,
         raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, out "
                          f"{tuple(out.shape)}")
     seg = _segments("flash_attention_bwd", q, k, q_seg, k_seg)
-    delta = _delta(out, do)
-    dk, dv = _launch_dkdv(q, k, v, do, lse, delta, causal, seg)
-    dq = _launch_dq(q, k, v, do, lse, delta, causal, seg)
-    return dq, dk, dv
+
+    def both(q, k, v, out, lse, do, causal, q_seg, k_seg, scale=None):
+        delta = _delta(out, do)
+        dk, dv = _launch_dkdv(q, k, v, do, lse, delta, causal, seg, scale)
+        dq = _launch_dq(q, k, v, do, lse, delta, causal, seg, scale)
+        return dq, dk, dv
+
+    if q.shape[-1] in HEAD_DIMS:
+        return both(q, k, v, out, lse, do, causal, q_seg, k_seg)
+    return padded_bwd(both, q, k, v, out, lse, do, causal, q_seg, k_seg)
 
 
 class FlashAttentionFunction(torch.autograd.Function):

@@ -37,43 +37,52 @@ def _rope_one(x, c, s, inverse):
 
 
 def fused_rope_plain(q, k, cos, sin, positions, inverse=False):
-    """q (B, S, H, D), k (B, S, KVH, D); cos/sin (P, D) f32 tables;
+    """q (B, S, H, D), k (B, S, KVH, D) or None; cos/sin (P, D) f32 tables;
     positions (B, S) int. Rows are gathered at the positions, clamped into
     the table as a jnp gather clamps them. ``inverse`` rotates the other
-    way: the adjoint, which takes (dq, dk) to the inputs' gradients."""
+    way: the adjoint, which takes (dq, dk) to the inputs' gradients. A k
+    of None gives ``(rotated q, None)``, as JAX's ``fused_rope``."""
     pos = positions.long().clamp(0, cos.shape[0] - 1)
     c = _build.upcast(cos)[pos][:, :, None, :]
     s = _build.upcast(sin)[pos][:, :, None, :]
-    return _rope_one(q, c, s, inverse), _rope_one(k, c, s, inverse)
+    return (_rope_one(q, c, s, inverse),
+            None if k is None else _rope_one(k, c, s, inverse))
 
 
 def fused_rope(q, k, cos, sin, positions, inverse=False):
     """Rotate q and k at ``positions`` (see :func:`fused_rope_plain`). A
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (bf16 q/k, f32 tables, int32 positions, all contiguous) or raises.
-    The two directions count as ``fused_rope`` and ``fused_rope_bwd``."""
+    With k None the kernel rotates q alone (a null k and 0 kv heads) and
+    the call returns ``(q_out, None)``. The two directions count as
+    ``fused_rope`` and ``fused_rope_bwd``."""
     if q.device.type == "cpu":
         return fused_rope_plain(q, k, cos, sin, positions, inverse)
     name = "fused_rope_bwd" if inverse else "fused_rope"
     _build.expect(name, "q", q, torch.bfloat16, 4)
-    _build.expect(name, "k", k, torch.bfloat16, 4)
+    if k is not None:
+        _build.expect(name, "k", k, torch.bfloat16, 4)
     _build.expect(name, "cos", cos, torch.float32, 2)
     _build.expect(name, "sin", sin, torch.float32, 2)
     _build.expect(name, "positions", positions, torch.int32, 2)
     b, s, h, d = q.shape
-    if (k.shape[:2] != (b, s) or k.shape[3] != d or d % 2
-            or tuple(positions.shape) != (b, s)
+    if ((k is not None and (k.shape[:2] != (b, s) or k.shape[3] != d))
+            or d % 2 or tuple(positions.shape) != (b, s)
             or cos.shape != sin.shape or cos.shape[1] != d):
-        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k "
+                         f"{None if k is None else tuple(k.shape)}, "
                          f"positions {tuple(positions.shape)}, tables "
                          f"{tuple(cos.shape)}")
-    q_out, k_out = torch.empty_like(q), torch.empty_like(k)
+    q_out = torch.empty_like(q)
+    k_out = None if k is None else torch.empty_like(k)
     fn = _build.function("ptt_rope_bwd" if inverse else "ptt_rope_fwd",
                          [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P])
-    _build.check(fn(q.data_ptr(), k.data_ptr(), q_out.data_ptr(),
-                    k_out.data_ptr(), positions.data_ptr(), cos.data_ptr(),
-                    sin.data_ptr(), b * s, h, k.shape[2], d, cos.shape[0],
-                    _build.stream_of(q)), name)
+    _build.check(fn(q.data_ptr(), None if k is None else k.data_ptr(),
+                    q_out.data_ptr(),
+                    None if k_out is None else k_out.data_ptr(),
+                    positions.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                    b * s, h, 0 if k is None else k.shape[2], d,
+                    cos.shape[0], _build.stream_of(q)), name)
     _build.launch_counts[name] += 1
     return q_out, k_out
 
@@ -81,7 +90,7 @@ def fused_rope(q, k, cos, sin, positions, inverse=False):
 class RopeFunction(torch.autograd.Function):
     """``(q, k) -> fused_rope(q, k, ...)``; its backward rotates (dq, dk)
     back in one launch of the adjoint. The tables and positions take no
-    gradient."""
+    gradient; a k of None stays None, and so does its gradient."""
 
     @staticmethod
     def forward(ctx, q, k, cos, sin, positions):
@@ -91,8 +100,9 @@ class RopeFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dq, dk):
         cos, sin, positions = ctx.saved_tensors
-        dq, dk = fused_rope(dq.contiguous(), dk.contiguous(), cos, sin,
-                            positions, inverse=True)
+        dq, dk = fused_rope(dq.contiguous(),
+                            None if dk is None else dk.contiguous(), cos,
+                            sin, positions, inverse=True)
         return dq, dk, None, None, None
 
 

@@ -23,7 +23,7 @@ import math
 import torch
 
 from .cuda._build import upcast
-from .cuda.flash_attention import build_segments, flash_attention
+from .cuda.flash_attention import MAX_HEAD_DIM, build_segments, flash_attention
 from .cuda.fused_ops import RopeFunction, bias_dropout_residual_ln, fused_rope
 from .cuda.rms_norm import RMSNormFunction
 from .cuda.rms_norm import rms_norm as _rms_norm_rows
@@ -131,8 +131,11 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     (a uniform softmax over its -1e30 entries); on the kernel route it is
     0. JAX also sends lengths that are not multiples of its block of 128
     to the composition; the port's flash kernels take any length, so the
-    port does not."""
-    if attn_mask is None and not dropout_p > 0.0:
+    port does not. A head dim past 256 takes the composition on both
+    devices, as JAX's router sends it there (``flash_attention_supported``);
+    the flash kernels take up to 256."""
+    if (attn_mask is None and not dropout_p > 0.0
+            and q.shape[-1] <= MAX_HEAD_DIM):
         return flash_attention(q, k, v, is_causal=is_causal,
                                seq_lens=seq_lens, segment_ids=segment_ids)
     b, sq, d = q.shape[0], q.shape[1], q.shape[3]
@@ -168,7 +171,8 @@ def rotary_position_embedding(q, k, cos, sin, position_ids=None,
                               use_neox_rotary_style=True):
     """Neox RoPE of q (B, S, H, D) and k (B, S, KVH, D) from (P, D) f32
     cos/sin tables. ``position_ids`` is (B, S) or (S,); None means
-    ``arange(S)`` for every row. ``use_neox_rotary_style=False`` (the
+    ``arange(S)`` for every row. A k of None rotates q alone and returns
+    ``(q_rot, None)``, as JAX does. ``use_neox_rotary_style=False`` (the
     interleaved pairs) raises ``NotImplementedError``: not ported yet
     (ROADMAP Queue 2a item 4)."""
     if not use_neox_rotary_style:

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at
-shapes off the serving and training paths' (ragged lengths, head_dim 64,
-GQA groups up to 8, causal offsets, empty rows, clamped positions, row
+shapes off the serving and training paths' (ragged lengths, head dims 32
+to 256 and the padded route's 80, GQA groups up to 8, causal offsets, empty rows, clamped positions, row
 counts off the RMSNorm backward's strip; the decode megakernel at a small
 size, at the 438M serving decode and on GQA; the bias-dropout-residual-
 LayerNorm kernel at BERT-base's shape, in f32, at odd widths and off
@@ -66,7 +66,8 @@ def test_rms_norm_kernel(gen, n, d, aligned, affine):
 
 
 @pytest.mark.parametrize("b,s,h,kvh,d", [(2, 7, 4, 2, 64), (3, 1, 16, 2, 128),
-                                         (1, 33, 12, 12, 128)])
+                                         (1, 33, 12, 12, 128),
+                                         (2, 9, 32, 32, 96)])
 def test_rope_kernel(gen, b, s, h, kvh, d):
     from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.cuda import fused_ops as fo
@@ -79,6 +80,10 @@ def test_rope_kernel(gen, b, s, h, kvh, d):
     for got, want in zip(fo.fused_rope(q, k, cos, sin, pos),
                          fo.fused_rope_plain(q, k, cos, sin, pos)):
         _close(got, want)
+    # k = None: the kernel rotates q alone
+    got, none = fo.fused_rope(q, None, cos, sin, pos)
+    assert none is None
+    _close(got, fo.fused_rope_plain(q, None, cos, sin, pos)[0])
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal", [
@@ -86,6 +91,11 @@ def test_rope_kernel(gen, b, s, h, kvh, d):
     (1, 50, 50, 8, 2, 64, True),       # ragged length, GQA group 4
     (2, 5, 70, 16, 2, 128, True),      # causal offset sk - sq
     (1, 33, 17, 4, 4, 64, False),
+    (2, 70, 70, 8, 8, 96, True),       # Phi-3's head dim
+    (1, 100, 100, 4, 2, 256, True),    # 32-key tiles, Q from shared memory
+    (2, 5, 70, 8, 2, 256, True),       # ... with a causal offset
+    (1, 33, 17, 4, 4, 32, False),
+    (1, 50, 50, 8, 2, 80, True),       # the padded route (to 96)
 ])
 def test_flash_attention_kernel(gen, b, sq, sk, h, kvh, d, causal):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -94,13 +104,18 @@ def test_flash_attention_kernel(gen, b, sq, sk, h, kvh, d, causal):
     k, v = _randn(gen, b, sk, kvh, d), _randn(gen, b, sk, kvh, d)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+    assert out.shape == q.shape
     _close(out, pout)
     torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("h,kvh,d,page,pps", [(16, 2, 128, 16, 3),
                                               (4, 4, 64, 128, None),
-                                              (12, 12, 128, 128, 2)])
+                                              (12, 12, 128, 128, 2),
+                                              (32, 32, 96, 128, None),
+                                              (16, 2, 256, 16, 3),
+                                              (8, 4, 80, 16, None),
+                                              (4, 2, 32, 128, 2)])
 def test_paged_attention_kernel(gen, h, kvh, d, page, pps):
     from paddle_tpu_torch.ops.cuda import decode_attention as da
 
@@ -137,7 +152,8 @@ def test_rms_norm_bwd_kernel(gen, n, d):
         _close(got, want)
 
 
-@pytest.mark.parametrize("b,s,h,kvh,d", [(2, 7, 4, 2, 64), (1, 33, 12, 12, 128)])
+@pytest.mark.parametrize("b,s,h,kvh,d", [(2, 7, 4, 2, 64), (1, 33, 12, 12, 128),
+                                         (2, 9, 32, 32, 96)])
 def test_rope_adjoint_kernel(gen, b, s, h, kvh, d):
     from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.cuda import fused_ops as fo
@@ -159,6 +175,11 @@ def test_rope_adjoint_kernel(gen, b, s, h, kvh, d):
     (2, 5, 70, 16, 2, 128, True),      # causal offset sk - sq
     (1, 33, 17, 4, 4, 64, False),
     (1, 150, 150, 12, 12, 128, True),  # MHA, three tiles, the last ragged
+    (2, 70, 70, 8, 8, 96, True),       # Phi-3's head dim: 64-key tiles
+    (1, 100, 100, 4, 2, 256, True),    # 32-key tiles in both kernels
+    (2, 5, 70, 8, 2, 256, True),       # ... with a causal offset
+    (1, 33, 17, 4, 4, 32, False),
+    (1, 50, 50, 8, 2, 80, True),       # the padded route (to 96)
 ])
 def test_flash_attention_bwd_kernels(gen, b, sq, sk, h, kvh, d, causal):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -241,7 +262,23 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(TypeError, match="bfloat16"):
         x = _randn(gen, 4, 64, dtype=torch.float32)
         rn.rms_norm_bwd(x, x[0], torch.ones((4, 1), device="cuda"), x)
-    x = _randn(gen, 1, 8, 2, 96)
+    # head dim 96 runs on the kernels (counted), 80 on the padded route
+    # (counted as [pad]); past 256 the kernels refuse
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    for d, tag in ((96, ""), (80, "[pad]")):
+        x = _randn(gen, 1, 8, 2, d)
+        launch_counts.clear()
+        out, lse = fa.flash_attention_fwd(x, x, x)
+        got = fa.flash_attention_bwd(x, x, x, out, lse, x)
+        assert launch_counts["flash_attention" + tag] == 1
+        assert launch_counts["flash_attention_bwd_dkdv" + tag] == 1
+        assert launch_counts["flash_attention_bwd_dq" + tag] == 1
+        _close(out, fa.flash_attention_fwd_plain(x, x, x)[0])
+        for a, w in zip(got, fa.flash_attention_bwd_plain(x, x, x, out, lse,
+                                                          x)):
+            _close(a, w)
+    x = _randn(gen, 1, 8, 2, 320)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(x, x, x)
     lse = torch.zeros((1, 2, 8), device="cuda")
@@ -268,11 +305,13 @@ def test_kernels_refuse_what_they_do_not_take(gen):
                                lens[None].float())
     q = _randn(gen, 1, 32, 64)
     kp = _randn(gen, 2, 16, 2, 64)  # 16 query heads per kv head
+    tab = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    one = torch.ones((1,), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="query heads per kv head"):
-        da.paged_attention(q, kp, kp,
-                           torch.zeros((1, 2), dtype=torch.int32,
-                                       device="cuda"),
-                           torch.ones((1,), dtype=torch.int32, device="cuda"))
+        da.paged_attention(q, kp, kp, tab, one)
+    q, kp = _randn(gen, 1, 2, 320), _randn(gen, 2, 16, 2, 320)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.paged_attention(q, kp, kp, tab, one)
 
 
 def test_tiny_model_on_card_matches_cpu_and_serves(gen):

@@ -2,7 +2,7 @@
 """Where the PyTorch port's serving time goes, on one GPU, fused and
 unfused.
 
-    python3 tools/torch_serving_profile.py
+    python3 tools/torch_serving_profile.py [--model llama-438m|phi3]
 
 Runs chip_smoke.py's serving workload (``serving_workload``: the 438M
 LLaMA in bf16, random weights from a seed; 8 slots, max_len 512, page 128,
@@ -16,9 +16,13 @@ kernel. Prints one JSON object with, per arm: wall and device time per
 decode step (prefill included, spread over the decode steps), the
 device's idle share of the profiled run, device time grouped into the
 port's kernels, GEMMs and the rest, and kernel launches per decode step.
+``--model phi3`` runs chip_smoke.py's phi3-serve model instead (32 layers
+at Phi-3-mini's widths, ``CFG_PHI3``) in one arm, the engine's default
+(the megakernel declines head dim 96, so its decode layers run unfused).
 """
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -30,7 +34,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 OURS = {"rms_norm_fwd_kernel": "rms_norm", "rope_kernel": "fused_rope",
         "flash_fwd_kernel": "flash_attention",
-        "paged_decode_kernel": "paged_attention",
+        "paged_decode": "paged_attention",
         "decode_layer_kernel": "fused_decode_layer"}
 
 
@@ -104,19 +108,26 @@ def profile_arm(model, fused):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("llama-438m", "phi3"),
+                        default="llama-438m")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import CFG_438M, smi_line
+    from chip_smoke import CFG_438M, CFG_PHI3, smi_line
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    model = LlamaForCausalLM(LlamaConfig(**CFG_438M), dtype=torch.bfloat16,
+    cfg = CFG_PHI3 if args.model == "phi3" else CFG_438M
+    model = LlamaForCausalLM(LlamaConfig(**cfg), dtype=torch.bfloat16,
                              generator=seed(0, "cuda"))
-    arms = {"unfused": profile_arm(model, False),
-            "fused": profile_arm(model, True)}
+    arms = ({"default": profile_arm(model, True)} if args.model == "phi3"
+            else {"unfused": profile_arm(model, False),
+                  "fused": profile_arm(model, True)})
     print(json.dumps({"card": torch.cuda.get_device_name(0),
-                      "nvidia_smi": smi_line(), "arms": arms}), flush=True)
+                      "nvidia_smi": smi_line(), "model": args.model,
+                      "arms": arms}), flush=True)
     return 0
 
 

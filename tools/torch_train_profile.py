@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's training step spends its time, on one GPU.
 
-    python3 tools/torch_train_profile.py [--model llama-438m|bert-base]
+    python3 tools/torch_train_profile.py [--model llama-438m|bert-base|phi3-4l]
 
 Runs one of chip_smoke.py's training workloads: ``llama-438m`` (the
 default; ``train_workload``: the 438M LLaMA in bf16, random weights from
@@ -10,7 +10,9 @@ over LlamaPretrainingCriterion; batch 4 x seq 1536 ids from
 np.random.RandomState(0)) or ``bert-base`` (``bert_train_workload``:
 bench.py section (c2), BERT-base in bf16 with dropout 0, the same AdamW,
 TrainStep over BertPretrainingCriterion, batch 32 x seq 128 ids and
-labels from np.random.RandomState(0)). Times it as chip_smoke.py times it
+labels from np.random.RandomState(0)) or ``phi3-4l`` (chip_smoke.py's
+phi3-train: ``train_workload`` at Phi-3-mini's widths, ``CFG_PHI3`` cut to
+``PHI3_TRAIN_LAYERS`` layers). Times it as chip_smoke.py times it
 (``timed_steps``: one warm-up step, then the median of five steps timed
 with CUDA events), then runs two steps under torch.profiler. Prints one
 JSON object: the step time, the device's busy and idle share of the
@@ -82,7 +84,8 @@ def kernels_under(evt):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("llama-438m", "bert-base"),
+    parser.add_argument("--model",
+                        choices=("llama-438m", "bert-base", "phi3-4l"),
                         default="llama-438m")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -92,8 +95,12 @@ def main():
     import chip_smoke
     from paddle_tpu_torch.ops.cuda import launch_counts
 
-    workload = (chip_smoke.bert_train_workload if args.model == "bert-base"
-                else chip_smoke.train_workload)
+    workload = {
+        "llama-438m": chip_smoke.train_workload,
+        "bert-base": chip_smoke.bert_train_workload,
+        "phi3-4l": lambda: chip_smoke.train_workload(
+            {**chip_smoke.CFG_PHI3,
+             "num_hidden_layers": chip_smoke.PHI3_TRAIN_LAYERS})}[args.model]
     _, opt, step, ids, labels = workload()
     batch, seqlen = ids.shape
     step_fn = opt.step
