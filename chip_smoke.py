@@ -127,12 +127,34 @@ so that a fault surfaces in the phase that caused it:
             phase's step, batch 4 x seq 1536, 1 warm-up and 5 timed
             steps (step ms, MFU, peak memory, losses finite and
             falling); then phi3-grad, the grad phase at those widths.
-16. kernels one JSON line listing every ported kernel, with the unfused
+16. f32-kernel  the f32 instantiations of the four serving kernels (the
+            JAX model's default dtype) against their f32 plain versions
+            within 1e-4 + 1e-4 |plain| (lse too), TF32 off, each timed
+            beside its bound (bytes, or flops at the f32 FMA rate of 67
+            TFLOP/s), the plain version and a library call: RMSNorm at
+            (8, 1536) and (1024, 1536), RoPE on (8, 128, 12, 128) both
+            ways and at decode positions, the flash forward at e2's
+            prefill (8, 128, 12, 128) causal, at (4, 1536, 12, 128), at
+            Phi-3's (8, 128, 32, 96) and at (2, 2048, 16, 256) on 2 kv
+            heads (F.scaled_dot_product_attention in f32 beside it), with
+            segments (rows with no key exactly 0, lse -1e30), paged decode
+            in e2's pool.
+17. f32-serve  the 438M in f32 behind the engine on e2's traffic (the
+            default decode_megakernel=1; the megakernel takes bf16 only,
+            so decode runs unfused, as in JAX), three runs, each beside a
+            run of the bf16 unfused arm on the same weights rounded:
+            gated on the f32 logits (prefill and 4 decode steps) within
+            1e-3 relative L2 of the CPU, all 24 requests finished, the
+            four [f32] kernels launched and no bf16 one; tokens/s,
+            launches and device idle per decode step, peak memory, and
+            how far the f32 and bf16 greedy streams agree.
+18. kernels one JSON line listing every ported kernel, with the unfused
             serving arm's launches for the serving kernels, the fused
             arm's for the megakernel, the LLaMA training step's for the
             backward kernels, the incubate phase's for the bdrln kernel,
-            the varlen phase's for the three [seg] rows and the Phi-3
-            paths' for the eight [d=96] / [h=3072] rows.
+            the varlen phase's for the three [seg] rows, the Phi-3
+            paths' for the eight [d=96] / [h=3072] rows and f32-serve's
+            for the four [f32] rows; before it, the whole script's time.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
@@ -267,15 +289,15 @@ def eager_ms(fn, calls=50):
     return 1e3 * (time.perf_counter() - t0) / calls
 
 
-def compare(name, got, want):
+def compare(name, got, want, atol=ATOL, rtol=RTOL):
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise PhaseFailed(f"{name}: kernel output not finite")
     err = (got - want).abs()
-    bad = err > ATOL + RTOL * want.abs()
+    bad = err > atol + rtol * want.abs()
     if bad.any():
         raise PhaseFailed(f"{name}: {int(bad.sum())} elements beyond "
-                          f"atol {ATOL} + rtol {RTOL}; max abs err "
+                          f"atol {atol} + rtol {rtol}; max abs err "
                           f"{err.max().item():.3g}")
     return err.max().item()
 
@@ -559,13 +581,14 @@ def megakernel_phase(peaks):
     return {"fused_decode_layer": rec}
 
 
-def card_and_cpu(cfg, seeds):
-    """The model of ``cfg`` in bf16 on the card (random N(0, 0.02) weights
-    from ``seed(seeds[0])``) and the same weights in f32 on the CPU."""
+def card_and_cpu(cfg, seeds, dtype=torch.bfloat16):
+    """The model of ``cfg`` in ``dtype`` on the card (random N(0, 0.02)
+    weights from ``seed(seeds[0])``) and the same weights in f32 on the
+    CPU."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import LlamaForCausalLM
 
-    card = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+    card = LlamaForCausalLM(cfg, device="cuda", dtype=dtype,
                             generator=seed(seeds[0], "cuda"))
     cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
                            generator=seed(seeds[1], "cpu"))
@@ -775,21 +798,25 @@ def e2_pool(randn, heads, kvh, hd, seed=0):
             torch.tensor(lens, device="cuda"), lens, per_seq)
 
 
-def paged_row(da, peaks, pool):
+def paged_row(da, peaks, pool, f32=False):
     """The paged decode kernel against its plain version on ``pool``
     (``e2_pool``'s tuple), timed; the bound counts the K/V rows the
-    lengths reach."""
+    lengths reach. ``f32``: the pool is f32, gated at the f32 gate, the
+    flops bound at the f32 FMA rate."""
     q, kp, vp, tab, ln, lens, per_seq = pool
     b, heads, hd = q.shape
     kvh, page = kp.shape[2], kp.shape[1]
     args = (q, kp, vp, tab, ln)
     got = da.paged_attention(*args, pages_per_seq=per_seq)
-    err = compare(f"paged_attention(d={hd})", got, da.paged_attention_plain(
-        *args, pages_per_seq=per_seq))
+    want = da.paged_attention_plain(*args, pages_per_seq=per_seq)
+    err = (f32_compare if f32 else compare)(f"paged_attention(d={hd})", got,
+                                            want)
     toks = int(np.minimum(lens, per_seq * page).sum())
-    nb = (2 * q.numel() * 2 + 2 * toks * kvh * hd * 2 + tab.numel() * 4
-          + b * 4)
-    bms, by = bound_ms(nb, 4 * toks * heads * hd, peaks)
+    size = q.element_size()
+    nb = (2 * q.numel() * size + 2 * toks * kvh * hd * size
+          + tab.numel() * 4 + b * 4)
+    bms, by = bound_ms(nb, 4 * toks * heads * hd, peaks,
+                       flop_rate=peaks[2] if f32 else None)
     return dict(
         shape=[b, heads, hd], kv_heads=kvh, lengths=lens.tolist(),
         max_abs_err=err,
@@ -2263,6 +2290,299 @@ def phi3_train_phase(name, smi, peaks):
     return counts
 
 
+# ---- f32: the JAX package's default dtype, through the four serving kernels
+
+# the f32 kernels against their f32 plain versions (allow_tf32 off): both
+# sum in f32 in other orders (~1e-6 relative); one bf16 rounding would be
+# ~4e-3 off
+F32_RTOL = F32_ATOL = 1e-4
+# f32-serve's logits, the card (f32 kernels, f32 cuBLAS) against the CPU
+# (plain versions): f32 rounding over 12 layers, ~1e-6; a bf16 rounding
+# anywhere on the path gives ~1e-2
+F32_MODEL_REL_L2 = 1e-3
+F32_SERVE_RUNS = 3
+F32_KERNELS = ("rms_norm[f32]", "fused_rope[f32]", "flash_attention[f32]",
+               "paged_attention[f32]")
+# the flash forward in f32 beyond e2's prefill: (case, b, s, heads, kv
+# heads, d), causal, sq == sk
+F32_FLASH_CASES = [
+    ("training shape", 4, 1536, 12, 12, 128),
+    ("phi3 prefill bucket", 8, 128, 32, 32, 96),
+    ("qwen3-next full attention", 2, 2048, 16, 2, 256),
+]
+
+
+def f32_compare(name, got, want):
+    """``compare`` at the f32 gate, both sides f32."""
+    if got.dtype != torch.float32 or want.dtype != torch.float32:
+        raise PhaseFailed(f"{name}: {got.dtype} against {want.dtype}")
+    return compare(name, got, want, atol=F32_ATOL, rtol=F32_RTOL)
+
+
+def f32_flash_row(fa, peaks, gen, case, b, s, h, kvh, d, calls=3):
+    """The f32 flash forward at one causal shape against its plain
+    version (out and lse), timed beside its bound (bytes, or flops at the
+    f32 FMA rate), the plain version and F.scaled_dot_product_attention on
+    the same f32 inputs (TF32 off)."""
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda")
+    k = torch.randn((b, s, kvh, d), generator=gen, device="cuda")
+    v = torch.randn((b, s, kvh, d), generator=gen, device="cuda")
+    tag = f"flash_attention[f32]({case})"
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    pout, plse = fa.flash_attention_fwd_plain(q, k, v, True)
+    err = max(f32_compare(tag, out, pout), f32_compare(tag + " lse", lse,
+                                                       plse))
+    del pout, plse
+    flops = 4 * d * b * h * s * (s + 1) // 2
+    bms, by = bound_ms(4 * q.numel() * 4 + lse.numel() * 4, flops, peaks,
+                       flop_rate=peaks[2])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec = dict(case=case, shape=[b, s, h, d], kv_heads=kvh, causal=True,
+               max_abs_err=err,
+               ms=graph_ms(lambda: fa.flash_attention_fwd(q, k, v, True),
+                           calls=calls, replays=3),
+               plain_ms=graph_ms(lambda: fa.flash_attention_fwd_plain(
+                   q, k, v, True), calls=2, replays=2),
+               library_ms=graph_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=kvh != h),
+                   calls=calls, replays=3),
+               bound_ms=bms, bound_by=by)
+    rec.update(rates(flops, rec["ms"], bms))
+    emit("f32-kernel", name="flash_attention[f32]", **rec)
+    return rec
+
+
+def f32_kernel_phase(peaks):
+    """The four serving kernels in f32 at e2's shapes against their f32
+    plain versions within F32_ATOL + F32_RTOL |plain| (lse too), each
+    timed beside its bound, the plain version and a library call where
+    one computes the same function: RMSNorm at (8, 1536) and (1024, 1536)
+    (all four affine variants gated), RoPE on the bucket-128 prefill's q,
+    k (8, 128, 12, 128) and a decode step's, the flash forward at (8, 128,
+    12, 128) causal (plus F32_FLASH_CASES, and the segment kernel with a
+    segment missing from the keys: those rows exactly 0, lse -1e30), paged
+    decode in e2's pool. Returns the e2 rows by kernel name."""
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
+    from paddle_tpu_torch.ops.cuda import rms_norm as rn
+
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(10)
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    hidden, heads, hd = 1536, 12, 128
+    results = {}
+    w = 1.0 + 0.1 * randn(hidden)
+    bias = 0.1 * randn(hidden)
+    for n in (8, 1024):
+        x = randn(n, hidden)
+        err = 0.0
+        for wt, bt in ((w, None), (w, bias), (None, bias), (None, None)):
+            y, r = rn.rms_norm(x, wt, bt, epsilon=1e-6)
+            py, pr = rn.rms_norm_plain(x, wt, bt, epsilon=1e-6)
+            err = max(err, f32_compare(f"rms_norm[f32]({n})", y, py))
+            if (r - pr).abs().max().item() > 1e-5 * pr.abs().max().item():
+                raise PhaseFailed(f"rms_norm[f32]({n}): per-row r disagrees")
+        bms, by = bound_ms(2 * n * hidden * 4 + hidden * 4 + n * 4,
+                           4 * n * hidden, peaks, flop_rate=peaks[2])
+        rec = dict(
+            shape=[n, hidden], max_abs_err=err,
+            ms=graph_ms(lambda: rn.rms_norm(x, w, epsilon=1e-6)),
+            plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, epsilon=1e-6)),
+            library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
+                x, (hidden,), w, 1e-6)),
+            bound_ms=bms, bound_by=by)
+        emit("f32-kernel", name="rms_norm[f32]", **rec)
+        if n == 8:
+            results["rms_norm[f32]"] = rec
+
+    cos, sin = _rope_tables(hd, CFG_438M["max_position_embeddings"], 10000.0,
+                            "cuda")
+    g_, s_ = 8, 128
+    q, k, v = (randn(g_, s_, heads, hd) for _ in range(3))
+    pos = torch.arange(s_, device="cuda", dtype=torch.int32).expand(
+        g_, s_).contiguous()
+    err = 0.0
+    for inverse in (False, True):
+        for got, want in zip(fo.fused_rope(q, k, cos, sin, pos, inverse),
+                             fo.fused_rope_plain(q, k, cos, sin, pos,
+                                                 inverse)):
+            err = max(err, f32_compare("fused_rope[f32]", got, want))
+    dpos = torch.randint(0, 183, (8, 1), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    dq, dk = randn(8, 1, heads, hd), randn(8, 1, heads, hd)
+    for got, want in zip(fo.fused_rope(dq, dk, cos, sin, dpos),
+                         fo.fused_rope_plain(dq, dk, cos, sin, dpos)):
+        err = max(err, f32_compare("fused_rope[f32](decode)", got, want))
+    bms, by = bound_ms(2 * 2 * q.numel() * 4 + pos.numel() * 4
+                       + 2 * s_ * hd * 4, 6 * q.numel(), peaks,
+                       flop_rate=peaks[2])
+    results["fused_rope[f32]"] = rec = dict(
+        shape=list(q.shape), max_abs_err=err,
+        ms=graph_ms(lambda: fo.fused_rope(q, k, cos, sin, pos)),
+        plain_ms=graph_ms(lambda: fo.fused_rope_plain(q, k, cos, sin, pos)),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    emit("f32-kernel", name="fused_rope[f32]", **rec)
+
+    results["flash_attention[f32]"] = f32_flash_row(
+        fa, peaks, gen, "e2 prefill bucket", g_, s_, heads, heads, hd,
+        calls=20)
+    for case in F32_FLASH_CASES:
+        f32_flash_row(fa, peaks, gen, *case)
+    # segments: a (q_ids, k_ids) pair whose segment 3 has no key
+    rng = np.random.RandomState(5)
+    qi = np.sort(rng.randint(0, 5, (g_, s_)), 1)
+    ki = np.sort(rng.randint(0, 5, (g_, s_)), 1)
+    ki[ki == 3] = 4
+    q_seg, k_seg = (torch.tensor(a, dtype=torch.int32, device="cuda")
+                    for a in (qi, ki))
+    out, lse = fa.flash_attention_fwd(q, k, v, True, q_seg, k_seg)
+    pout, plse = fa.flash_attention_fwd_plain(q, k, v, True, q_seg, k_seg)
+    none = (q_seg == 3)[:, None, :].expand_as(lse)
+    seg_err = max(f32_compare("flash_attention[seg][f32]", out, pout),
+                  f32_compare("flash_attention[seg][f32] lse", lse, plse))
+    if not (bool(none.any()) and bool((lse[none] == -1e30).all())
+            and bool((out.transpose(1, 2)[none] == 0).all())):
+        raise PhaseFailed("flash_attention[seg][f32]: rows with no key are "
+                          "not 0 with lse -1e30")
+    emit("f32-kernel", name="flash_attention[seg][f32]",
+         shape=[g_, s_, heads, hd], max_abs_err=seg_err,
+         rows_with_no_key=int(none[:, 0].sum()))
+
+    pool = e2_pool(randn, heads, heads, hd)
+    results["paged_attention[f32]"] = rec = paged_row(da, peaks, pool,
+                                                      f32=True)
+    emit("f32-kernel", name="paged_attention[f32]", **rec)
+    torch.cuda.synchronize()
+    return results
+
+
+def f32_serve_arm(model, name, smi, arm, decode_megakernel):
+    """One e2 run (``serving_workload``) on ``model``; launch counts
+    zeroed just before the run and read just after it. Gated: all 24 requests finish with 64
+    tokens, the KV pools finite, the decode layers unfused, the four
+    serving kernels launched in the model's dtype and none in the other.
+    Returns (outputs, record, engine, prompts)."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    tag = "[f32]" if model.dtype == torch.float32 else ""
+    vocab = model.config.vocab_size
+    eng, prompts = serving_workload(model, decode_megakernel)
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    outs, stats = eng.run(prompts, max_new_tokens=SERVE_NEW_TOKENS,
+                          segment=SERVE_SEGMENT)
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    steps = stats["segments"] * SERVE_SEGMENT
+    finished = sum(bool(len(o) == SERVE_NEW_TOKENS and o.min() >= 0
+                        and o.max() < vocab) for o in outs)
+    finite = all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
+    rec = dict(arm=arm, dtype=str(model.dtype), megakernel=stats["megakernel"],
+               requests=len(outs), finished=finished,
+               tokens_per_sec=stats["tokens_per_sec"], wall_s=stats["wall_s"],
+               useful_tokens=stats["useful_tokens"], decode_steps=steps,
+               launches=counts,
+               kernel_launches_per_decode_step=sum(counts.values()) / steps,
+               kv_finite=finite, card=name, nvidia_smi=smi)
+    emit("f32-serve", **rec)
+    wrong = [k for k in counts if k.endswith("[f32]") != bool(tag)]
+    missing = [k + tag for k in SERVE_UNFUSED_KERNELS
+               if counts.get(k + tag, 0) <= 0]
+    if (finished != len(prompts) or not finite or stats["megakernel"]
+            or missing or wrong):
+        raise PhaseFailed(f"f32-serve ({arm}): finished {finished}, kv "
+                          f"finite {finite}, megakernel "
+                          f"{stats['megakernel']}, launches {counts}")
+    return outs, rec, eng, prompts
+
+
+def f32_serve_phase(name, smi):
+    """The 438M LLaMA in f32 (the JAX model's default) behind the engine on
+    e2's traffic with its default decode_megakernel=1 (the megakernel
+    takes bf16 only, so the decode layers run unfused, as JAX's probe
+    declines this model in f32), F32_SERVE_RUNS runs, each beside a run of
+    the bf16 unfused arm (decode_megakernel=0, the same weights rounded to
+    bf16) in turns. First the
+    gate: the f32 model's logits on the card (a bucket-128 prefill of 2
+    prompts and 4 decode steps) within F32_MODEL_REL_L2 of the same
+    weights on the CPU. Reports tokens/s, launches per decode step, peak
+    memory, the device's idle share (one more run of each under
+    torch.profiler) and how far the f32 and bf16 greedy streams agree.
+    Returns the first f32 run's launch counts."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    t0 = time.monotonic()
+    cfg = LlamaConfig(**CFG_438M)
+    card, cpu = card_and_cpu(cfg, (30, 31), dtype=torch.float32)
+    rng = np.random.RandomState(0)
+    prompts = rng.randint(0, cfg.vocab_size, (2, 128))
+    steps = rng.randint(0, cfg.vocab_size, (4, 2))
+    got = prefill_decode(card, prompts, steps)
+    want = prefill_decode(cpu, prompts, steps)
+    rel = [float((a - b).norm() / b.norm()) for a, b in zip(got, want)]
+    agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+             for a, b in zip(got, want)]
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    del cpu
+    emit("f32-serve", gate_rel_l2=rel, gate_tolerance=F32_MODEL_REL_L2,
+         gate_argmax_agree=agree, gate_seconds=time.monotonic() - t0)
+    if not finite or max(rel) > F32_MODEL_REL_L2:
+        raise PhaseFailed(f"f32-serve: 438M f32 logits finite={finite}, rel "
+                          f"L2 {rel}")
+
+    bf16 = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+                            generator=seed(32, "cuda"))
+    bf16.load_state_dict(card.state_dict())  # the f32 weights, rounded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, engines = {"f32": [], "bf16": []}, {}
+    for _ in range(F32_SERVE_RUNS):
+        for arm, model, mk in (("f32", card, 1), ("bf16", bf16, 0)):
+            outs, rec, eng, prompts = f32_serve_arm(model, name, smi, arm,
+                                                    mk)
+            runs[arm].append((outs, rec))
+            engines.setdefault(arm, (eng, prompts))
+    peak = torch.cuda.max_memory_allocated()
+    f32_outs = runs["f32"][0][0]
+    summary = {}
+    for arm, (eng, prompts) in engines.items():
+        recs = [r for _, r in runs[arm]]
+        first = recs[0]
+        prof = device_profile(lambda: eng.run(
+            prompts, max_new_tokens=SERVE_NEW_TOKENS,
+            segment=SERVE_SEGMENT), steps=1)
+        summary[arm] = dict(
+            tokens_per_sec=[r["tokens_per_sec"] for r in recs],
+            kernel_launches_per_decode_step=first[
+                "kernel_launches_per_decode_step"],
+            device_idle_share=prof["device_idle_share"],
+            device_busy_ms_per_decode_step=prof["device_busy_ms_per_call"]
+            / first["decode_steps"],
+            wall_ms_per_decode_step=prof["wall_ms_per_call"]
+            / first["decode_steps"],
+            top_kernels=prof["top_kernels"][:5])
+    repeat = all(all((a == b).all() for a, b in zip(f32_outs, outs))
+                 for outs, _ in runs["f32"][1:])
+    agree_tokens = [float((a == b).mean())
+                    for a, b in zip(f32_outs, runs["bf16"][0][0])]
+    counts = runs["f32"][0][1]["launches"]
+    emit("f32-serve", summary=summary, max_memory_allocated=peak,
+         f32_launches=counts, f32_runs_token_identical=bool(repeat),
+         f32_bf16_token_agreement=float(np.mean(agree_tokens)),
+         f32_bf16_streams_identical=sum(a == 1.0 for a in agree_tokens),
+         seconds=time.monotonic() - t0, card=name, nvidia_smi=smi)
+    del card, bf16, runs, engines
+    torch.cuda.empty_cache()
+    return counts
+
+
 KERNELS = [  # name, source, the Pallas kernel it replaces, the path
     ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
      "paddle_tpu/ops/pallas/rms_norm.py:59", "serving"),
@@ -2319,10 +2639,20 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
     ("fused_rope_bwd[d=96]", "paddle_tpu_torch/csrc/rope.cu",
      "paddle_tpu/ops/pallas/fused_ops.py:47", "phi3-train",
      "fused_rope_bwd"),
+    # the f32 instantiations of the four serving kernels (f32-serve)
+    ("rms_norm[f32]", "paddle_tpu_torch/csrc/rms_norm.cu",
+     "paddle_tpu/ops/pallas/rms_norm.py:59", "f32-serve"),
+    ("fused_rope[f32]", "paddle_tpu_torch/csrc/rope.cu",
+     "paddle_tpu/ops/pallas/fused_ops.py:47", "f32-serve"),
+    ("flash_attention[f32]", "paddle_tpu_torch/csrc/flash_attention_f32.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:86", "f32-serve"),
+    ("paged_attention[f32]", "paddle_tpu_torch/csrc/decode_attention.cu",
+     "paddle_tpu/ops/pallas/decode_attention.py:58", "f32-serve"),
 ]
 
 
 def main():
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2385,6 +2715,10 @@ def main():
     torch.cuda.synchronize()
     counts["phi3-train"] = phi3_train_phase(name, smi, peaks)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    results.update(f32_kernel_phase(peaks))
+    counts["f32-serve"] = f32_serve_phase(name, smi)
+    torch.cuda.synchronize()
 
     line = []
     for kname, source, replaces, path, *counter in KERNELS:
@@ -2398,6 +2732,7 @@ def main():
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
+    emit("total", seconds=time.monotonic() - t_start)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,56 @@ __device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// Loads N (even) consecutive f32 values, as float4 when N % 4 == 0 (p
+// 16-byte aligned), else as float2 (p 8-byte aligned).
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float* out) {
+  static_assert(N % 2 == 0, "pairs of values");
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + i);
+      out[i] = f.x;
+      out[i + 1] = f.y;
+      out[i + 2] = f.z;
+      out[i + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 f = *reinterpret_cast<const float2*>(p + i);
+      out[i] = f.x;
+      out[i + 1] = f.y;
+    }
+  }
+}
+
+// Kernels that are templates on the element type T (bf16 or f32) compute
+// in f32 and convert at each load and store through these.
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+
+// N consecutive values of either type as floats (load_bf16 or load_f32).
+template <int N>
+__device__ __forceinline__ void load_vals(const __nv_bfloat16* p, float* out) {
+  load_bf16<N>(p, out);
+}
+template <int N>
+__device__ __forceinline__ void load_vals(const float* p, float* out) {
+  load_f32<N>(p, out);
+}
+
 // ---- tensor-core building blocks (sm_80+): cp.async staging, ldmatrix
 // fragment loads and the bf16 m16n8k16 MMA with f32 accumulators. In a
 // fragment, lane = 4 * g + t: an accumulator holds (row g, cols 2t, 2t + 1)

@@ -41,6 +41,17 @@
 // whole group's would pass the 48 KB of static shared memory), and past
 // DPL = 4 a warp keeps 2 rows in flight rather than 4, so the K/V rows,
 // the group's q and its accumulators stay in registers.
+//
+// float32 (the Pallas kernel is generic in its dtype, :112, :179, and the
+// JAX engine's pool takes the parameters' dtype, f32 by default): both
+// kernels are templates on the element type T of q, the pools and o, and
+// compute in f32 either way. In f32 paged_decode_kernel's lanes load their
+// D / 32 neighbouring values as float4 (D = 128) or float2 (D = 64), which
+// needs the pointers 16-byte aligned (else the f32 call takes the other
+// kernel); the lanes of paged_decode_any_kernel read 32 neighbouring f32,
+// 128 bytes a warp load, at any D. Registers do not grow (K/V rows are
+// floats in both), and the bytes double: the bound at e2's lengths is
+// ~2.4 us rather than 1.2.
 #include "common.cuh"
 
 namespace {
@@ -49,14 +60,13 @@ constexpr int kNumWarps = 8;
 constexpr int kUnroll = 4;
 constexpr int kMaxGroup = 8;  // query heads per kv head
 
-template <int DPL>  // head_dim / 32 values per lane
+template <typename T, int DPL>  // head_dim / 32 values per lane
 __global__ void __launch_bounds__(kNumWarps * 32)
-paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_pages,
-                    const __nv_bfloat16* __restrict__ v_pages,
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                    const T* __restrict__ v_pages,
                     const int* __restrict__ tables,
                     const int* __restrict__ lengths,
-                    __nv_bfloat16* __restrict__ o, int heads, int kv_heads,
+                    T* __restrict__ o, int heads, int kv_heads,
                     int page_size, int n_pages, int table_cols,
                     int max_tokens, float scale) {
   constexpr int D = DPL * 32;
@@ -74,7 +84,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < DPL; ++i) qf[g][i] = acc[g][i] = 0.f;
     if (g < group) {
-      ptt::load_bf16<DPL>(
+      ptt::load_vals<DPL>(
           q + (static_cast<long long>(b) * heads + kh * group + g) * D +
               lane * DPL,
           qf[g]);
@@ -94,8 +104,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
         const long long off =
             ((static_cast<long long>(page) * page_size + t % page_size) *
                  kv_heads + kh) * D + lane * DPL;
-        ptt::load_bf16<DPL>(k_pages + off, kf[u]);
-        ptt::load_bf16<DPL>(v_pages + off, vf[u]);
+        ptt::load_vals<DPL>(k_pages + off, kf[u]);
+        ptt::load_vals<DPL>(v_pages + off, vf[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < DPL; ++i) kf[u][i] = vf[u][i] = 0.f;
@@ -156,18 +166,18 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       val += acc_s[w][g][dd] * f;
     }
     o[(static_cast<long long>(b) * heads + kh * group + g) * D + dd] =
-        __float2bfloat16(val / fmaxf(lsum, 1e-30f));
+        ptt::from_float<T>(val / fmaxf(lsum, 1e-30f));
   }
 }
 
-template <int DPL>  // ceil(head_dim / 32) columns per lane, the last masked
+// ceil(head_dim / 32) columns per lane, the last masked
+template <typename T, int DPL>
 __global__ void __launch_bounds__(kNumWarps * 32)
-paged_decode_any_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k_pages,
-                        const __nv_bfloat16* __restrict__ v_pages,
+paged_decode_any_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                        const T* __restrict__ v_pages,
                         const int* __restrict__ tables,
                         const int* __restrict__ lengths,
-                        __nv_bfloat16* __restrict__ o, int heads,
+                        T* __restrict__ o, int heads,
                         int kv_heads, int d, int page_size, int n_pages,
                         int table_cols, int max_tokens, float scale) {
   constexpr int kU = DPL > 4 ? 2 : kUnroll;  // K/V rows in flight per warp
@@ -182,12 +192,11 @@ paged_decode_any_kernel(const __nv_bfloat16* __restrict__ q,
   for (int g = 0; g < kMaxGroup; ++g) {
     m[g] = ptt::kNegInf;
     l[g] = 0.f;
-    const __nv_bfloat16* qr =
-        q + (static_cast<long long>(b) * heads + kh * group + g) * d;
+    const T* qr = q + (static_cast<long long>(b) * heads + kh * group + g) * d;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int c = lane + 32 * i;
-      qf[g][i] = g < group && c < d ? __bfloat162float(qr[c]) * scale : 0.f;
+      qf[g][i] = g < group && c < d ? ptt::to_float(qr[c]) * scale : 0.f;
       acc[g][i] = 0.f;
     }
   }
@@ -208,8 +217,8 @@ paged_decode_any_kernel(const __nv_bfloat16* __restrict__ q,
       for (int i = 0; i < DPL; ++i) {
         const int c = lane + 32 * i;
         const bool ok = t < len && c < d;
-        kf[u][i] = ok ? __bfloat162float(k_pages[off + c]) : 0.f;
-        vf[u][i] = ok ? __bfloat162float(v_pages[off + c]) : 0.f;
+        kf[u][i] = ok ? ptt::to_float(k_pages[off + c]) : 0.f;
+        vf[u][i] = ok ? ptt::to_float(v_pages[off + c]) : 0.f;
       }
     }
 #pragma unroll
@@ -270,21 +279,67 @@ paged_decode_any_kernel(const __nv_bfloat16* __restrict__ q,
         val += acc_s[w][c] * f;
       }
       o[(static_cast<long long>(b) * heads + kh * group + g) * d + c] =
-          __float2bfloat16(val / fmaxf(lsum, 1e-30f));
+          ptt::from_float<T>(val / fmaxf(lsum, 1e-30f));
     }
   }
 }
 
-template <int DPL>
-void launch_any(dim3 grid, dim3 block, cudaStream_t st,
-                const __nv_bfloat16* q, const __nv_bfloat16* kp,
-                const __nv_bfloat16* vp, const int* tp, const int* lp,
-                __nv_bfloat16* op, int heads, int kv_heads, int d,
-                int page_size, int n_pages, int table_cols, int max_tokens,
-                float scale) {
-  paged_decode_any_kernel<DPL><<<grid, block, 0, st>>>(
+template <typename T, int DPL>
+void launch_any(dim3 grid, dim3 block, cudaStream_t st, const T* q,
+                const T* kp, const T* vp, const int* tp, const int* lp, T* op,
+                int heads, int kv_heads, int d, int page_size, int n_pages,
+                int table_cols, int max_tokens, float scale) {
+  paged_decode_any_kernel<T, DPL><<<grid, block, 0, st>>>(
       q, kp, vp, tp, lp, op, heads, kv_heads, d, page_size, n_pages,
       table_cols, max_tokens, scale);
+}
+
+template <typename T>
+int launch_paged(const void* q, const void* k_pages, const void* v_pages,
+                 const void* tables, const void* lengths, void* o, int b,
+                 int heads, int kv_heads, int d, int page_size, int n_pages,
+                 int table_cols, int max_tokens, float scale, void* stream) {
+  if (heads / kv_heads > kMaxGroup || d < 1 || d > 256) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(kv_heads, b);
+  const dim3 block(kNumWarps * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* qp = static_cast<const T*>(q);
+  const auto* kp = static_cast<const T*>(k_pages);
+  const auto* vp = static_cast<const T*>(v_pages);
+  const auto* tp = static_cast<const int*>(tables);
+  const auto* lp = static_cast<const int*>(lengths);
+  auto* op = static_cast<T*>(o);
+  // f32 lanes load their neighbouring values as float4 / float2
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k_pages) |
+                         reinterpret_cast<uintptr_t>(v_pages);
+  const bool vec = sizeof(T) == 2 || addr % 16 == 0;
+  if (d == 128 && vec) {
+    paged_decode_kernel<T, 4><<<grid, block, 0, st>>>(
+        qp, kp, vp, tp, lp, op, heads, kv_heads, page_size, n_pages,
+        table_cols, max_tokens, scale);
+  } else if (d == 64 && vec) {
+    paged_decode_kernel<T, 2><<<grid, block, 0, st>>>(
+        qp, kp, vp, tp, lp, op, heads, kv_heads, page_size, n_pages,
+        table_cols, max_tokens, scale);
+  } else {
+    auto* launch = launch_any<T, 8>;
+    switch ((d + 31) / 32) {
+      case 1: launch = launch_any<T, 1>; break;
+      case 2: launch = launch_any<T, 2>; break;
+      case 3: launch = launch_any<T, 3>; break;
+      case 4: launch = launch_any<T, 4>; break;
+      case 5: launch = launch_any<T, 5>; break;
+      case 6: launch = launch_any<T, 6>; break;
+      case 7: launch = launch_any<T, 7>; break;
+      default: break;
+    }
+    launch(grid, block, st, qp, kp, vp, tp, lp, op, heads, kv_heads, d,
+           page_size, n_pages, table_cols, max_tokens, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -299,40 +354,22 @@ PTT_EXPORT int ptt_paged_attention(const void* q, const void* k_pages,
                                    int heads, int kv_heads, int d,
                                    int page_size, int n_pages, int table_cols,
                                    int max_tokens, float scale, void* stream) {
-  if (heads / kv_heads > kMaxGroup || d < 1 || d > 256) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid(kv_heads, b);
-  const dim3 block(kNumWarps * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k_pages);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v_pages);
-  const auto* tp = static_cast<const int*>(tables);
-  const auto* lp = static_cast<const int*>(lengths);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  if (d == 128) {
-    paged_decode_kernel<4><<<grid, block, 0, st>>>(
-        qp, kp, vp, tp, lp, op, heads, kv_heads, page_size, n_pages,
-        table_cols, max_tokens, scale);
-  } else if (d == 64) {
-    paged_decode_kernel<2><<<grid, block, 0, st>>>(
-        qp, kp, vp, tp, lp, op, heads, kv_heads, page_size, n_pages,
-        table_cols, max_tokens, scale);
-  } else {
-    auto* launch = launch_any<8>;
-    switch ((d + 31) / 32) {
-      case 1: launch = launch_any<1>; break;
-      case 2: launch = launch_any<2>; break;
-      case 3: launch = launch_any<3>; break;
-      case 4: launch = launch_any<4>; break;
-      case 5: launch = launch_any<5>; break;
-      case 6: launch = launch_any<6>; break;
-      case 7: launch = launch_any<7>; break;
-      default: break;
-    }
-    launch(grid, block, st, qp, kp, vp, tp, lp, op, heads, kv_heads, d,
-           page_size, n_pages, table_cols, max_tokens, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_paged<__nv_bfloat16>(q, k_pages, v_pages, tables, lengths, o,
+                                     b, heads, kv_heads, d, page_size,
+                                     n_pages, table_cols, max_tokens, scale,
+                                     stream);
+}
+
+// The same with q, the pools and o f32.
+PTT_EXPORT int ptt_paged_attention_f32(const void* q, const void* k_pages,
+                                       const void* v_pages,
+                                       const void* tables,
+                                       const void* lengths, void* o, int b,
+                                       int heads, int kv_heads, int d,
+                                       int page_size, int n_pages,
+                                       int table_cols, int max_tokens,
+                                       float scale, void* stream) {
+  return launch_paged<float>(q, k_pages, v_pages, tables, lengths, o, b,
+                             heads, kv_heads, d, page_size, n_pages,
+                             table_cols, max_tokens, scale, stream);
 }

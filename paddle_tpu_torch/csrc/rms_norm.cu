@@ -25,6 +25,12 @@
 //   multiple of 8, or a pointer that is not 16-byte aligned take a second
 //   kernel of the same shape that strides over the row one element a lane
 //   and reads it twice (the second time from L1).
+// - float32 (the Pallas kernel is generic in its dtype, :59-66, and the JAX
+//   model's default is f32): x, weight, bias and y all f32 take a twin of
+//   the vector kernel (the bf16 one keeps its code, and so its SASS) and
+//   the strided kernel's f32 instantiation. A 16-byte vector then holds 4
+//   values: 12 vectors a lane at D = 1536, the row in registers up to D =
+//   2048, the strided kernel past it. The bound doubles with the bytes.
 #include "common.cuh"
 
 namespace {
@@ -102,30 +108,78 @@ rms_norm_fwd_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// Any D and alignment: one element a lane at a time, the row read twice.
+// The same in f32: a 16-byte vector holds 4 values.
+template <int kVecs>
 __global__ void __launch_bounds__(kThreads)
-rms_norm_fwd_strided_kernel(const __nv_bfloat16* __restrict__ x,
-                            const __nv_bfloat16* __restrict__ w,
-                            const __nv_bfloat16* __restrict__ bias,
-                            __nv_bfloat16* __restrict__ y,
+rms_norm_fwd_f32_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
+                        const float* __restrict__ bias, float* __restrict__ y,
+                        float* __restrict__ r, int n, int d, float eps) {
+  const int lane = threadIdx.x % 32;
+  const long long row = static_cast<long long>(blockIdx.x) *
+                            (blockDim.x / 32) + threadIdx.x / 32;
+  if (row >= n) return;
+  const int nvec = d / 4;
+  const auto* xr = reinterpret_cast<const float4*>(x + row * d);
+  const auto* wv = reinterpret_cast<const float4*>(w);
+  const auto* bv = reinterpret_cast<const float4*>(bias);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 one = make_float4(1.f, 1.f, 1.f, 1.f);
+  float4 xs[kVecs], ws[kVecs], bs[kVecs];
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int c = i * 32 + lane;
+    const bool in = c < nvec;
+    xs[i] = in ? xr[c] : zero;
+    ws[i] = in && w != nullptr ? wv[c] : one;
+    bs[i] = in && bias != nullptr ? bv[c] : zero;
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    ss = fmaf(xs[i].x, xs[i].x, ss);
+    ss = fmaf(xs[i].y, xs[i].y, ss);
+    ss = fmaf(xs[i].z, xs[i].z, ss);
+    ss = fmaf(xs[i].w, xs[i].w, ss);
+  }
+  const float rs = rsqrtf(ptt::warp_sum(ss) / static_cast<float>(d) + eps);
+  if (lane == 0) r[row] = rs;
+  auto* yr = reinterpret_cast<float4*>(y + row * d);
+#pragma unroll
+  for (int i = 0; i < kVecs; ++i) {
+    const int c = i * 32 + lane;
+    if (c < nvec) {
+      yr[c] = make_float4(xs[i].x * rs * ws[i].x + bs[i].x,
+                          xs[i].y * rs * ws[i].y + bs[i].y,
+                          xs[i].z * rs * ws[i].z + bs[i].z,
+                          xs[i].w * rs * ws[i].w + bs[i].w);
+    }
+  }
+}
+
+// Any D and alignment: one element a lane at a time, the row read twice.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rms_norm_fwd_strided_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            const T* __restrict__ bias, T* __restrict__ y,
                             float* __restrict__ r, int n, int d, float eps) {
   const int lane = threadIdx.x % 32;
   const long long row = static_cast<long long>(blockIdx.x) *
                             (blockDim.x / 32) + threadIdx.x / 32;
   if (row >= n) return;
-  const __nv_bfloat16* xr = x + row * d;
+  const T* xr = x + row * d;
   float ss = 0.f;
   for (int i = lane; i < d; i += 32) {
-    const float v = __bfloat162float(xr[i]);
+    const float v = ptt::to_float(xr[i]);
     ss = fmaf(v, v, ss);
   }
   const float rs = rsqrtf(ptt::warp_sum(ss) / static_cast<float>(d) + eps);
   if (lane == 0) r[row] = rs;
-  __nv_bfloat16* yr = y + row * d;
+  T* yr = y + row * d;
   for (int i = lane; i < d; i += 32) {
-    const float wv = w != nullptr ? __bfloat162float(w[i]) : 1.f;
-    const float bv = bias != nullptr ? __bfloat162float(bias[i]) : 0.f;
-    yr[i] = __float2bfloat16(__bfloat162float(xr[i]) * rs * wv + bv);
+    const float wv = w != nullptr ? ptt::to_float(w[i]) : 1.f;
+    const float bv = bias != nullptr ? ptt::to_float(bias[i]) : 0.f;
+    yr[i] = ptt::from_float<T>(ptt::to_float(xr[i]) * rs * wv + bv);
   }
 }
 
@@ -213,17 +267,13 @@ rms_norm_bwd_reduce_kernel(const float* __restrict__ partial, int strips,
   db[i] = __float2bfloat16(sb);
 }
 
-}  // namespace
-
-// x, y: (n, d) bf16 row-major; w, b: (d,) bf16 or null (a scale of 1,
-// no bias); r: (n,) f32.
-PTT_EXPORT int ptt_rms_norm_fwd(const void* x, const void* w, const void* b,
-                                void* y, void* r, int n, int d, float eps,
-                                void* stream) {
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const __nv_bfloat16*>(w);
-  const auto* bp = static_cast<const __nv_bfloat16*>(b);
-  auto* yp = static_cast<__nv_bfloat16*>(y);
+template <typename T>
+int launch_rms_fwd(const void* x, const void* w, const void* b, void* y,
+                   void* r, int n, int d, float eps, void* stream) {
+  const auto* xp = static_cast<const T*>(x);
+  const auto* wp = static_cast<const T*>(w);
+  const auto* bp = static_cast<const T*>(b);
+  auto* yp = static_cast<T*>(y);
   auto* rp = static_cast<float*>(r);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int dev = 0, sms = 0;
@@ -240,32 +290,57 @@ PTT_EXPORT int ptt_rms_norm_fwd(const void* x, const void* w, const void* b,
                          reinterpret_cast<uintptr_t>(w) |
                          reinterpret_cast<uintptr_t>(b) |
                          reinterpret_cast<uintptr_t>(y);
-  const int vecs = (d / 8 + 31) / 32;  // 16-byte vectors a lane
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // values a vector
+  const int vecs = (d / kPer + 31) / 32;  // 16-byte vectors a lane
+  // bf16 and f32 take kernels of their own (the bf16 one as first built)
 #define PTT_RMS_FWD(V)                                                   \
-  rms_norm_fwd_kernel<V><<<blocks, threads, 0, st>>>(xp, wp, bp, yp, rp, \
-                                                     n, d, eps)
-  if (d % 8 != 0 || addr % 16 != 0 || vecs > kMaxVecs) {
-    rms_norm_fwd_strided_kernel<<<blocks, threads, 0, st>>>(xp, wp, bp, yp,
-                                                            rp, n, d, eps);
+  if constexpr (sizeof(T) == 2) {                                        \
+    rms_norm_fwd_kernel<V><<<blocks, threads, 0, st>>>(xp, wp, bp, yp,   \
+                                                       rp, n, d, eps);   \
+  } else {                                                               \
+    rms_norm_fwd_f32_kernel<V><<<blocks, threads, 0, st>>>(xp, wp, bp,   \
+                                                           yp, rp, n, d, \
+                                                           eps);         \
+  }
+  if (d % kPer != 0 || addr % 16 != 0 || vecs > kMaxVecs) {
+    rms_norm_fwd_strided_kernel<T><<<blocks, threads, 0, st>>>(
+        xp, wp, bp, yp, rp, n, d, eps);
   } else if (vecs <= 1) {
     PTT_RMS_FWD(1);
   } else if (vecs <= 2) {
     PTT_RMS_FWD(2);
-  } else if (vecs <= 3) {  // BERT-base, D = 768
+  } else if (vecs <= 3) {  // BERT-base, D = 768 in bf16
     PTT_RMS_FWD(3);
   } else if (vecs <= 4) {
     PTT_RMS_FWD(4);
-  } else if (vecs <= 6) {  // the 438M model, D = 1536
+  } else if (vecs <= 6) {  // the 438M model, D = 1536 in bf16
     PTT_RMS_FWD(6);
   } else if (vecs <= 8) {
     PTT_RMS_FWD(8);
-  } else if (vecs <= 12) {
+  } else if (vecs <= 12) {  // D = 1536 in f32, 3072 in bf16
     PTT_RMS_FWD(12);
   } else {
     PTT_RMS_FWD(kMaxVecs);
   }
 #undef PTT_RMS_FWD
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, y: (n, d) bf16 row-major; w, b: (d,) bf16 or null (a scale of 1,
+// no bias); r: (n,) f32.
+PTT_EXPORT int ptt_rms_norm_fwd(const void* x, const void* w, const void* b,
+                                void* y, void* r, int n, int d, float eps,
+                                void* stream) {
+  return launch_rms_fwd<__nv_bfloat16>(x, w, b, y, r, n, d, eps, stream);
+}
+
+// The same with x, y, w and b all f32.
+PTT_EXPORT int ptt_rms_norm_fwd_f32(const void* x, const void* w,
+                                    const void* b, void* y, void* r, int n,
+                                    int d, float eps, void* stream) {
+  return launch_rms_fwd<float>(x, w, b, y, r, n, d, eps, stream);
 }
 
 // x, g, dx: (n, d) bf16 row-major; w, dw, db: (d,) bf16; r: (n,) f32;

@@ -21,18 +21,20 @@
 // thread per pair keeps neighbouring threads on neighbouring addresses,
 // so every load and store is coalesced. At the training shape, q and k
 // of (4, 1536, 12, 128), either direction moves 75.5 MB (22.5 us).
+//
+// The kernel is a template on the element type: bf16 q, k and outputs, or
+// f32 (the Pallas kernel is generic in its dtype, :47-57, and the JAX
+// model's default is f32), with the same math and twice the bytes.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-template <bool kInverse>
+template <typename T, bool kInverse>
 __global__ void __launch_bounds__(kThreads)
-rope_kernel(const __nv_bfloat16* __restrict__ q,
-            const __nv_bfloat16* __restrict__ k,
-            __nv_bfloat16* __restrict__ q_out,
-            __nv_bfloat16* __restrict__ k_out,
+rope_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            T* __restrict__ q_out, T* __restrict__ k_out,
             const int* __restrict__ positions,
             const float* __restrict__ cos_table,
             const float* __restrict__ sin_table, long long q_pairs,
@@ -44,8 +46,8 @@ rope_kernel(const __nv_bfloat16* __restrict__ q,
   const bool is_q = idx < q_pairs;
   const long long t = is_q ? idx : idx - q_pairs;
   const int heads = is_q ? q_heads : k_heads;
-  const __nv_bfloat16* x = is_q ? q : k;
-  __nv_bfloat16* out = is_q ? q_out : k_out;
+  const T* x = is_q ? q : k;
+  T* out = is_q ? q_out : k_out;
   const int i = static_cast<int>(t % half);
   const long long row = t / half;  // (token, head)
   const long long token = row / heads;
@@ -54,20 +56,20 @@ rope_kernel(const __nv_bfloat16* __restrict__ q,
   const int d = 2 * half;
   const float* c = cos_table + static_cast<long long>(p) * d;
   const float* s = sin_table + static_cast<long long>(p) * d;
-  const __nv_bfloat16* xr = x + row * d;
-  __nv_bfloat16* orow = out + row * d;
-  const float x1 = __bfloat162float(xr[i]);
-  const float x2 = __bfloat162float(xr[i + half]);
+  const T* xr = x + row * d;
+  T* orow = out + row * d;
+  const float x1 = ptt::to_float(xr[i]);
+  const float x2 = ptt::to_float(xr[i + half]);
   if (kInverse) {
-    orow[i] = __float2bfloat16(x1 * c[i] + x2 * s[i]);
-    orow[i + half] = __float2bfloat16(x2 * c[i + half] - x1 * s[i + half]);
+    orow[i] = ptt::from_float<T>(x1 * c[i] + x2 * s[i]);
+    orow[i + half] = ptt::from_float<T>(x2 * c[i + half] - x1 * s[i + half]);
   } else {
-    orow[i] = __float2bfloat16(x1 * c[i] - x2 * s[i]);
-    orow[i + half] = __float2bfloat16(x2 * c[i + half] + x1 * s[i + half]);
+    orow[i] = ptt::from_float<T>(x1 * c[i] - x2 * s[i]);
+    orow[i + half] = ptt::from_float<T>(x2 * c[i + half] + x1 * s[i + half]);
   }
 }
 
-template <bool kInverse>
+template <typename T, bool kInverse>
 int launch_rope(const void* q, const void* k, void* q_out, void* k_out,
                 const void* positions, const void* cos_table,
                 const void* sin_table, long long tokens, int q_heads,
@@ -76,11 +78,10 @@ int launch_rope(const void* q, const void* k, void* q_out, void* k_out,
   const long long q_pairs = tokens * q_heads * half;
   const long long total = q_pairs + tokens * k_heads * half;
   const long long blocks = (total + kThreads - 1) / kThreads;
-  rope_kernel<kInverse><<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<__nv_bfloat16*>(q_out), static_cast<__nv_bfloat16*>(k_out),
+  rope_kernel<T, kInverse><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<T*>(q_out), static_cast<T*>(k_out),
       static_cast<const int*>(positions),
       static_cast<const float*>(cos_table),
       static_cast<const float*>(sin_table), q_pairs, total, q_heads, k_heads,
@@ -99,9 +100,10 @@ PTT_EXPORT int ptt_rope_fwd(const void* q, const void* k, void* q_out,
                             const void* cos_table, const void* sin_table,
                             long long tokens, int q_heads, int k_heads,
                             int d, int table_rows, void* stream) {
-  return launch_rope<false>(q, k, q_out, k_out, positions, cos_table,
-                            sin_table, tokens, q_heads, k_heads, d,
-                            table_rows, stream);
+  return launch_rope<__nv_bfloat16, false>(q, k, q_out, k_out, positions,
+                                           cos_table, sin_table, tokens,
+                                           q_heads, k_heads, d, table_rows,
+                                           stream);
 }
 
 // The adjoint rotation of (dq, dk), with the forward's arguments.
@@ -110,7 +112,29 @@ PTT_EXPORT int ptt_rope_bwd(const void* dq, const void* dk, void* dq_out,
                             const void* cos_table, const void* sin_table,
                             long long tokens, int q_heads, int k_heads,
                             int d, int table_rows, void* stream) {
-  return launch_rope<true>(dq, dk, dq_out, dk_out, positions, cos_table,
-                           sin_table, tokens, q_heads, k_heads, d,
-                           table_rows, stream);
+  return launch_rope<__nv_bfloat16, true>(dq, dk, dq_out, dk_out, positions,
+                                          cos_table, sin_table, tokens,
+                                          q_heads, k_heads, d, table_rows,
+                                          stream);
+}
+
+// The same two with q, k and the outputs f32.
+PTT_EXPORT int ptt_rope_fwd_f32(const void* q, const void* k, void* q_out,
+                                void* k_out, const void* positions,
+                                const void* cos_table, const void* sin_table,
+                                long long tokens, int q_heads, int k_heads,
+                                int d, int table_rows, void* stream) {
+  return launch_rope<float, false>(q, k, q_out, k_out, positions, cos_table,
+                                   sin_table, tokens, q_heads, k_heads, d,
+                                   table_rows, stream);
+}
+
+PTT_EXPORT int ptt_rope_bwd_f32(const void* dq, const void* dk, void* dq_out,
+                                void* dk_out, const void* positions,
+                                const void* cos_table, const void* sin_table,
+                                long long tokens, int q_heads, int k_heads,
+                                int d, int table_rows, void* stream) {
+  return launch_rope<float, true>(dq, dk, dq_out, dk_out, positions,
+                                  cos_table, sin_table, tokens, q_heads,
+                                  k_heads, d, table_rows, stream);
 }

@@ -305,10 +305,12 @@ class LlamaForCausalLM(nn.Module):
 
     ``device=None`` means the GPU (raising when there is none);
     ``generator`` draws the N(0, initializer_range) weights, defaulting to
-    ``seed(0)`` on ``device``."""
+    ``seed(0)`` on ``device``. ``dtype`` is f32 unless given, as the JAX
+    model's parameters are (``LlamaConfig(dtype="float32")``); bf16 is
+    asked for by name."""
 
     def __init__(self, config: LlamaConfig, device=None,
-                 dtype=torch.bfloat16, generator=None):
+                 dtype=torch.float32, generator=None):
         super().__init__()
         device, generator = placed(device, generator)
         self.config = config

@@ -11,7 +11,9 @@ first use, so a fresh checkout builds it on its first kernel call.
 Each kernel's wrapper takes its entry point from :func:`function`, passes
 device pointers and ``torch.cuda.current_stream().cuda_stream`` as
 ``c_void_p``, hands the returned ``cudaError_t`` to :func:`check`, and adds
-one to :data:`launch_counts` under its kernel's name.
+one to :data:`launch_counts` under its kernel's name (:func:`count`: a
+float32 launch as ``<name>[f32]``, so that a run shows which
+instantiation ran).
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["launch_counts", "library", "function", "check", "expect",
-           "nvcc", "stream_of", "upcast", "build_seconds", "library_file",
+           "count", "FLOATS", "nvcc", "stream_of", "upcast", "build_seconds", "library_file",
            "CSRC_DIR", "BUILD_DIR"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -37,6 +39,9 @@ BUILD_DIR = _PACKAGE_DIR / "_build"
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = _ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+# the floating types of the kernels that take both
+FLOATS = (torch.bfloat16, torch.float32)
 
 # kernel name -> launches since the last clear(); wrappers bump it right
 # after a launch succeeds and nowhere else
@@ -142,20 +147,29 @@ def check(code: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
 
 
-def expect(kernel: str, arg: str, t: torch.Tensor, dtype: torch.dtype,
-           ndim: int):
-    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` with
-    ``ndim`` dimensions: what every kernel here takes."""
+def expect(kernel: str, arg: str, t: torch.Tensor, dtype, ndim: int):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (one
+    dtype, or a tuple of the dtypes the kernel is built for) with ``ndim``
+    dimensions: what every kernel here takes."""
     if not t.is_cuda:
         raise ValueError(f"{kernel}: {arg} must be a CUDA tensor, got "
                          f"{t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{kernel}: {arg} must be {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{kernel}: {arg} must be "
+                        f"{' or '.join(map(str, dtypes))}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{kernel}: {arg} must be {ndim}-D, got shape "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {arg} must be contiguous")
+
+
+def count(name: str, dtype: torch.dtype):
+    """Add one launch of kernel ``name`` at ``dtype`` to
+    :data:`launch_counts`: a bfloat16 launch under ``name``, a float32 one
+    under ``name[f32]``."""
+    launch_counts[name + ("[f32]" if dtype == torch.float32 else "")] += 1
 
 
 def stream_of(t: torch.Tensor) -> int:

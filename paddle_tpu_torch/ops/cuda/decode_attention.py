@@ -54,16 +54,17 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths,
 def paged_attention(q, k_pages, v_pages, block_tables, lengths,
                     pages_per_seq=None):
     """See :func:`paged_attention_plain`. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (bf16 q and pools, int32
-    tables and lengths, all contiguous; any D up to 256, read at its own
-    width; at most 8 query heads per kv head) or raises."""
+    version; a CUDA tensor launches the kernel (q and pools both bf16 or
+    both f32, int32 tables and lengths, all contiguous; any D up to 256,
+    read at its own width; at most 8 query heads per kv head) or raises.
+    An f32 launch counts as ``paged_attention[f32]``."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
                                      lengths, pages_per_seq)
     name = "paged_attention"
-    _build.expect(name, "q", q, torch.bfloat16, 3)
-    _build.expect(name, "k_pages", k_pages, torch.bfloat16, 4)
-    _build.expect(name, "v_pages", v_pages, torch.bfloat16, 4)
+    _build.expect(name, "q", q, _build.FLOATS, 3)
+    _build.expect(name, "k_pages", k_pages, q.dtype, 4)
+    _build.expect(name, "v_pages", v_pages, q.dtype, 4)
     _build.expect(name, "block_tables", block_tables, torch.int32, 2)
     _build.expect(name, "lengths", lengths, torch.int32, 1)
     b, h, d = q.shape
@@ -80,7 +81,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths,
             f"head")
     walk = cols if pages_per_seq is None else min(pages_per_seq, cols)
     out = torch.empty_like(q)
-    fn = _build.function("ptt_paged_attention",
+    fn = _build.function("ptt_paged_attention"
+                         + ("_f32" if q.dtype == torch.float32 else ""),
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _F, _P])
     _build.check(fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -88,7 +90,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths,
                     out.data_ptr(), b, h, kvh, d, page, n_pages, cols,
                     walk * page, 1.0 / math.sqrt(d), _build.stream_of(q)),
                  name)
-    _build.launch_counts[name] += 1
+    _build.count(name, q.dtype)
     return out
 
 

@@ -27,6 +27,13 @@ the next built width, the kernels launched with the scale of the true
 head dim, out, dQ, dK and dV sliced back. Zero columns add nothing to
 q . k and give zero output and gradient columns, so the result is the
 unpadded function's; such launches count as ``<kernel>[pad]``.
+
+Dtypes: the forward takes bf16 (``csrc/flash_attention.cu``, tensor cores)
+and f32 (``csrc/flash_attention_f32.cu``, f32 FMAs, as JAX's f32 kernel
+rounds nothing); an f32 launch counts with ``[f32]`` appended. The
+backward kernels take bf16 only: an f32 backward on the card raises
+``TypeError`` until the f32 training slice builds them (ROADMAP Queue 2a
+item 3).
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ __all__ = ["flash_attention", "flash_attention_fwd",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128, 256)  # the kernels' instantiations
+BWD_DTYPES = (torch.bfloat16,)  # the backward kernels' (the forward: FLOATS)
 MAX_HEAD_DIM = 256  # the widest head dim the kernels take, padded or not
 CHUNK = 32  # rows per entry of the segment-range table
 
@@ -192,9 +200,14 @@ def flash_attention_fwd_plain(q, k, v, causal=True, q_seg=None, k_seg=None,
     return out.transpose(1, 2).to(q.dtype), lse
 
 
-def _check(name, q, k, v):
+def _check(name, q, k, v, dtypes):
+    if q.dtype == torch.float32 and q.dtype not in dtypes:
+        raise TypeError(f"{name}: q is torch.float32, and the flash backward "
+                        f"kernels take torch.bfloat16 only; the float32 dK/dV "
+                        f"and dQ kernels come with the f32 training slice "
+                        f"(ROADMAP Queue 2a item 3)")
     for arg, t in (("q", q), ("k", k), ("v", v)):
-        _build.expect(name, arg, t, torch.bfloat16, 4)
+        _build.expect(name, arg, t, dtypes if arg == "q" else q.dtype, 4)
         if t.data_ptr() % 16:  # the kernels copy rows 16 bytes at a time
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
     b, sq, h, d = q.shape
@@ -232,10 +245,11 @@ def _segments(name, q, k, q_seg, k_seg):
 def flash_attention_fwd(q, k, v, causal=True, q_seg=None, k_seg=None):
     """Attention forward with lse (see :func:`flash_attention_fwd_plain`).
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16, contiguous, 16-byte aligned, D at most 256, H a multiple of KVH;
-    ids int32 (B, Sq) and (B, Sk)) or raises. A head dim off
-    :data:`HEAD_DIMS` takes the padded route. A launch with segments counts
-    as ``flash_attention[seg]``, a padded one with ``[pad]`` appended."""
+    (bf16 or f32, q, k and v alike, contiguous, 16-byte aligned, D at most
+    256, H a multiple of KVH; ids int32 (B, Sq) and (B, Sk)) or raises. A
+    head dim off :data:`HEAD_DIMS` takes the padded route. A launch with
+    segments counts as ``flash_attention[seg]``, a padded one with
+    ``[pad]`` appended, an f32 one with ``[f32]``."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal, q_seg, k_seg)
     seg = _segments("flash_attention", q, k, q_seg, k_seg)
@@ -256,17 +270,18 @@ def _suffix(seg, scale):
 
 def _launch_fwd(q, k, v, causal, seg, scale=None):
     name = "flash_attention"
-    _check(name, q, k, v)
+    _check(name, q, k, v, _build.FLOATS)
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _build.function("ptt_flash_attention_fwd",
+    fn = _build.function("ptt_flash_attention_fwd"
+                         + ("_f32" if q.dtype == torch.float32 else ""),
                          [_P] * 11 + [_I] * 6 + [_F, _I, _P])
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     lse.data_ptr(), *seg[0], b, sq, k.shape[1], h, k.shape[2],
                     d, 1.0 / math.sqrt(d) if scale is None else scale,
                     int(bool(causal)), _build.stream_of(q)), name)
-    _build.launch_counts[name + _suffix(seg, scale)] += 1
+    _build.count(name + _suffix(seg, scale), q.dtype)
     return out, lse
 
 
@@ -329,7 +344,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True, q_seg=None,
 
 
 def _bwd_args(name, q, k, v, do, lse, delta):
-    _check(name, q, k, v)
+    _check(name, q, k, v, BWD_DTYPES)
     _build.expect(name, "do", do, torch.bfloat16, 4)
     if do.data_ptr() % 16:
         raise ValueError(f"{name}: do must be 16-byte aligned")
@@ -422,6 +437,7 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, q_seg=None,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          q_seg, k_seg)
+    _check("flash_attention_bwd", q, k, v, BWD_DTYPES)
     _build.expect("flash_attention_bwd", "out", out, torch.bfloat16, 4)
     if out.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, out "

@@ -52,16 +52,17 @@ def fused_rope_plain(q, k, cos, sin, positions, inverse=False):
 def fused_rope(q, k, cos, sin, positions, inverse=False):
     """Rotate q and k at ``positions`` (see :func:`fused_rope_plain`). A
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16 q/k, f32 tables, int32 positions, all contiguous) or raises.
-    With k None the kernel rotates q alone (a null k and 0 kv heads) and
-    the call returns ``(q_out, None)``. The two directions count as
-    ``fused_rope`` and ``fused_rope_bwd``."""
+    (q/k both bf16 or both f32, f32 tables, int32 positions, all
+    contiguous) or raises. With k None the kernel rotates q alone (a null
+    k and 0 kv heads) and the call returns ``(q_out, None)``. The two
+    directions count as ``fused_rope`` and ``fused_rope_bwd``, with
+    ``[f32]`` appended for an f32 launch."""
     if q.device.type == "cpu":
         return fused_rope_plain(q, k, cos, sin, positions, inverse)
     name = "fused_rope_bwd" if inverse else "fused_rope"
-    _build.expect(name, "q", q, torch.bfloat16, 4)
+    _build.expect(name, "q", q, _build.FLOATS, 4)
     if k is not None:
-        _build.expect(name, "k", k, torch.bfloat16, 4)
+        _build.expect(name, "k", k, q.dtype, 4)
     _build.expect(name, "cos", cos, torch.float32, 2)
     _build.expect(name, "sin", sin, torch.float32, 2)
     _build.expect(name, "positions", positions, torch.int32, 2)
@@ -75,7 +76,8 @@ def fused_rope(q, k, cos, sin, positions, inverse=False):
                          f"{tuple(cos.shape)}")
     q_out = torch.empty_like(q)
     k_out = None if k is None else torch.empty_like(k)
-    fn = _build.function("ptt_rope_bwd" if inverse else "ptt_rope_fwd",
+    fn = _build.function(("ptt_rope_bwd" if inverse else "ptt_rope_fwd")
+                         + ("_f32" if q.dtype == torch.float32 else ""),
                          [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P])
     _build.check(fn(q.data_ptr(), None if k is None else k.data_ptr(),
                     q_out.data_ptr(),
@@ -83,7 +85,7 @@ def fused_rope(q, k, cos, sin, positions, inverse=False):
                     positions.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                     b * s, h, 0 if k is None else k.shape[2], d,
                     cos.shape[0], _build.stream_of(q)), name)
-    _build.launch_counts[name] += 1
+    _build.count(name, q.dtype)
     return q_out, k_out
 
 
@@ -107,9 +109,6 @@ class RopeFunction(torch.autograd.Function):
 
 
 # ------------------------------------------- bias + dropout + residual + LN
-
-_FLOATS = (torch.bfloat16, torch.float32)
-
 
 def _keep(rate, training):
     """The dropout scale 1/(1-rate), or None when no mask applies."""
@@ -152,7 +151,7 @@ def bias_dropout_residual_ln_fwd(x2, res2, bias, scale, lnb, mask, rate, eps,
         return bias_dropout_residual_ln_plain(x2, res2, bias, scale, lnb,
                                               mask, rate, eps, training)
     name = "bias_dropout_residual_ln"
-    if x2.dtype not in _FLOATS:
+    if x2.dtype not in _build.FLOATS:
         raise TypeError(f"{name}: x must be bfloat16 or float32, got "
                         f"{x2.dtype}")
     _build.expect(name, "x", x2, x2.dtype, 2)
@@ -164,7 +163,7 @@ def bias_dropout_residual_ln_fwd(x2, res2, bias, scale, lnb, mask, rate, eps,
     params = {"bias": bias, "scale": scale, "lnb": lnb}
     flags = 0
     for bit, (arg, p) in enumerate(params.items()):
-        if p.dtype not in _FLOATS:
+        if p.dtype not in _build.FLOATS:
             raise TypeError(f"{name}: {arg} must be bfloat16 or float32, "
                             f"got {p.dtype}")
         _build.expect(name, arg, p, p.dtype, p.dim())

@@ -43,15 +43,16 @@ def _ptr(t):
 def rms_norm(x, weight=None, bias=None, epsilon=1e-6):
     """RMSNorm over the rows of a 2-D ``x``; returns ``(y, r)`` as
     :func:`rms_norm_plain`. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel (bf16, contiguous; weight and bias bf16 (D,)
-    or None; any D and alignment) or raises."""
+    tensor launches the kernel (bf16 or f32, contiguous; weight and bias
+    (D,) of x's dtype or None; any D and alignment) or raises. An f32 launch
+    counts as ``rms_norm[f32]``."""
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, bias, epsilon)
-    _build.expect("rms_norm", "x", x, torch.bfloat16, 2)
+    _build.expect("rms_norm", "x", x, _build.FLOATS, 2)
     n, d = x.shape
     for arg, t in (("weight", weight), ("bias", bias)):
         if t is not None:
-            _build.expect("rms_norm", arg, t, torch.bfloat16, 1)
+            _build.expect("rms_norm", arg, t, x.dtype, 1)
             if t.shape[0] != d:
                 raise ValueError(f"rms_norm: x {tuple(x.shape)} with {arg} "
                                  f"{tuple(t.shape)}")
@@ -59,12 +60,13 @@ def rms_norm(x, weight=None, bias=None, epsilon=1e-6):
         raise ValueError("rms_norm: x has no rows")
     y = torch.empty_like(x)
     r = torch.empty((n, 1), dtype=torch.float32, device=x.device)
-    fn = _build.function("ptt_rms_norm_fwd",
+    f32 = "_f32" if x.dtype == torch.float32 else ""
+    fn = _build.function("ptt_rms_norm_fwd" + f32,
                          [_P, _P, _P, _P, _P, _I, _I, _F, _P])
     _build.check(fn(x.data_ptr(), _ptr(weight), _ptr(bias), y.data_ptr(),
                     r.data_ptr(), n, d, float(epsilon), _build.stream_of(x)),
                  "rms_norm")
-    _build.launch_counts["rms_norm"] += 1
+    _build.count("rms_norm", x.dtype)
     return y, r
 
 
@@ -86,10 +88,16 @@ def rms_norm_bwd_plain(x, weight, r, g):
 def rms_norm_bwd(x, weight, r, g):
     """``(dx, dw, db)`` as :func:`rms_norm_bwd_plain`. A CPU tensor takes
     the plain version; a CUDA tensor launches the backward kernel (bf16
-    x/w/g, f32 r, all contiguous, D <= 16384) or raises."""
+    x/w/g, f32 r, all contiguous, D <= 16384) or raises: f32 x raises
+    ``TypeError`` until the f32 backward kernel is built (ROADMAP Queue 2a
+    item 3, the f32 training slice)."""
     if x.device.type == "cpu":
         return rms_norm_bwd_plain(x, weight, r, g)
     name = "rms_norm_bwd"
+    if x.dtype == torch.float32:
+        raise TypeError(f"{name}: x must be torch.bfloat16 on the card; the "
+                        f"float32 backward kernel comes with the f32 "
+                        f"training slice (ROADMAP Queue 2a item 3)")
     _build.expect(name, "x", x, torch.bfloat16, 2)
     _build.expect(name, "weight", weight, torch.bfloat16, 1)
     _build.expect(name, "r", r, torch.float32, 2)

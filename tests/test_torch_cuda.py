@@ -254,9 +254,10 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
+    # f32 runs (tests/test_torch_f32.py); f16 is refused
     with pytest.raises(TypeError, match="bfloat16"):
-        rn.rms_norm(_randn(gen, 4, 64, dtype=torch.float32),
-                    _randn(gen, 64, dtype=torch.float32))
+        rn.rms_norm(_randn(gen, 4, 64, dtype=torch.float16),
+                    _randn(gen, 64, dtype=torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
         rn.rms_norm(_randn(gen, 64, 4).T, _randn(gen, 64))
     with pytest.raises(TypeError, match="bfloat16"):
@@ -329,7 +330,8 @@ def test_tiny_model_on_card_matches_cpu_and_serves(gen):
     cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
                       num_hidden_layers=2, num_attention_heads=4,
                       num_key_value_heads=2, max_position_embeddings=256)
-    card = LlamaForCausalLM(cfg, generator=seed(0, "cuda"))
+    card = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+                            generator=seed(0, "cuda"))
     cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
                            generator=seed(0, "cpu"))
     cpu.load_state_dict({k: v.float().cpu()
@@ -458,7 +460,8 @@ def test_tiny_model_serves_fused_and_unfused_on_card(gen):
     cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
                       num_hidden_layers=2, num_attention_heads=4,
                       num_key_value_heads=2, max_position_embeddings=256)
-    card = LlamaForCausalLM(cfg, generator=seed(0, "cuda"))
+    card = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+                            generator=seed(0, "cuda"))
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, 256, (n,)).astype(np.int32)
                for n in (5, 30, 12, 64, 3)]
@@ -499,7 +502,8 @@ def test_tiny_model_trains_on_card_through_the_backward_kernels(gen):
     cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
                       num_hidden_layers=2, num_attention_heads=4,
                       num_key_value_heads=2, max_position_embeddings=256)
-    card = LlamaForCausalLM(cfg, generator=seed(0, "cuda"))
+    card = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+                            generator=seed(0, "cuda"))
     cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
                            generator=seed(0, "cpu"))
     cpu.load_state_dict({k: v.float().cpu()
