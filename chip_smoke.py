@@ -148,13 +148,38 @@ so that a fault surfaces in the phase that caused it:
             four [f32] kernels launched and no bf16 one; tokens/s,
             launches and device idle per decode step, peak memory, and
             how far the f32 and bf16 greedy streams agree.
-18. kernels one JSON line listing every ported kernel, with the unfused
+18. f32-train-kernel  the f32 training path's backward kernels against
+            their f32 plain versions within 1e-4 + 1e-4 |plain|, TF32
+            off, each timed beside its bound (bytes, or flops at the f32
+            FMA rate), the plain version and a library call
+            (``autograd.grad`` through F.rms_norm or
+            F.scaled_dot_product_attention in f32): the RMSNorm backward
+            at (6144, 1536) and (1024, 1536), the RoPE adjoint on (4,
+            1536, 12, 128), dK/dV and dQ at the training shape, GQA q (2,
+            512, 12, 128) on 4 kv heads, BERT's (32, 128, 12, 64)
+            non-causal, Phi-3's (4, 1536, 32, 96), (2, 2048, 16, 256) on
+            2 kv heads and (4, 1536, 32, 80) through the padded route,
+            and the [seg] forms at the varlen shape (1, 6144, 12, 128)
+            causal with its 7 packed documents.
+19. f32-grad  the grad phase in f32: a 2-layer model at the 438M widths
+            on (1, 256) ids, f32 on the card against f32 on the CPU: the
+            loss within 1e-5 relative, every gradient within 1e-4
+            relative L2, no bf16 launch.
+20. f32-train  the train phase on the 438M in f32 (the JAX model's
+            default dtype), full width and depth, batch 4 x seq 1536:
+            step ms, tokens/s, MFU against the bf16 peak and the f32 FMA
+            peak, peak memory, losses (finite, falling, the first within
+            1.0 of ln 32000), and one step's launches: the seven [f32]
+            training kernels at 25/25/12/12/12/12/12 and nothing else;
+            then the three f32 phases' seconds.
+21. kernels one JSON line listing every ported kernel, with the unfused
             serving arm's launches for the serving kernels, the fused
             arm's for the megakernel, the LLaMA training step's for the
             backward kernels, the incubate phase's for the bdrln kernel,
             the varlen phase's for the three [seg] rows, the Phi-3
-            paths' for the eight [d=96] / [h=3072] rows and f32-serve's
-            for the four [f32] rows; before it, the whole script's time.
+            paths' for the eight [d=96] / [h=3072] rows, f32-serve's
+            for the four [f32] serving rows and f32-train's for the four
+            [f32] backward rows; before it, the whole script's time.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
@@ -323,7 +348,7 @@ def rms_norm_variants(rn, x, w, bias, tag):
     largest error of y."""
     err = 0.0
     for wt, bt in ((w, None), (w, bias), (None, bias), (None, None)):
-        y, r = rn.rms_norm(x, wt, bt, epsilon=1e-6)
+        y, r = rn.rms_norm_rows(x, wt, bt, epsilon=1e-6)
         py, pr = rn.rms_norm_plain(x, wt, bt, epsilon=1e-6)
         err = max(err, compare(tag, y, py))
         if (r - pr).abs().max().item() > 1e-5 * pr.abs().max().item():
@@ -358,13 +383,14 @@ def kernel_phase(peaks):
         bms, by = bound_ms(nb, 4 * n * hidden, peaks)
         rec = dict(
             shape=[n, hidden], max_abs_err=err,
-            ms=graph_ms(lambda: rn.rms_norm(x, w, epsilon=1e-6)),
+            ms=graph_ms(lambda: rn.rms_norm_rows(x, w, epsilon=1e-6)),
             plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, epsilon=1e-6)),
             library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
                 x, (hidden,), w, 1e-6)),
-            eager_ms=eager_ms(lambda: rn.rms_norm(x, w, epsilon=1e-6)),
+            eager_ms=eager_ms(lambda: rn.rms_norm_rows(x, w, epsilon=1e-6)),
             bound_ms=bms, bound_by=by,
-            bias_ms=graph_ms(lambda: rn.rms_norm(x, w, bias, epsilon=1e-6)))
+            bias_ms=graph_ms(lambda: rn.rms_norm_rows(x, w, bias,
+                                                      epsilon=1e-6)))
         emit("kernel", name="rms_norm", **rec)
         if n == 8:  # the decode step: the main path's most frequent call
             results["rms_norm"] = rec
@@ -384,13 +410,13 @@ def kernel_phase(peaks):
     k = randn(g_, s_, heads, hd)
     pos = torch.arange(s_, device=dev, dtype=torch.int32).expand(
         g_, s_).contiguous()
-    qo, ko = fo.fused_rope(q, k, cos, sin, pos)
+    qo, ko = fo.fused_rope_at(q, k, cos, sin, pos)
     pq, pk = fo.fused_rope_plain(q, k, cos, sin, pos)
     err = max(compare("rope", qo, pq), compare("rope", ko, pk))
     dpos = torch.randint(0, 183, (8, 1), generator=gen, device=dev,
                          dtype=torch.int32)
     dq, dk = randn(8, 1, heads, hd), randn(8, 1, heads, hd)
-    for got, want in zip(fo.fused_rope(dq, dk, cos, sin, dpos),
+    for got, want in zip(fo.fused_rope_at(dq, dk, cos, sin, dpos),
                          fo.fused_rope_plain(dq, dk, cos, sin, dpos)):
         err = max(err, compare("rope(decode)", got, want))
     pairs = g_ * s_ * 2 * heads * hd // 2
@@ -398,10 +424,10 @@ def kernel_phase(peaks):
     bms, by = bound_ms(nb, 6 * pairs, peaks)
     results["fused_rope"] = rec = dict(
         shape=list(q.shape), max_abs_err=err,
-        ms=graph_ms(lambda: fo.fused_rope(q, k, cos, sin, pos)),
+        ms=graph_ms(lambda: fo.fused_rope_at(q, k, cos, sin, pos)),
         plain_ms=graph_ms(lambda: fo.fused_rope_plain(q, k, cos, sin, pos)),
         library_ms=None,
-        eager_ms=eager_ms(lambda: fo.fused_rope(q, k, cos, sin, pos)),
+        eager_ms=eager_ms(lambda: fo.fused_rope_at(q, k, cos, sin, pos)),
         bound_ms=bms, bound_by=by)
     emit("kernel", name="fused_rope", **rec)
     torch.cuda.synchronize()
@@ -940,12 +966,12 @@ def train_kernel_phase(peaks):
     bias = 0.1 * randn(hidden)
     x, g = randn(n, hidden), randn(n, hidden)
     err = rms_norm_variants(rn, x, w, bias, "rms_norm(train)")
-    _, r = rn.rms_norm(x, w, epsilon=1e-6)
+    _, r = rn.rms_norm_rows(x, w, epsilon=1e-6)
     bms, by = bound_ms(2 * n * hidden * 2 + hidden * 2 + n * 4,
                        4 * n * hidden, peaks)
     emit("kernel", name="rms_norm", case="train_shape", shape=[n, hidden],
          max_abs_err=err,
-         ms=graph_ms(lambda: rn.rms_norm(x, w, epsilon=1e-6), calls=10),
+         ms=graph_ms(lambda: rn.rms_norm_rows(x, w, epsilon=1e-6), calls=10),
          plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, epsilon=1e-6),
                            calls=10),
          library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
@@ -953,7 +979,8 @@ def train_kernel_phase(peaks):
          bound_ms=bms, bound_by=by,
          # x (18.9 MB) fits the 50 MB L2, so the warm times above can read
          # below the HBM bound; these have the inputs out of L2
-         cold_ms=cold_ms(lambda xx: rn.rms_norm(xx, w, epsilon=1e-6), (x,)),
+         cold_ms=cold_ms(lambda xx: rn.rms_norm_rows(xx, w, epsilon=1e-6),
+                         (x,)),
          cold_library_ms=cold_ms(lambda xx: torch.nn.functional.rms_norm(
              xx, (hidden,), w, 1e-6), (x,)))
     # with a bias: no one PyTorch call adds it, so the yardstick is
@@ -962,7 +989,7 @@ def train_kernel_phase(peaks):
                        5 * n * hidden, peaks)
     emit("kernel", name="rms_norm", case="train_shape, bias",
          shape=[n, hidden], max_abs_err=err,
-         ms=graph_ms(lambda: rn.rms_norm(x, w, bias, epsilon=1e-6),
+         ms=graph_ms(lambda: rn.rms_norm_rows(x, w, bias, epsilon=1e-6),
                      calls=10),
          plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, bias,
                                                      epsilon=1e-6), calls=10),
@@ -970,7 +997,8 @@ def train_kernel_phase(peaks):
              x, (hidden,), w, 1e-6), calls=10),
          library="F.rms_norm (the norm alone, no bias)",
          bound_ms=bms, bound_by=by,
-         cold_ms=cold_ms(lambda xx: rn.rms_norm(xx, w, bias, epsilon=1e-6),
+         cold_ms=cold_ms(lambda xx: rn.rms_norm_rows(xx, w, bias,
+                                                     epsilon=1e-6),
                          (x,)))
     err = max(compare(f"rms_norm_bwd {nm}", got, want) for nm, got, want in
               zip(("dx", "dw", "db"), rn.rms_norm_bwd(x, w, r, g),
@@ -1005,18 +1033,19 @@ def train_kernel_phase(peaks):
     nb = 2 * 2 * dq.numel() * 2 + pos.numel() * 4 + 2 * s * hd * 4
     bms, by = bound_ms(nb, 6 * pairs, peaks)
     err = max(compare("fused_rope(train)", got, want) for got, want in zip(
-        fo.fused_rope(dq, dk, cos, sin, pos),
+        fo.fused_rope_at(dq, dk, cos, sin, pos),
         fo.fused_rope_plain(dq, dk, cos, sin, pos)))
     emit("kernel", name="fused_rope", case="train_shape",
          shape=list(dq.shape), max_abs_err=err,
-         ms=graph_ms(lambda: fo.fused_rope(dq, dk, cos, sin, pos), calls=10),
+         ms=graph_ms(lambda: fo.fused_rope_at(dq, dk, cos, sin, pos),
+                     calls=10),
          plain_ms=graph_ms(lambda: fo.fused_rope_plain(dq, dk, cos, sin, pos),
                            calls=10),
          library_ms=None, bound_ms=bms, bound_by=by)
     err = max(compare("fused_rope_bwd", got, want) for got, want in zip(
-        fo.fused_rope(dq, dk, cos, sin, pos, inverse=True),
+        fo.fused_rope_at(dq, dk, cos, sin, pos, inverse=True),
         fo.fused_rope_plain(dq, dk, cos, sin, pos, inverse=True)))
-    rope = lambda: fo.fused_rope(dq, dk, cos, sin, pos,  # noqa: E731
+    rope = lambda: fo.fused_rope_at(dq, dk, cos, sin, pos,  # noqa: E731
                                  inverse=True)
     results["fused_rope_bwd"] = rec = dict(
         shape=list(dq.shape), max_abs_err=err, ms=graph_ms(rope, calls=10),
@@ -1036,15 +1065,21 @@ def train_kernel_phase(peaks):
     return results
 
 
-def grad_phase(base=CFG_438M, phase="grad"):
+def grad_phase(base=CFG_438M, phase="grad", dtype=torch.bfloat16):
     """Gradients of a 2-layer model at ``base``'s widths (the 438M
-    model's unless given), bf16 on the card through the kernels against
-    f32 on the CPU through the plain versions."""
+    model's unless given), in ``dtype`` (bf16 unless given) on the card
+    through the kernels against f32 on the CPU through the plain versions.
+    In f32 the gates are F32_LOSS_REL and F32_GRAD_REL_L2, and every
+    launch must be an ``[f32]`` one."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaPretrainingCriterion
     from paddle_tpu_torch.ops.cuda import launch_counts
 
+    f32 = dtype == torch.float32
+    loss_tol, grad_tol, labels_tol = (
+        (F32_LOSS_REL, F32_GRAD_REL_L2, F32_LOSS_REL) if f32
+        else (GRAD_LOSS_REL, GRAD_REL_L2, LABELS_REL))
     cfg = LlamaConfig(**{**base, "num_hidden_layers": 2})
-    card, cpu = card_and_cpu(cfg, (2, 3))
+    card, cpu = card_and_cpu(cfg, (2, 3), dtype)
     ids = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 256))
     crit = LlamaPretrainingCriterion()
     t0 = time.monotonic()
@@ -1067,17 +1102,19 @@ def grad_phase(base=CFG_438M, phase="grad"):
     loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
     labels_rel = abs(labels_loss - losses["card"]) / abs(losses["card"])
     worst = max(rel, key=rel.get)
-    emit(phase, losses=losses, loss_rel=loss_rel,
-         loss_tolerance=GRAD_LOSS_REL, grad_rel_l2=rel,
-         grad_rel_l2_max=[worst, rel[worst]], grad_tolerance=GRAD_REL_L2,
+    wrong = [k for k in counts if f32 and not k.endswith("[f32]")]
+    emit(phase, dtype=str(dtype), losses=losses, loss_rel=loss_rel,
+         loss_tolerance=loss_tol, grad_rel_l2=rel,
+         grad_rel_l2_max=[worst, rel[worst]], grad_tolerance=grad_tol,
          labels_loss=labels_loss, labels_rel=labels_rel,
-         labels_tolerance=LABELS_REL, launches=counts,
+         labels_tolerance=labels_tol, launches=counts,
          seconds=time.monotonic() - t0)
-    if (loss_rel > GRAD_LOSS_REL or rel[worst] > GRAD_REL_L2
-            or not np.isfinite(rel[worst]) or labels_rel > LABELS_REL):
+    if (loss_rel > loss_tol or rel[worst] > grad_tol
+            or not np.isfinite(rel[worst]) or labels_rel > labels_tol
+            or wrong):
         raise PhaseFailed(f"{phase}: loss rel {loss_rel:.3g}, worst gradient "
                           f"{worst} rel L2 {rel[worst]:.3g}, labels= rel "
-                          f"{labels_rel:.3g}")
+                          f"{labels_rel:.3g}, launches off the dtype {wrong}")
 
 
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope", "fused_rope_bwd",
@@ -1088,9 +1125,10 @@ TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope", "fused_rope_bwd",
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1536, 5
 
 
-def train_workload(base=CFG_438M):
+def train_workload(base=CFG_438M, dtype=torch.bfloat16):
     """bench.py section (b)'s training step on the card: the 438M model
-    (or ``base``'s) in bf16 (random weights from seed 0),
+    (or ``base``'s) in ``dtype`` (bf16 unless given; random weights from
+    seed 0),
     AdamW(learning_rate=1e-4, multi_precision=True), TrainStep over
     LlamaPretrainingCriterion, and one batch of TRAIN_BATCH x TRAIN_SEQ
     ids from np.random.RandomState(0). Returns (model, optimizer, step,
@@ -1105,7 +1143,7 @@ def train_workload(base=CFG_438M):
     from paddle_tpu_torch.optimizer import AdamW
 
     cfg = LlamaConfig(**base)
-    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=dtype,
                              generator=seed(0, "cuda"))
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 multi_precision=True)
@@ -1129,13 +1167,20 @@ def timed_steps(step, ids, labels, steps=TRAIN_STEPS):
             [events[i].elapsed_time(events[i + 1]) for i in range(steps)])
 
 
-def train_phase(name, smi, peaks, base=CFG_438M, phase="train"):
+def train_phase(name, smi, peaks, base=CFG_438M, phase="train",
+                dtype=torch.bfloat16):
     """The training slice: TrainStep on the 438M model (or ``base``'s) at
-    batch 4 x seq 1536, bench.py section (b)'s configuration."""
+    batch 4 x seq 1536, bench.py section (b)'s configuration, in
+    ``dtype`` (bf16 unless given). In f32 the step must launch the seven
+    training kernels' ``[f32]`` forms at their counts (RMSNorm 2 L + 1
+    each way, the others L) and nothing else, and MFU is also given
+    against the f32 FMA peak."""
     from paddle_tpu_torch.ops.cuda import launch_counts
 
+    f32 = dtype == torch.float32
+    tag = "[f32]" if f32 else ""
     torch.cuda.reset_peak_memory_stats()
-    model, _, step, ids, labels = train_workload(base)
+    model, _, step, ids, labels = train_workload(base, dtype)
     cfg, (batch, seqlen), steps = model.config, ids.shape, TRAIN_STEPS
     n_params = sum(p.numel() for p in model.parameters())
     # the warm-up step, with the launch counts zeroed just before it and
@@ -1144,7 +1189,8 @@ def train_phase(name, smi, peaks, base=CFG_438M, phase="train"):
     launch_counts.clear()
     losses = [float(step(ids, labels=labels))]
     torch.cuda.synchronize()
-    counts = {k: launch_counts[k] for k in TRAIN_KERNELS}
+    counts = {k + tag: launch_counts[k + tag] for k in TRAIN_KERNELS}
+    others = {k: v for k, v in launch_counts.items() if k not in counts}
     timed, step_ms = timed_steps(step, ids, labels, steps)
     losses += timed
     steady = float(np.median(step_ms))
@@ -1152,11 +1198,16 @@ def train_phase(name, smi, peaks, base=CFG_438M, phase="train"):
     flops_per_token = (6 * n_params
                        + 12 * cfg.num_hidden_layers * cfg.hidden_size * seqlen)
     mfu = tokens_per_sec * flops_per_token / peaks[1]
+    extra = {}
+    if f32:
+        extra = dict(dtype=str(dtype), mfu_f32_fma=tokens_per_sec
+                     * flops_per_token / peaks[2], other_launches=others)
     emit(phase, params=n_params, batch=batch, seq=seqlen, steps=steps,
          step_ms=step_ms, step_ms_median=steady,
          tokens_per_sec=tokens_per_sec, flops_per_token=flops_per_token,
          mfu=mfu, max_memory_allocated=torch.cuda.max_memory_allocated(),
-         losses=losses, launches_per_step=counts, card=name, nvidia_smi=smi)
+         losses=losses, launches_per_step=counts, card=name, nvidia_smi=smi,
+         **extra)
     first, last = losses[0], losses[-1]
     if not all(np.isfinite(losses)):
         raise PhaseFailed(f"{phase}: a loss is not finite: {losses}")
@@ -1165,9 +1216,16 @@ def train_phase(name, smi, peaks, base=CFG_438M, phase="train"):
                           f"1.0 from ln {cfg.vocab_size}")
     if not last < first:
         raise PhaseFailed(f"{phase}: loss did not fall: {losses}")
-    missing = [k for k in TRAIN_KERNELS if counts[k] <= 0]
+    missing = [k for k in counts if counts[k] <= 0]
     if missing:
         raise PhaseFailed(f"{phase}: {missing} not launched in a step")
+    if f32:
+        layers = cfg.num_hidden_layers
+        want = {k + tag: (2 * layers + 1 if k.startswith("rms_norm")
+                          else layers) for k in TRAIN_KERNELS}
+        if counts != want or others:
+            raise PhaseFailed(f"{phase}: launches {counts} (want {want}), "
+                              f"others {others}")
     return counts
 
 
@@ -2127,14 +2185,14 @@ def head_dims_phase(peaks):
                        4 * 8 * hidden, peaks)
     results["rms_norm[h=3072]"] = rec = dict(
         shape=[8, hidden], max_abs_err=err,
-        ms=graph_ms(lambda: rn.rms_norm(x8, w, epsilon=1e-5)),
+        ms=graph_ms(lambda: rn.rms_norm_rows(x8, w, epsilon=1e-5)),
         plain_ms=graph_ms(lambda: rn.rms_norm_plain(x8, w, epsilon=1e-5)),
         library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
             x8, (hidden,), w, 1e-5)),
         bound_ms=bms, bound_by=by)
     emit("kernel", name="rms_norm", case="phi3 decode", **rec)
     x, g = randn(n, hidden), randn(n, hidden)
-    _, r = rn.rms_norm(x, w, epsilon=1e-5)
+    _, r = rn.rms_norm_rows(x, w, epsilon=1e-5)
     err = max(compare(f"rms_norm_bwd(3072) {nm}", got, want)
               for nm, got, want in zip(("dx", "dw", "db"),
                                        rn.rms_norm_bwd(x, w, r, g),
@@ -2167,9 +2225,9 @@ def head_dims_phase(peaks):
         pos = torch.arange(ss, device="cuda", dtype=torch.int32).expand(
             bb, ss).contiguous()
         err = max(compare(f"{rname}(d=96)", got, want) for got, want in zip(
-            fo.fused_rope(q, k, cos, sin, pos, inverse),
+            fo.fused_rope_at(q, k, cos, sin, pos, inverse),
             fo.fused_rope_plain(q, k, cos, sin, pos, inverse)))
-        got, none = fo.fused_rope(q, None, cos, sin, pos, inverse)
+        got, none = fo.fused_rope_at(q, None, cos, sin, pos, inverse)
         err = max(err, compare(f"{rname}(d=96, k=None)", got,
                                fo.fused_rope_plain(q, None, cos, sin, pos,
                                                    inverse)[0]))
@@ -2180,7 +2238,7 @@ def head_dims_phase(peaks):
                            + 2 * ss * 96 * 4, 6 * pairs, peaks)
         results[f"{rname}[d=96]"] = rec = dict(
             shape=list(q.shape), max_abs_err=err,
-            ms=graph_ms(lambda: fo.fused_rope(q, k, cos, sin, pos, inverse),
+            ms=graph_ms(lambda: fo.fused_rope_at(q, k, cos, sin, pos, inverse),
                         calls=10),
             plain_ms=graph_ms(lambda: fo.fused_rope_plain(q, k, cos, sin,
                                                           pos, inverse),
@@ -2301,6 +2359,11 @@ F32_RTOL = F32_ATOL = 1e-4
 # anywhere on the path gives ~1e-2
 F32_MODEL_REL_L2 = 1e-3
 F32_SERVE_RUNS = 3
+# f32-grad, a 2-layer model at the 438M's widths in f32 on the card against
+# f32 on the CPU: the loss (and the labels= loss) to 1e-5 relative, each
+# gradient to 1e-4 relative L2. f32 sums in other orders give ~1e-6; one
+# bf16 rounding on the path gives ~1e-3 and a TF32 one ~3e-4
+F32_LOSS_REL, F32_GRAD_REL_L2 = 1e-5, 1e-4
 F32_KERNELS = ("rms_norm[f32]", "fused_rope[f32]", "flash_attention[f32]",
                "paged_attention[f32]")
 # the flash forward in f32 beyond e2's prefill: (case, b, s, heads, kv
@@ -2383,7 +2446,7 @@ def f32_kernel_phase(peaks):
         x = randn(n, hidden)
         err = 0.0
         for wt, bt in ((w, None), (w, bias), (None, bias), (None, None)):
-            y, r = rn.rms_norm(x, wt, bt, epsilon=1e-6)
+            y, r = rn.rms_norm_rows(x, wt, bt, epsilon=1e-6)
             py, pr = rn.rms_norm_plain(x, wt, bt, epsilon=1e-6)
             err = max(err, f32_compare(f"rms_norm[f32]({n})", y, py))
             if (r - pr).abs().max().item() > 1e-5 * pr.abs().max().item():
@@ -2392,7 +2455,7 @@ def f32_kernel_phase(peaks):
                            4 * n * hidden, peaks, flop_rate=peaks[2])
         rec = dict(
             shape=[n, hidden], max_abs_err=err,
-            ms=graph_ms(lambda: rn.rms_norm(x, w, epsilon=1e-6)),
+            ms=graph_ms(lambda: rn.rms_norm_rows(x, w, epsilon=1e-6)),
             plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, w, epsilon=1e-6)),
             library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
                 x, (hidden,), w, 1e-6)),
@@ -2409,14 +2472,14 @@ def f32_kernel_phase(peaks):
         g_, s_).contiguous()
     err = 0.0
     for inverse in (False, True):
-        for got, want in zip(fo.fused_rope(q, k, cos, sin, pos, inverse),
+        for got, want in zip(fo.fused_rope_at(q, k, cos, sin, pos, inverse),
                              fo.fused_rope_plain(q, k, cos, sin, pos,
                                                  inverse)):
             err = max(err, f32_compare("fused_rope[f32]", got, want))
     dpos = torch.randint(0, 183, (8, 1), generator=gen, device="cuda",
                          dtype=torch.int32)
     dq, dk = randn(8, 1, heads, hd), randn(8, 1, heads, hd)
-    for got, want in zip(fo.fused_rope(dq, dk, cos, sin, dpos),
+    for got, want in zip(fo.fused_rope_at(dq, dk, cos, sin, dpos),
                          fo.fused_rope_plain(dq, dk, cos, sin, dpos)):
         err = max(err, f32_compare("fused_rope[f32](decode)", got, want))
     bms, by = bound_ms(2 * 2 * q.numel() * 4 + pos.numel() * 4
@@ -2424,7 +2487,7 @@ def f32_kernel_phase(peaks):
                        flop_rate=peaks[2])
     results["fused_rope[f32]"] = rec = dict(
         shape=list(q.shape), max_abs_err=err,
-        ms=graph_ms(lambda: fo.fused_rope(q, k, cos, sin, pos)),
+        ms=graph_ms(lambda: fo.fused_rope_at(q, k, cos, sin, pos)),
         plain_ms=graph_ms(lambda: fo.fused_rope_plain(q, k, cos, sin, pos)),
         library_ms=None, bound_ms=bms, bound_by=by)
     emit("f32-kernel", name="fused_rope[f32]", **rec)
@@ -2460,6 +2523,200 @@ def f32_kernel_phase(peaks):
     emit("f32-kernel", name="paged_attention[f32]", **rec)
     torch.cuda.synchronize()
     return results
+
+
+# the f32 backward kernels: (case, b, s, heads, kv heads, d, causal); the
+# first is the f32-train path's shape, the kernels line's row
+F32_BWD_CASES = [
+    ("training shape", 4, 1536, 12, 12, 128, True),
+    ("gqa", 2, 512, 12, 4, 128, True),
+    ("bert shape", 32, 128, 12, 12, 64, False),
+    ("phi3 training", 4, 1536, 32, 32, 96, True),
+    ("qwen3-next full attention", 2, 2048, 16, 2, 256, True),
+    ("padded 80", 4, 1536, 32, 32, 80, True),
+]
+
+
+def f32_bwd_rows(fa, peaks, gen, case, b, s, h, kvh, d, causal, seg=None):
+    """f32 dK/dV and dQ at one shape (sq == sk) against their plain
+    version from the f32 forward kernel's out and lse, within the f32
+    gate; each timed (a CUDA graph of 3 calls) beside its bound (bytes, or
+    flops at the f32 FMA rate over the visible pairs, counted from the ids
+    with segments), the plain backward and ``autograd.grad`` through
+    ``F.scaled_dot_product_attention`` in f32 (with a dense boolean mask
+    for segments). ``seg`` is one (b, s) id array shared by both sides.
+    Returns {kernel name: row}."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    tag = f"[f32]({case})"
+    q, do = randn(b, s, h, d), randn(b, s, h, d)
+    k, v = randn(b, s, kvh, d), randn(b, s, kvh, d)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, seg, seg)
+    delta = fa._delta(out, do)
+    got_dk, got_dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                 causal, seg, seg)
+    got_dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, seg,
+                                       seg)
+    want_dq, want_dk, want_dv = fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal, seg, seg)
+    errs = {"flash_attention_bwd_dkdv": max(
+        f32_compare("dk" + tag, got_dk, want_dk),
+        f32_compare("dv" + tag, got_dv, want_dv)),
+        "flash_attention_bwd_dq": f32_compare("dq" + tag, got_dq, want_dq)}
+    del want_dq, want_dk, want_dv, got_dq, got_dk, got_dv
+    torch.cuda.empty_cache()
+    mask = None
+    if seg is None:
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    else:
+        one, keep = seg_pairs(fa, seg, seg, s, s, causal)
+        pairs, mask = one * h, keep
+    io = (q.numel() + 2 * k.numel() + do.numel()) * 4 + 2 * lse.numel() * 4
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        ol = torch.nn.functional.scaled_dot_product_attention(
+            ql, kl, vl, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=kvh != h)
+    dol = do.transpose(1, 2)
+    lib = graph_ms(lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), dol, retain_graph=True), calls=3, replays=3,
+        stream=side)
+    del ol, ql, kl, vl
+    plain = graph_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, causal, seg, seg), calls=2, replays=2)
+    kernels = {
+        "flash_attention_bwd_dkdv": (
+            lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                causal, seg, seg),
+            8 * d * pairs, io + 2 * k.numel() * 4),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                              causal, seg, seg),
+            6 * d * pairs, io + q.numel() * 4)}
+    route = ("native" if d in fa.HEAD_DIMS
+             else f"padded to {fa.native_head_dim(d)}")
+    rows = {}
+    for kname, (fn, flops, nb) in kernels.items():
+        name = kname + ("" if seg is None else "[seg]") + "[f32]"
+        bms, by = bound_ms(nb, flops, peaks, flop_rate=peaks[2])
+        rec = dict(case=case, shape=[b, s, h, d], kv_heads=kvh,
+                   causal=causal, route=route, pairs=pairs,
+                   max_abs_err=errs[kname],
+                   ms=graph_ms(fn, calls=3, replays=3), plain_ms=plain,
+                   library_ms=lib, bound_ms=bms, bound_by=by)
+        rec.update(rates(flops, rec["ms"], bms))
+        emit("f32-train-kernel", name=name, **rec)
+        rows[name] = rec
+    torch.cuda.synchronize()
+    return rows
+
+
+def f32_train_kernel_phase(peaks):
+    """The f32 training path's backward kernels against their f32 plain
+    versions within F32_ATOL + F32_RTOL |plain|, each timed beside its
+    bound, the plain version and a library call: the RMSNorm backward at
+    (6144, 1536) and (1024, 1536) (``autograd.grad`` through F.rms_norm in
+    f32), the RoPE adjoint on (dq, dk) (4, 1536, 12, 128), dK/dV and dQ at
+    F32_BWD_CASES and, with segments, at the varlen shape (1, 6144, 12,
+    128) causal with the varlen phase's packed documents. Returns the
+    training shape's rows by kernel name."""
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
+    from paddle_tpu_torch.ops.cuda import rms_norm as rn
+
+    t0 = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    b, s, heads, hd, hidden = 4, 1536, 12, 128, 1536
+    results = {}
+    w = 1.0 + 0.1 * randn(hidden)
+    for n in (b * s, 1024):
+        x, g = randn(n, hidden), randn(n, hidden)
+        _, r = rn.rms_norm_rows(x, w, epsilon=1e-6)
+        err = max(f32_compare(f"rms_norm_bwd[f32] {nm}({n})", got, want)
+                  for nm, got, want in zip(
+                      ("dx", "dw", "db"), rn.rms_norm_bwd(x, w, r, g),
+                      rn.rms_norm_bwd_plain(x, w, r, g)))
+        nb = 3 * n * hidden * 4 + hidden * 4 + n * 4 + 2 * hidden * 4
+        bms, by = bound_ms(nb, 11 * n * hidden, peaks, flop_rate=peaks[2])
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+            yl = torch.nn.functional.rms_norm(xl, (hidden,), wl, 1e-6)
+        rec = dict(
+            shape=[n, hidden], max_abs_err=err,
+            ms=graph_ms(lambda: rn.rms_norm_bwd(x, w, r, g), calls=10),
+            plain_ms=graph_ms(lambda: rn.rms_norm_bwd_plain(x, w, r, g),
+                              calls=10),
+            library_ms=graph_ms(lambda: torch.autograd.grad(
+                yl, (xl, wl), g, retain_graph=True), calls=10, stream=side),
+            bound_ms=bms, bound_by=by)
+        emit("f32-train-kernel", name="rms_norm_bwd[f32]", **rec)
+        if n == b * s:
+            results["rms_norm_bwd[f32]"] = rec
+
+    cos, sin = _rope_tables(hd, CFG_438M["max_position_embeddings"], 10000.0,
+                            "cuda")
+    dq, dk = randn(b, s, heads, hd), randn(b, s, heads, hd)
+    pos = torch.arange(s, device="cuda", dtype=torch.int32).expand(
+        b, s).contiguous()
+    err = max(f32_compare("fused_rope_bwd[f32]", got, want)
+              for got, want in zip(
+                  fo.fused_rope_at(dq, dk, cos, sin, pos, inverse=True),
+                  fo.fused_rope_plain(dq, dk, cos, sin, pos, inverse=True)))
+    bms, by = bound_ms(2 * 2 * dq.numel() * 4 + pos.numel() * 4
+                       + 2 * s * hd * 4, 6 * dq.numel(), peaks,
+                       flop_rate=peaks[2])
+    results["fused_rope_bwd[f32]"] = rec = dict(
+        shape=list(dq.shape), max_abs_err=err,
+        ms=graph_ms(lambda: fo.fused_rope_at(dq, dk, cos, sin, pos,
+                                             inverse=True), calls=10),
+        plain_ms=graph_ms(lambda: fo.fused_rope_plain(
+            dq, dk, cos, sin, pos, inverse=True), calls=10),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    emit("f32-train-kernel", name="fused_rope_bwd[f32]", **rec)
+    del dq, dk, x, g
+    torch.cuda.empty_cache()
+
+    for i, case in enumerate(F32_BWD_CASES):
+        rows = f32_bwd_rows(fa, peaks, gen, *case)
+        if i == 0:
+            results.update(rows)
+        torch.cuda.empty_cache()
+    ids, lens = packed_ids(1, VARLEN_TOTAL, 11)
+    seg = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    f32_bwd_rows(fa, peaks, gen, f"varlen, {len(lens)} documents", 1,
+                 VARLEN_TOTAL, heads, heads, hd, True, seg)
+    torch.cuda.empty_cache()
+    emit("f32-train-kernel", seconds=time.monotonic() - t0)
+    return results
+
+
+def f32_train_phase(name, smi, peaks):
+    """The 438M LLaMA in f32 (the JAX model's default) trained on the card:
+    first ``grad_phase`` in f32 (a 2-layer copy's loss and gradients
+    against f32 on the CPU, F32_LOSS_REL and F32_GRAD_REL_L2, only [f32]
+    launches), then ``train_phase`` in f32 at batch 4 x seq 1536 (full
+    width and depth), whose step must launch the seven [f32] training
+    kernels at their counts and no bf16 one. Returns the step's launch
+    counts."""
+    grad_phase(phase="f32-grad", dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    counts = train_phase(name, smi, peaks, phase="f32-train",
+                         dtype=torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def f32_serve_arm(model, name, smi, arm, decode_megakernel):
@@ -2648,6 +2905,17 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
      "paddle_tpu/ops/pallas/flash_attention.py:86", "f32-serve"),
     ("paged_attention[f32]", "paddle_tpu_torch/csrc/decode_attention.cu",
      "paddle_tpu/ops/pallas/decode_attention.py:58", "f32-serve"),
+    # the f32 backward kernels and the RoPE adjoint in f32 (f32-train)
+    ("rms_norm_bwd[f32]", "paddle_tpu_torch/csrc/rms_norm.cu",
+     "paddle_tpu/ops/pallas/rms_norm.py:100", "f32-train"),
+    ("fused_rope_bwd[f32]", "paddle_tpu_torch/csrc/rope.cu",
+     "paddle_tpu/ops/pallas/fused_ops.py:47", "f32-train"),
+    ("flash_attention_bwd_dkdv[f32]",
+     "paddle_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:181", "f32-train"),
+    ("flash_attention_bwd_dq[f32]",
+     "paddle_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:245", "f32-train"),
 ]
 
 
@@ -2719,6 +2987,10 @@ def main():
     results.update(f32_kernel_phase(peaks))
     counts["f32-serve"] = f32_serve_phase(name, smi)
     torch.cuda.synchronize()
+    t_f32 = time.monotonic()
+    results.update(f32_train_kernel_phase(peaks))
+    counts["f32-train"] = f32_train_phase(name, smi, peaks)
+    emit("f32-train", phases_seconds=time.monotonic() - t_f32)
 
     line = []
     for kname, source, replaces, path, *counter in KERNELS:

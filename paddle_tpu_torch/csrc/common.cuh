@@ -194,6 +194,28 @@ __device__ __forceinline__ void cp_async_rows(__nv_bfloat16* dst,
   }
 }
 
+// Rows [row0, row0 + kRows) of an f32 matrix with D columns whose row i
+// starts at src + i * row_stride, into dst[kRows][D + 4] (rows padded by 4
+// floats, so that 16 rows read as float4 at one column fall in distinct
+// bank groups) with 16-byte cp.async; rows at or past nrows are zeros.
+// src and row_stride must keep every row 16-byte aligned.
+template <int kRows, int D, int kThreads>
+__device__ __forceinline__ void cp_async_rows_f32(float* dst, const float* src,
+                                                  long long row_stride,
+                                                  int row0, int nrows) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks a row
+  constexpr int kTotal = kRows * kChunks;
+#pragma unroll
+  for (int j = 0; j < (kTotal + kThreads - 1) / kThreads; ++j) {
+    const int i = j * kThreads + threadIdx.x;
+    if (kTotal % kThreads != 0 && i >= kTotal) break;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool ok = row0 + r < nrows;
+    cp_async_16(dst + r * (D + 4) + c,
+                ok ? src + (row0 + r) * row_stride + c : src, ok ? 16 : 0);
+  }
+}
+
 // ---- segment masking of the flash kernels. Ids are int32 per (batch row,
 // position); an entry counts only where the query's id equals the key's. A
 // tile pair is skipped when the id ranges of its two sides do not meet: no

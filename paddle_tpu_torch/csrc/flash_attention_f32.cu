@@ -67,27 +67,6 @@ constexpr int smem_bytes() {
          (kSegments ? (kBQ + 2 * kBK) * 4 : 0);
 }
 
-// Rows [row0, row0 + R) of an f32 matrix with D columns whose row i starts
-// at src + i * row_stride, into dst[R][D + 4] with 16-byte cp.async; rows
-// at or past nrows are zeros.
-template <int R, int D>
-__device__ __forceinline__ void cp_async_rows_f32(float* dst, const float* src,
-                                                  long long row_stride,
-                                                  int row0, int nrows) {
-  constexpr int kC = D / 4;  // 16-byte chunks a row
-  constexpr int kTotal = R * kC;
-#pragma unroll
-  for (int j = 0; j < (kTotal + kThreads - 1) / kThreads; ++j) {
-    const int i = j * kThreads + threadIdx.x;
-    if (kTotal % kThreads != 0 && i >= kTotal) break;
-    const int r = i / kC, c = (i % kC) * 4;
-    const bool ok = row0 + r < nrows;
-    ptt::cp_async_16(dst + r * (D + 4) + c,
-                     ok ? src + (row0 + r) * row_stride + c : src,
-                     ok ? 16 : 0);
-  }
-}
-
 template <int D, bool kSegments>
 __global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -141,8 +120,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // K, V (and with segments the key ids) of tile kt into a stage
   auto stage_kv = [&](int kt, int stage) {
     const int k0 = kt * kBK, at = stage * kBK * S;
-    cp_async_rows_f32<kBK, D>(ks + at, kb, kv_row, k0, sk);
-    cp_async_rows_f32<kBK, D>(vs + at, vb, kv_row, k0, sk);
+    ptt::cp_async_rows_f32<kBK, D, kThreads>(ks + at, kb, kv_row, k0, sk);
+    ptt::cp_async_rows_f32<kBK, D, kThreads>(vs + at, vb, kv_row, k0, sk);
     if (kSegments && threadIdx.x < kBK) {
       const int c = k0 + threadIdx.x;
       const int* kid = seg.k + static_cast<long long>(b) * sk;
@@ -151,7 +130,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   };
 
-  cp_async_rows_f32<kBQ, D>(qs, qb, q_row, q0, sq);
+  ptt::cp_async_rows_f32<kBQ, D, kThreads>(qs, qb, q_row, q0, sq);
   if (kSegments && threadIdx.x < kBQ) {
     const int r = q0 + threadIdx.x;
     const int* qid = seg.q + static_cast<long long>(b) * sq;

@@ -267,6 +267,141 @@ rms_norm_bwd_reduce_kernel(const float* __restrict__ partial, int strips,
   db[i] = __float2bfloat16(sb);
 }
 
+// The backward in f32 (x, w, g, dx, dw, db all f32; the Pallas kernel is
+// generic in its dtype, :100-126, and the JAX model trains in f32): a twin
+// of the two kernels above, which keep their code. The same strips of rows,
+// f32 partials and reduction in strip order (deterministic, no atomics).
+// kW = 4 moves 16-byte vectors (D % 4 == 0 and x, w, g, dx 16-byte
+// aligned), each thread owning whole vectors of columns in the strip's
+// sums; kW = 1 one value a thread, any D and alignment. Bound: bytes, now
+// 4 per element each way: at (6144, 1536) x and g in and dx out are
+// 113.2 MB, 33.8 us at 3.35 TB/s, plus the partials.
+template <int kW>
+__device__ __forceinline__ void load_w(const float* p, float (&v)[kW]) {
+  if constexpr (kW == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int kW>
+__device__ __forceinline__ void store_w(float* p, const float (&v)[kW]) {
+  if constexpr (kW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+rms_norm_bwd_f32_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
+                        const float* __restrict__ r,
+                        const float* __restrict__ g, float* __restrict__ dx,
+                        float* __restrict__ partial, int n, int d,
+                        int strip_rows) {
+  // [2][d]: the strip's dw then db sums
+  extern __shared__ __align__(16) float bwd_f32_acc[];
+  __shared__ float red[2][kThreads / 32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = blockIdx.x * strip_rows;
+  const int rows = min(strip_rows, n - row0);
+  const int nv = d / kW;  // vectors a row, each owned by one thread
+  const float zero[kW] = {};
+  for (int i = threadIdx.x; i < nv; i += kThreads) {
+    store_w<kW>(bwd_f32_acc + i * kW, zero);
+    store_w<kW>(bwd_f32_acc + d + i * kW, zero);
+  }
+  for (int rr = 0; rr < rows; ++rr) {
+    const size_t row = static_cast<size_t>(row0 + rr);
+    const float* xr = x + row * d;
+    const float* gr = g + row * d;
+    const float rs = r[row];
+    float part = 0.f;
+    for (int i = threadIdx.x; i < nv; i += kThreads) {
+      float xv[kW], gv[kW], wv[kW];
+      load_w<kW>(xr + i * kW, xv);
+      load_w<kW>(gr + i * kW, gv);
+      load_w<kW>(w + i * kW, wv);
+#pragma unroll
+      for (int e = 0; e < kW; ++e) part += gv[e] * wv[e] * xv[e];
+    }
+    part = ptt::warp_sum(part);
+    // two slots, alternating by row, as in rms_norm_bwd_kernel
+    float* slot = red[rr & 1];
+    if (lane == 0) slot[warp] = part;
+    __syncthreads();
+    float inner = 0.f;
+#pragma unroll
+    for (int i = 0; i < kThreads / 32; ++i) inner += slot[i];
+    inner /= static_cast<float>(d);
+    float* dxr = dx + row * d;
+    for (int i = threadIdx.x; i < nv; i += kThreads) {
+      float xv[kW], gv[kW], wv[kW], o[kW], sw[kW], sb[kW];
+      load_w<kW>(xr + i * kW, xv);
+      load_w<kW>(gr + i * kW, gv);
+      load_w<kW>(w + i * kW, wv);
+      load_w<kW>(bwd_f32_acc + i * kW, sw);
+      load_w<kW>(bwd_f32_acc + d + i * kW, sb);
+#pragma unroll
+      for (int e = 0; e < kW; ++e) {
+        o[e] = rs * (gv[e] * wv[e] - xv[e] * (rs * rs) * inner);
+        sw[e] += gv[e] * xv[e] * rs;
+        sb[e] += gv[e];
+      }
+      store_w<kW>(dxr + i * kW, o);
+      store_w<kW>(bwd_f32_acc + i * kW, sw);
+      store_w<kW>(bwd_f32_acc + d + i * kW, sb);
+    }
+  }
+  // each thread writes the vectors it owns: no barrier needed
+  float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * d;
+  for (int i = threadIdx.x; i < nv; i += kThreads) {
+    float sw[kW], sb[kW];
+    load_w<kW>(bwd_f32_acc + i * kW, sw);
+    load_w<kW>(bwd_f32_acc + d + i * kW, sb);
+    store_w<kW>(out + i * kW, sw);
+    store_w<kW>(out + d + i * kW, sb);
+  }
+}
+
+// dw, db in f32 from the f32 kernel's partials, in strip order.
+__global__ void __launch_bounds__(kThreads)
+rms_norm_bwd_reduce_f32_kernel(const float* __restrict__ partial, int strips,
+                               int d, float* __restrict__ dw,
+                               float* __restrict__ db) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= d) return;
+  float sw = 0.f, sb = 0.f;
+  for (int s = 0; s < strips; ++s) {
+    const float* p = partial + static_cast<size_t>(s) * 2 * d;
+    sw += p[i];
+    sb += p[d + i];
+  }
+  dw[i] = sw;
+  db[i] = sb;
+}
+
+template <int kW>
+int launch_rms_bwd_f32(const float* x, const float* w, const float* r,
+                       const float* g, float* dx, float* partial, int n,
+                       int d, int strip_rows, int strips, cudaStream_t st) {
+  const size_t smem = 2 * static_cast<size_t>(d) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      rms_norm_bwd_f32_kernel<kW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rms_norm_bwd_f32_kernel<kW><<<strips, kThreads, smem, st>>>(
+      x, w, r, g, dx, partial, n, d, strip_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_rms_fwd(const void* x, const void* w, const void* b, void* y,
                    void* r, int n, int d, float eps, void* stream) {
@@ -367,5 +502,36 @@ PTT_EXPORT int ptt_rms_norm_bwd(const void* x, const void* w, const void* r,
                                st>>>(
       static_cast<const float*>(partial), strips, d,
       static_cast<__nv_bfloat16*>(dw), static_cast<__nv_bfloat16*>(db));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same with x, w, g, dx, dw and db all f32 (any D up to the shared
+// memory's 2 * D floats, any alignment).
+PTT_EXPORT int ptt_rms_norm_bwd_f32(const void* x, const void* w,
+                                    const void* r, const void* g, void* dx,
+                                    void* dw, void* db, void* partial, int n,
+                                    int d, int strip_rows, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int strips = (n + strip_rows - 1) / strip_rows;
+  const auto* xp = static_cast<const float*>(x);
+  const auto* wp = static_cast<const float*>(w);
+  const auto* rp = static_cast<const float*>(r);
+  const auto* gp = static_cast<const float*>(g);
+  auto* dxp = static_cast<float*>(dx);
+  auto* pp = static_cast<float*>(partial);
+  const uintptr_t addr =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+      reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dx);
+  const int err =
+      d % 4 == 0 && addr % 16 == 0
+          ? launch_rms_bwd_f32<4>(xp, wp, rp, gp, dxp, pp, n, d, strip_rows,
+                                  strips, st)
+          : launch_rms_bwd_f32<1>(xp, wp, rp, gp, dxp, pp, n, d, strip_rows,
+                                  strips, st);
+  if (err != 0) return err;
+  rms_norm_bwd_reduce_f32_kernel<<<(d + kThreads - 1) / kThreads, kThreads,
+                                   0, st>>>(pp, strips, d,
+                                            static_cast<float*>(dw),
+                                            static_cast<float*>(db));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 """Flash attention, forward and backward: the hand-written kernels
-(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``), their
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu`` and their
+f32 twins), their
 plain PyTorch versions, the wrappers that pick between them by device,
 and the ``torch.autograd.Function`` that joins them.
 
@@ -28,12 +29,12 @@ head dim, out, dQ, dK and dV sliced back. Zero columns add nothing to
 q . k and give zero output and gradient columns, so the result is the
 unpadded function's; such launches count as ``<kernel>[pad]``.
 
-Dtypes: the forward takes bf16 (``csrc/flash_attention.cu``, tensor cores)
-and f32 (``csrc/flash_attention_f32.cu``, f32 FMAs, as JAX's f32 kernel
-rounds nothing); an f32 launch counts with ``[f32]`` appended. The
-backward kernels take bf16 only: an f32 backward on the card raises
-``TypeError`` until the f32 training slice builds them (ROADMAP Queue 2a
-item 3).
+Dtypes: every kernel takes bf16 (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bwd.cu``, tensor cores) and f32
+(``csrc/flash_attention_f32.cu``, ``csrc/flash_attention_bwd_f32.cu``, f32
+FMAs, as JAX's f32 kernels round nothing), q, k, v, out and dO all of one
+dtype; an f32 launch counts with ``[f32]`` appended, after ``[seg]`` and
+``[pad]`` (``flash_attention_bwd_dq[seg][f32]``).
 """
 from __future__ import annotations
 
@@ -54,7 +55,6 @@ __all__ = ["flash_attention", "flash_attention_fwd",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 128, 256)  # the kernels' instantiations
-BWD_DTYPES = (torch.bfloat16,)  # the backward kernels' (the forward: FLOATS)
 MAX_HEAD_DIM = 256  # the widest head dim the kernels take, padded or not
 CHUNK = 32  # rows per entry of the segment-range table
 
@@ -200,14 +200,10 @@ def flash_attention_fwd_plain(q, k, v, causal=True, q_seg=None, k_seg=None,
     return out.transpose(1, 2).to(q.dtype), lse
 
 
-def _check(name, q, k, v, dtypes):
-    if q.dtype == torch.float32 and q.dtype not in dtypes:
-        raise TypeError(f"{name}: q is torch.float32, and the flash backward "
-                        f"kernels take torch.bfloat16 only; the float32 dK/dV "
-                        f"and dQ kernels come with the f32 training slice "
-                        f"(ROADMAP Queue 2a item 3)")
+def _check(name, q, k, v):
     for arg, t in (("q", q), ("k", k), ("v", v)):
-        _build.expect(name, arg, t, dtypes if arg == "q" else q.dtype, 4)
+        _build.expect(name, arg, t, _build.FLOATS if arg == "q" else q.dtype,
+                      4)
         if t.data_ptr() % 16:  # the kernels copy rows 16 bytes at a time
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
     b, sq, h, d = q.shape
@@ -268,14 +264,18 @@ def _suffix(seg, scale):
     return ("[seg]" if seg[1] else "") + ("" if scale is None else "[pad]")
 
 
+def _entry(q):
+    """The C entry's suffix for q's dtype: ``_f32`` for the f32 kernels."""
+    return "_f32" if q.dtype == torch.float32 else ""
+
+
 def _launch_fwd(q, k, v, causal, seg, scale=None):
     name = "flash_attention"
-    _check(name, q, k, v, _build.FLOATS)
+    _check(name, q, k, v)
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _build.function("ptt_flash_attention_fwd"
-                         + ("_f32" if q.dtype == torch.float32 else ""),
+    fn = _build.function("ptt_flash_attention_fwd" + _entry(q),
                          [_P] * 11 + [_I] * 6 + [_F, _I, _P])
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     lse.data_ptr(), *seg[0], b, sq, k.shape[1], h, k.shape[2],
@@ -344,8 +344,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, causal=True, q_seg=None,
 
 
 def _bwd_args(name, q, k, v, do, lse, delta):
-    _check(name, q, k, v, BWD_DTYPES)
-    _build.expect(name, "do", do, torch.bfloat16, 4)
+    _check(name, q, k, v)
+    _build.expect(name, "do", do, q.dtype, 4)
     if do.data_ptr() % 16:
         raise ValueError(f"{name}: do must be 16-byte aligned")
     _build.expect(name, "lse", lse, torch.float32, 3)
@@ -371,10 +371,11 @@ def _launch_dkdv(q, k, v, do, lse, delta, causal, seg, scale=None):
     name = "flash_attention_bwd_dkdv"
     ptrs = _bwd_args(name, q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.function("ptt_" + name, [_P] * 14 + [_I] * 6 + [_F, _I, _P])
+    fn = _build.function("ptt_" + name + _entry(q),
+                         [_P] * 14 + [_I] * 6 + [_F, _I, _P])
     _build.check(fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *seg[0],
                     *_bwd_sizes(q, k, causal, scale)), name)
-    _build.launch_counts[name + _suffix(seg, scale)] += 1
+    _build.count(name + _suffix(seg, scale), q.dtype)
     return dk, dv
 
 
@@ -382,10 +383,11 @@ def _launch_dq(q, k, v, do, lse, delta, causal, seg, scale=None):
     name = "flash_attention_bwd_dq"
     ptrs = _bwd_args(name, q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
-    fn = _build.function("ptt_" + name, [_P] * 13 + [_I] * 6 + [_F, _I, _P])
+    fn = _build.function("ptt_" + name + _entry(q),
+                         [_P] * 13 + [_I] * 6 + [_F, _I, _P])
     _build.check(fn(*ptrs, dq.data_ptr(), *seg[0],
                     *_bwd_sizes(q, k, causal, scale)), name)
-    _build.launch_counts[name + _suffix(seg, scale)] += 1
+    _build.count(name + _suffix(seg, scale), q.dtype)
     return dq
 
 
@@ -430,15 +432,15 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=True, q_seg=None,
     """``(dq, dk, dv)`` as :func:`flash_attention_bwd_plain`. A CPU tensor
     takes the plain version; a CUDA tensor forms ``delta`` and the segment
     range tables in torch and launches the dK/dV kernel and the dQ kernel
-    (what the forward takes, plus bf16 ``out``/``do`` like q and f32
-    ``lse`` (B, H, Sq), all contiguous) or raises; a head dim off
+    (what the forward takes, plus ``out``/``do`` of q's dtype and shape
+    and f32 ``lse`` (B, H, Sq), all contiguous) or raises; a head dim off
     :data:`HEAD_DIMS` takes the padded route, padding q, k, v and dO
     once for both kernels."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                          q_seg, k_seg)
-    _check("flash_attention_bwd", q, k, v, BWD_DTYPES)
-    _build.expect("flash_attention_bwd", "out", out, torch.bfloat16, 4)
+    _check("flash_attention_bwd", q, k, v)
+    _build.expect("flash_attention_bwd", "out", out, q.dtype, 4)
     if out.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, out "
                          f"{tuple(out.shape)}")

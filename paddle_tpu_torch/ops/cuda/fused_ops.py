@@ -6,7 +6,10 @@ between them by device, and a ``torch.autograd.Function``:
   counterpart of ``_rope_kernel`` (``inverse=False`` forward,
   ``inverse=True`` in ``_rope_one_bwd``) and of the position-id gather in
   ``paddle_tpu/ops/nn_kernels.py`` ``rotary_position_embedding``: both are
-  the same function of a (B, S) position tensor.
+  the same function of a (B, S) position tensor. :func:`fused_rope` keeps
+  JAX's contract (``fused_rope`` :99: (S, D) tables cropped to S, positions
+  0 .. S - 1); :func:`fused_rope_at` is the port's entry at any (B, S)
+  positions, in either direction.
 - Bias + dropout + residual + LayerNorm (``csrc/bias_dropout_residual_ln.cu``):
   counterpart of ``_bdrln_kernel`` :112 and the ``_bdrln`` custom_vjp
   :169-198 behind ``bias_dropout_residual_ln`` :203. The backward is plain
@@ -20,7 +23,7 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_rope", "fused_rope_plain", "RopeFunction",
+__all__ = ["fused_rope", "fused_rope_at", "fused_rope_plain", "RopeFunction",
            "bias_dropout_residual_ln", "bias_dropout_residual_ln_fwd",
            "bias_dropout_residual_ln_plain", "BiasDropoutResidualLNFunction"]
 
@@ -49,7 +52,27 @@ def fused_rope_plain(q, k, cos, sin, positions, inverse=False):
             None if k is None else _rope_one(k, c, s, inverse))
 
 
-def fused_rope(q, k, cos, sin, positions, inverse=False):
+def fused_rope(q, k, cos, sin):
+    """JAX's ``paddle_tpu/ops/pallas/fused_ops.py`` ``fused_rope`` :99:
+    neox RoPE of q (B, S, H, D) and k (B, S, KVH, D) or None, position s
+    at table row s: the (S, D) cos/sin tables (any leading shape, rows of
+    D) are cropped to S. Returns ``(q_rot, k_rot)`` (``k_rot`` None for a k
+    of None). Under autograd it records :class:`RopeFunction` (the
+    forward kernel, then the adjoint); otherwise :func:`fused_rope_at`
+    alone."""
+    b, s = q.shape[:2]
+    d = cos.shape[-1]
+    cos = cos.reshape(-1, d)[:s].contiguous()
+    sin = sin.reshape(-1, d)[:s].contiguous()
+    pos = torch.arange(s, device=q.device, dtype=torch.int32).expand(
+        b, s).contiguous()
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k)):
+        return RopeFunction.apply(q, k, cos, sin, pos)
+    return fused_rope_at(q, k, cos, sin, pos)
+
+
+def fused_rope_at(q, k, cos, sin, positions, inverse=False):
     """Rotate q and k at ``positions`` (see :func:`fused_rope_plain`). A
     CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (q/k both bf16 or both f32, f32 tables, int32 positions, all
@@ -90,21 +113,21 @@ def fused_rope(q, k, cos, sin, positions, inverse=False):
 
 
 class RopeFunction(torch.autograd.Function):
-    """``(q, k) -> fused_rope(q, k, ...)``; its backward rotates (dq, dk)
+    """``(q, k) -> fused_rope_at(q, k, ...)``; its backward rotates (dq, dk)
     back in one launch of the adjoint. The tables and positions take no
     gradient; a k of None stays None, and so does its gradient."""
 
     @staticmethod
     def forward(ctx, q, k, cos, sin, positions):
         ctx.save_for_backward(cos, sin, positions)
-        return fused_rope(q, k, cos, sin, positions)
+        return fused_rope_at(q, k, cos, sin, positions)
 
     @staticmethod
     def backward(ctx, dq, dk):
         cos, sin, positions = ctx.saved_tensors
-        dq, dk = fused_rope(dq.contiguous(),
-                            None if dk is None else dk.contiguous(), cos,
-                            sin, positions, inverse=True)
+        dq, dk = fused_rope_at(dq.contiguous(),
+                               None if dk is None else dk.contiguous(), cos,
+                               sin, positions, inverse=True)
         return dq, dk, None, None, None
 
 

@@ -4,7 +4,10 @@ pick between them by device, and the ``torch.autograd.Function`` that
 joins them.
 
 Counterpart of ``paddle_tpu/ops/pallas/rms_norm.py``: ``_fwd_kernel`` and
-``_bwd_kernel`` behind the ``rms_norm`` custom_vjp.
+``_bwd_kernel`` behind the ``rms_norm`` custom_vjp. :func:`rms_norm` keeps
+that function's contract (any rank, the output alone, the bias added only
+with ``has_bias``); :func:`rms_norm_rows` is the port's row entry, which
+returns the per-row ``r`` beside the output.
 """
 from __future__ import annotations
 
@@ -14,8 +17,8 @@ import torch
 
 from . import _build
 
-__all__ = ["rms_norm", "rms_norm_plain", "rms_norm_bwd", "rms_norm_bwd_plain",
-           "RMSNormFunction"]
+__all__ = ["rms_norm", "rms_norm_rows", "rms_norm_plain", "rms_norm_bwd",
+           "rms_norm_bwd_plain", "RMSNormFunction"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 STRIP_ROWS = 16  # rows per block of the backward; each writes f32 partials
@@ -40,7 +43,24 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def rms_norm(x, weight=None, bias=None, epsilon=1e-6):
+def rms_norm(x, weight, bias, epsilon=1e-6, has_bias=False):
+    """JAX's ``paddle_tpu/ops/pallas/rms_norm.py`` ``rms_norm`` :159:
+    ``x * r * weight`` over the last axis of ``x`` (any rank), plus
+    ``bias`` only with ``has_bias``; returns the output alone, in x's
+    shape and dtype. Under autograd it records :class:`RMSNormFunction`
+    (the forward kernel, then the backward kernel); otherwise
+    :func:`rms_norm_rows` alone. A weight of None scales by 1."""
+    b = bias if has_bias else None
+    x2 = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, weight, b)):
+        y = RMSNormFunction.apply(x2, weight, b, epsilon)
+    else:
+        y = rms_norm_rows(x2, weight, b, epsilon)[0]
+    return y.reshape(x.shape)
+
+
+def rms_norm_rows(x, weight=None, bias=None, epsilon=1e-6):
     """RMSNorm over the rows of a 2-D ``x``; returns ``(y, r)`` as
     :func:`rms_norm_plain`. A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel (bf16 or f32, contiguous; weight and bias
@@ -87,21 +107,17 @@ def rms_norm_bwd_plain(x, weight, r, g):
 
 def rms_norm_bwd(x, weight, r, g):
     """``(dx, dw, db)`` as :func:`rms_norm_bwd_plain`. A CPU tensor takes
-    the plain version; a CUDA tensor launches the backward kernel (bf16
-    x/w/g, f32 r, all contiguous, D <= 16384) or raises: f32 x raises
-    ``TypeError`` until the f32 backward kernel is built (ROADMAP Queue 2a
-    item 3, the f32 training slice)."""
+    the plain version; a CUDA tensor launches the backward kernel (x, w
+    and g all bf16 or all f32, f32 r, all contiguous, D <= 16384; f32 in
+    any alignment) or raises. An f32 launch counts as
+    ``rms_norm_bwd[f32]``."""
     if x.device.type == "cpu":
         return rms_norm_bwd_plain(x, weight, r, g)
     name = "rms_norm_bwd"
-    if x.dtype == torch.float32:
-        raise TypeError(f"{name}: x must be torch.bfloat16 on the card; the "
-                        f"float32 backward kernel comes with the f32 "
-                        f"training slice (ROADMAP Queue 2a item 3)")
-    _build.expect(name, "x", x, torch.bfloat16, 2)
-    _build.expect(name, "weight", weight, torch.bfloat16, 1)
+    _build.expect(name, "x", x, _build.FLOATS, 2)
+    _build.expect(name, "weight", weight, x.dtype, 1)
     _build.expect(name, "r", r, torch.float32, 2)
-    _build.expect(name, "g", g, torch.bfloat16, 2)
+    _build.expect(name, "g", g, x.dtype, 2)
     n, d = x.shape
     if (weight.shape[0] != d or tuple(r.shape) != (n, 1) or g.shape != x.shape
             or n == 0 or d > MAX_D):
@@ -113,25 +129,26 @@ def rms_norm_bwd(x, weight, r, g):
     strips = -(-n // STRIP_ROWS)
     partial = torch.empty((strips, 2, d), dtype=torch.float32,
                           device=x.device)
-    fn = _build.function("ptt_rms_norm_bwd",
+    f32 = "_f32" if x.dtype == torch.float32 else ""
+    fn = _build.function("ptt_rms_norm_bwd" + f32,
                          [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
     _build.check(fn(x.data_ptr(), weight.data_ptr(), r.data_ptr(),
                     g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
                     partial.data_ptr(), n, d, STRIP_ROWS,
                     _build.stream_of(x)), name)
-    _build.launch_counts[name] += 1
+    _build.count(name, x.dtype)
     return dx, dw, db
 
 
 class RMSNormFunction(torch.autograd.Function):
-    """``y = rms_norm(x, weight, bias, epsilon)[0]`` with
+    """``y = rms_norm_rows(x, weight, bias, epsilon)[0]`` with
     :func:`rms_norm_bwd` as its gradient: dx, and dw and db for the weight
     and bias that were given (a weight of None takes the backward kernel
     with a scale of ones)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, epsilon):
-        y, r = rms_norm(x, weight, bias, epsilon)
+        y, r = rms_norm_rows(x, weight, bias, epsilon)
         ctx.has = (weight is not None, bias is not None)
         ctx.save_for_backward(x, weight, r)
         return y

@@ -24,9 +24,12 @@ import torch
 
 from .cuda._build import upcast
 from .cuda.flash_attention import MAX_HEAD_DIM, build_segments, flash_attention
-from .cuda.fused_ops import RopeFunction, bias_dropout_residual_ln, fused_rope
-from .cuda.rms_norm import RMSNormFunction
-from .cuda.rms_norm import rms_norm as _rms_norm_rows
+from .cuda.fused_ops import (
+    RopeFunction,
+    bias_dropout_residual_ln,
+    fused_rope_at,
+)
+from .cuda.rms_norm import rms_norm as _rms_norm
 
 __all__ = ["gelu", "layer_norm", "rms_norm", "dropout",
            "fused_bias_dropout_residual_layer_norm",
@@ -100,13 +103,9 @@ def rms_norm(x, weight=None, bias=None, epsilon=1e-06):
     """Root-mean-square norm over the last axis of ``x`` (any leading
     shape): ``x * rsqrt(mean(x^2) + epsilon) * weight + bias`` with the
     math in f32 and the output in x's dtype; a weight of None scales by 1
-    and a bias of None adds nothing."""
-    x2 = x.reshape(-1, x.shape[-1])
-    if _records(x, weight, bias):
-        y = RMSNormFunction.apply(x2, weight, bias, epsilon)
-    else:
-        y, _ = _rms_norm_rows(x2, weight, bias, epsilon)
-    return y.reshape(x.shape)
+    and a bias of None adds nothing (the kernel module's ``rms_norm``, with
+    ``has_bias`` when a bias is given)."""
+    return _rms_norm(x, weight, bias, epsilon, has_bias=bias is not None)
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
@@ -185,17 +184,25 @@ def rotary_position_embedding(q, k, cos, sin, position_ids=None,
     pos = position_ids.to(torch.int32).expand(b, s).contiguous()
     if _records(q, k):
         return RopeFunction.apply(q, k, cos, sin, pos)
-    return fused_rope(q, k, cos, sin, pos)
+    return fused_rope_at(q, k, cos, sin, pos)
 
 
-def softmax_with_cross_entropy(logits, label, ignore_index=-100):
-    """Per-position cross-entropy over the last axis, kept as size 1:
-    the negated f32 log-softmax of ``logits`` at the label; labels equal to
-    ``ignore_index`` give 0 (and are gathered at a safe index). A label
-    with a trailing singleton axis is accepted. Plain torch, as the JAX
-    package computes it in jnp."""
-    logp = torch.log_softmax(upcast(logits), dim=-1)
-    lab = (label[..., 0] if label.dim() == logits.dim() else label).long()
-    ignored = (lab == ignore_index)[..., None]
-    picked = logp.gather(-1, lab[..., None].masked_fill(ignored, 0))
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, axis=-1):
+    """Cross-entropy over ``axis`` of ``logits``, kept there as size 1,
+    from the f32 log-softmax, with JAX's signature and semantics. Soft
+    labels (a distribution like ``logits``) give ``-sum(label * logp)``.
+    Hard labels are class indices; a singleton label axis at ``axis`` is
+    squeezed; entries equal to ``ignore_index`` give 0 and are gathered at
+    a safe index. Plain torch, as the JAX package computes it in jnp."""
+    logp = torch.log_softmax(upcast(logits), dim=axis)
+    if soft_label:
+        return -(upcast(label) * logp).sum(axis, keepdim=True)
+    lab = label
+    if lab.dim() == logits.dim() and lab.shape[axis] == 1:
+        lab = lab.squeeze(axis)
+    lab = lab.long()
+    ignored = (lab == ignore_index).unsqueeze(axis)
+    safe = lab.masked_fill(lab == ignore_index, 0).unsqueeze(axis)
+    picked = logp.gather(axis, safe)
     return (-picked).masked_fill(ignored, 0.0)

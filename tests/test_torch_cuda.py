@@ -59,7 +59,7 @@ def test_rms_norm_kernel(gen, n, d, aligned, affine):
         gen, n, d)
     w = _randn(gen, d) if "weight" in affine else None
     b = _randn(gen, d) if "bias" in affine else None
-    y, r = rn.rms_norm(x, w, b, epsilon=1e-5)
+    y, r = rn.rms_norm_rows(x, w, b, epsilon=1e-5)
     py, pr = rn.rms_norm_plain(x, w, b, epsilon=1e-5)
     _close(y, py)
     torch.testing.assert_close(r, pr, rtol=1e-5, atol=0)
@@ -77,11 +77,11 @@ def test_rope_kernel(gen, b, s, h, kvh, d):
     # includes positions outside the table, which both versions clamp
     pos = torch.randint(-3, 70, (b, s), generator=gen, device="cuda",
                         dtype=torch.int32)
-    for got, want in zip(fo.fused_rope(q, k, cos, sin, pos),
+    for got, want in zip(fo.fused_rope_at(q, k, cos, sin, pos),
                          fo.fused_rope_plain(q, k, cos, sin, pos)):
         _close(got, want)
     # k = None: the kernel rotates q alone
-    got, none = fo.fused_rope(q, None, cos, sin, pos)
+    got, none = fo.fused_rope_at(q, None, cos, sin, pos)
     assert none is None
     _close(got, fo.fused_rope_plain(q, None, cos, sin, pos)[0])
 
@@ -146,7 +146,7 @@ def test_rms_norm_bwd_kernel(gen, n, d):
 
     x, g = _randn(gen, n, d), _randn(gen, n, d)
     w = (1.0 + 0.1 * _randn(gen, d, dtype=torch.float32)).bfloat16()
-    _, r = rn.rms_norm(x, w, epsilon=1e-5)
+    _, r = rn.rms_norm_rows(x, w, epsilon=1e-5)
     for got, want in zip(rn.rms_norm_bwd(x, w, r, g),
                          rn.rms_norm_bwd_plain(x, w, r, g)):
         _close(got, want)
@@ -164,7 +164,7 @@ def test_rope_adjoint_kernel(gen, b, s, h, kvh, d):
     pos = torch.randint(-3, 70, (b, s), generator=gen, device="cuda",
                         dtype=torch.int32)
     for got, want in zip(
-            fo.fused_rope(dq, dk, cos, sin, pos, inverse=True),
+            fo.fused_rope_at(dq, dk, cos, sin, pos, inverse=True),
             fo.fused_rope_plain(dq, dk, cos, sin, pos, inverse=True)):
         _close(got, want)
 
@@ -254,14 +254,15 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
-    # f32 runs (tests/test_torch_f32.py); f16 is refused
+    # f32 runs, forward and backward (tests/test_torch_f32.py,
+    # tests/test_torch_f32_train.py); f16 is refused
     with pytest.raises(TypeError, match="bfloat16"):
-        rn.rms_norm(_randn(gen, 4, 64, dtype=torch.float16),
+        rn.rms_norm_rows(_randn(gen, 4, 64, dtype=torch.float16),
                     _randn(gen, 64, dtype=torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
-        rn.rms_norm(_randn(gen, 64, 4).T, _randn(gen, 64))
+        rn.rms_norm_rows(_randn(gen, 64, 4).T, _randn(gen, 64))
     with pytest.raises(TypeError, match="bfloat16"):
-        x = _randn(gen, 4, 64, dtype=torch.float32)
+        x = _randn(gen, 4, 64, dtype=torch.float16)
         rn.rms_norm_bwd(x, x[0], torch.ones((4, 1), device="cuda"), x)
     # head dim 96 runs on the kernels (counted), 80 on the padded route
     # (counted as [pad]); past 256 the kernels refuse
@@ -286,7 +287,7 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_bwd(x, x, x, x, lse, x)
     with pytest.raises(TypeError, match="bfloat16"):
-        y = _randn(gen, 1, 8, 2, 64, dtype=torch.float32)
+        y = _randn(gen, 1, 8, 2, 64, dtype=torch.float16)
         fa.flash_attention_bwd(y, y, y, y, lse, y)
     # contiguous but 8 bytes off: the kernels copy rows 16 bytes at a time
     z = _randn(gen, 1 * 8 * 2 * 64 + 4)[4:].view(1, 8, 2, 64)

@@ -19,7 +19,8 @@ against its plain version at the edge shapes of tests/test_torch_cuda.py
 and tests/test_torch_head_dims.py (head dims 32-256, GQA, segments,
 lengths 0, 1 and across a page), within 1e-4 + 1e-4 |want| with TF32 off;
 each f32 launch counted under ``<kernel>[f32]``; f16 and f64 refused; the
-f32 backward kernels not built yet, so they refuse f32. These import
+public entries' f32 gradients (the f32 backward kernels, held in full by
+tests/test_torch_f32_train.py) equal the plain versions'. These import
 neither JAX nor ``paddle_tpu``; run them without the repository's
 conftest where JAX is missing::
 
@@ -170,12 +171,12 @@ def test_f32_serving_kernels_match_pallas_at_e2_shapes(kernel):
     t = [torch.from_numpy(a) for a in ins]
     j = [jnp.asarray(a) for a in ins]
     if kernel == "rms_norm":
-        got = [rn.rms_norm(*t, epsilon=1e-6)[0]]
+        got = [rn.rms_norm_rows(*t, epsilon=1e-6)[0]]
         want = [jrn.rms_norm(*j, 1e-6, True)]
     elif kernel == "rope":
         cos, sin = _rope_tables(128, 512, 10000.0, "cpu")
         pos = torch.arange(128, dtype=torch.int32).expand(2, 128)
-        got = fo.fused_rope(t[0], t[1], cos, sin, pos.contiguous())
+        got = fo.fused_rope_at(t[0], t[1], cos, sin, pos.contiguous())
         want = jfo.fused_rope(j[0], j[1], jnp.asarray(cos[:128].numpy()),
                               jnp.asarray(sin[:128].numpy()))
     elif kernel == "flash":
@@ -235,7 +236,7 @@ def test_f32_rms_norm_kernel(gen, n, d, aligned, affine):
     w = _randn(gen, d) if "weight" in affine else None
     b = _randn(gen, d) if "bias" in affine else None
     launch_counts.clear()
-    y, r = rn.rms_norm(x, w, b, epsilon=1e-5)
+    y, r = rn.rms_norm_rows(x, w, b, epsilon=1e-5)
     assert _launched("rms_norm[f32]") == 1 and _launched("rms_norm") == 0
     py, pr = rn.rms_norm_plain(x, w, b, epsilon=1e-5)
     _close(y, py)
@@ -260,11 +261,11 @@ def test_f32_rope_kernel(gen, b, s, h, kvh, d):
                         dtype=torch.int32)
     launch_counts.clear()
     for inverse in (False, True):
-        for got, want in zip(fo.fused_rope(q, k, cos, sin, pos, inverse),
+        for got, want in zip(fo.fused_rope_at(q, k, cos, sin, pos, inverse),
                              fo.fused_rope_plain(q, k, cos, sin, pos,
                                                  inverse)):
             _close(got, want)
-        got, none = fo.fused_rope(q, None, cos, sin, pos, inverse)
+        got, none = fo.fused_rope_at(q, None, cos, sin, pos, inverse)
         assert none is None
         _close(got, fo.fused_rope_plain(q, None, cos, sin, pos, inverse)[0])
     assert _launched("fused_rope[f32]") == _launched("fused_rope_bwd[f32]") == 2
@@ -361,28 +362,43 @@ def test_f32_flash_attention_kernel(gen, seg, b, sq, sk, h, kvh, d, causal):
 @pytest.mark.cuda
 def test_f32_public_entries_and_the_backward_refusal(gen):
     """``flash_attention`` and ``scaled_dot_product_attention`` take f32
-    under no_grad; under autograd the forward runs and the backward
-    refuses f32 (the f32 dK/dV and dQ kernels are the next slice), as does
-    the RMSNorm backward."""
+    under no_grad; under autograd the forward runs and the backward runs
+    the f32 dK/dV and dQ kernels, whose gradients are the plain version's,
+    as the RMSNorm backward's are. (The backward kernels once refused f32;
+    the test keeps its name.)"""
     from paddle_tpu_torch.ops import nn_kernels as nk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
     q, k, v = (_randn(gen, 2, 64, 4, 64) for _ in range(3))
-    want = fa.flash_attention_fwd_plain(q, k, v, True)[0]
+    g = _randn(gen, 2, 64, 4, 64)
+    want, lse = fa.flash_attention_fwd_plain(q, k, v, True)
     with torch.no_grad():
         _close(fa.flash_attention(q, k, v, is_causal=True), want)
         _close(nk.scaled_dot_product_attention(q, k, v, is_causal=True),
                want)
-    ql = q.detach().requires_grad_()
-    out = fa.flash_attention(ql, k, v, is_causal=True)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(ql, kl, vl, is_causal=True)
     _close(out.detach(), want)
-    with pytest.raises(TypeError, match="f32 training slice"):
-        out.sum().backward()
+    launch_counts.clear()
+    out.backward(g)
+    assert dict(launch_counts) == {"flash_attention_bwd_dkdv[f32]": 1,
+                                   "flash_attention_bwd_dq[f32]": 1}
+    for t, w in zip((ql, kl, vl), fa.flash_attention_bwd_plain(
+            q, k, v, want, lse, g, True)):
+        _close(t.grad, w)
     x = _randn(gen, 4, 64).requires_grad_()
-    y = nk.rms_norm(x, _randn(gen, 64))
-    with pytest.raises(TypeError, match="f32 training slice"):
-        y.sum().backward()
+    w = _randn(gen, 64).requires_grad_()
+    gy = _randn(gen, 4, 64)
+    launch_counts.clear()
+    nk.rms_norm(x, w).backward(gy)
+    assert launch_counts["rms_norm_bwd[f32]"] == 1
+    _, r = rn.rms_norm_plain(x.detach(), w.detach(), epsilon=1e-6)
+    want_dx, want_dw, _ = rn.rms_norm_bwd_plain(x.detach(), w.detach(), r,
+                                                gy)
+    _close(x.grad, want_dx)
+    _close(w.grad, want_dw)
 
 
 @pytest.mark.cuda
@@ -396,11 +412,11 @@ def test_f16_and_f64_raise(gen, dtype):
 
     x = _randn(gen, 1, 8, 2, 64, dtype=dtype)
     with pytest.raises(TypeError, match="float32"):
-        rn.rms_norm(x[0, 0], x[0, 0, 0])
+        rn.rms_norm_rows(x[0, 0], x[0, 0, 0])
     cos, sin = _rope_tables(64, 16, 10000.0, "cuda")
     pos = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
     with pytest.raises(TypeError, match="float32"):
-        fo.fused_rope(x, x, cos, sin, pos)
+        fo.fused_rope_at(x, x, cos, sin, pos)
     with pytest.raises(TypeError, match="float32"):
         fa.flash_attention_fwd(x, x, x)
     tab = torch.zeros((1, 1), dtype=torch.int32, device="cuda")

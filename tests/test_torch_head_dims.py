@@ -189,14 +189,14 @@ def test_rope_with_k_none_matches_jax():
     assert got_k is None
     _close(got_q, want_q)
     pos = torch.arange(s, dtype=torch.int32).expand(b, s)
-    got_q, got_k = fo.fused_rope(_t(q), None, cos, sin, pos)
+    got_q, got_k = fo.fused_rope_at(_t(q), None, cos, sin, pos)
     assert got_k is None
     _close(got_q, want_q)
     # the adjoint, and autograd through RopeFunction
     _, vjp = jax.vjp(lambda q_: jax_fo.fused_rope(q_, None, jc, js)[0],
                      jnp.asarray(q))
     (want_dq,) = vjp(jnp.asarray(g))
-    dq, none = fo.fused_rope(_t(g), None, cos, sin, pos, inverse=True)
+    dq, none = fo.fused_rope_at(_t(g), None, cos, sin, pos, inverse=True)
     assert none is None
     _close(dq, want_dq)
     nn_kernels.rotary_position_embedding(qt, None, cos, sin)[0].backward(

@@ -42,7 +42,7 @@ def test_rms_norm_matches_pallas():
     x, w = _np(rng, 16, 128), 1.0 + 0.1 * _np(rng, 128)
     want = jax_rn.rms_norm(jnp.asarray(x), jnp.asarray(w),
                            jnp.zeros((128,), jnp.float32), 1e-6, False)
-    y, r = rn.rms_norm(_t(x), _t(w), epsilon=1e-6)
+    y, r = rn.rms_norm_rows(_t(x), _t(w), epsilon=1e-6)
     np.testing.assert_allclose(y.numpy(), np.asarray(want), **TOL)
     _, (_, _, want_r, _) = jax_rn._vjp_fwd(
         jnp.asarray(x), jnp.asarray(w), None, 1e-6, False)
@@ -159,8 +159,8 @@ def test_wrappers_take_plain_version_only_on_cpu(case):
     m = torch.device("meta")
     e = lambda *s, dt=torch.bfloat16: torch.empty(s, device=m, dtype=dt)
     calls = {
-        "rms_norm": lambda: rn.rms_norm(e(8, 64), e(64)),
-        "rope": lambda: fo.fused_rope(e(1, 4, 2, 64), e(1, 4, 2, 64),
+        "rms_norm": lambda: rn.rms_norm_rows(e(8, 64), e(64)),
+        "rope": lambda: fo.fused_rope_at(e(1, 4, 2, 64), e(1, 4, 2, 64),
                                       e(8, 64, dt=torch.float32),
                                       e(8, 64, dt=torch.float32),
                                       e(1, 4, dt=torch.int32)),

@@ -9,7 +9,13 @@ seq_lens=None, segment_ids=None)`` returning ``out`` (JAX
 ``ops/pallas/flash_attention.py:431``), ``scaled_dot_product_attention``
 in JAX's argument order (:732) and ``rotary_position_embedding`` with
 ``use_neox_rotary_style`` (:804), and ``seq_lens`` / ``segment_ids`` on
-the flash and composition routes.
+the flash and composition routes. ``softmax_with_cross_entropy(logits,
+label, soft_label=False, ignore_index=-100, axis=-1)`` (:859), and the
+kernel modules' public names against ``ops/pallas/``:
+``ops/cuda/rms_norm.rms_norm(x, weight, bias, epsilon, has_bias)``
+(:159) and ``ops/cuda/fused_ops.fused_rope(q, k, cos, sin)`` (:99), with
+the port's own row and position entries (``rms_norm_rows``,
+``fused_rope_at``) against their plain versions.
 
 Inputs come from numpy with a seed, in f32 on the CPU, where each port
 kernel runs its plain version. Tolerances: 1e-6 where both sides compute
@@ -26,11 +32,14 @@ import torch
 
 from paddle_tpu.ops import nn_kernels as jax_nn
 from paddle_tpu.ops.pallas import flash_attention as jax_fa
+from paddle_tpu.ops.pallas import fused_ops as jax_fo
 from paddle_tpu.ops.pallas import rms_norm as jax_rn
 from paddle_tpu_torch.models.llama import _rope_tables
 from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.ops import nn_kernels
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import fused_ops as fo
+from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
 SAME = dict(atol=1e-6, rtol=1e-6)
 KERNEL = dict(atol=1e-5, rtol=1e-5)
@@ -275,3 +284,132 @@ def test_flash_attention_fwd_keeps_out_and_lse():
     out, lse = fa.flash_attention_fwd(_t(q), _t(k), _t(v), causal=True)
     _close(out, np.swapaxes(np.asarray(want_o), 1, 2), KERNEL)
     _close(lse, np.asarray(want_lse)[..., 0], KERNEL)
+
+
+CE_CALLS = {  # name -> (args after logits, kwargs) from (hard, soft) labels
+    "hard_positional_false": lambda h, s: ((h, False), {}),
+    "hard_bare": lambda h, s: ((h,), {}),
+    "hard_trailing_axis": lambda h, s: ((h[..., None],), {}),
+    "hard_keyword_ignore_index": lambda h, s: ((h,), dict(ignore_index=3)),
+    "hard_positional_ignore_index": lambda h, s: ((h, False, 0), {}),
+    "hard_axis_keyword": lambda h, s: ((h,), dict(axis=1)),
+    "soft_positional_true": lambda h, s: ((s, True), {}),
+    "soft_keyword": lambda h, s: ((s,), dict(soft_label=True)),
+    "soft_axis_1": lambda h, s: ((np.moveaxis(s, 2, 1),),
+                                 dict(soft_label=True, axis=1)),
+}
+
+
+@pytest.mark.parametrize("call", sorted(CE_CALLS))
+def test_softmax_with_cross_entropy_matches_jax(call):
+    """JAX's signature and semantics in positional and keyword forms: a
+    positional False is ``soft_label``, not ``ignore_index``; hard labels
+    (the ignored value and 0 among them) with a trailing singleton axis
+    squeezed and ``ignore_index`` entries 0; soft labels ``-sum(label *
+    logp)``; the reduction along ``axis`` (``soft_axis_1``: the (4, 6, 8)
+    logits and labels with their class axis moved to axis 1, reduced
+    there). Both sides the same f32 math."""
+    rng = np.random.RandomState(7)
+    logits = _np(rng, 4, 6, 8)
+    hard = rng.randint(0, 8, (4, 6))
+    hard[0, :2] = [-100, 0]
+    ignore = {"hard_keyword_ignore_index": 3,
+              "hard_positional_ignore_index": 0}.get(call)
+    if ignore is not None:  # the ignored value in place of -100
+        hard[hard == -100] = ignore
+    hard2 = hard[:, 0] if call == "hard_axis_keyword" else hard
+    soft = rng.rand(4, 6, 8).astype(np.float32)
+    soft /= soft.sum(-1, keepdims=True)
+    x = logits[:, 0] if call == "hard_axis_keyword" else logits
+    if call == "soft_axis_1":
+        x = np.moveaxis(logits, 2, 1)
+    args, kwargs = CE_CALLS[call](hard2, soft)
+    want = jax_nn.softmax_with_cross_entropy(
+        _j(x), *(_j(a) if isinstance(a, np.ndarray) else a for a in args),
+        **kwargs)
+    got = nn_kernels.softmax_with_cross_entropy(
+        _t(x), *(_t(a) if isinstance(a, np.ndarray) else a for a in args),
+        **kwargs)
+    assert got.shape == want.shape
+    _close(got, want, SAME)
+
+
+@pytest.mark.parametrize("has_bias", [False, True])
+def test_kernel_module_rms_norm_matches_pallas(has_bias):
+    """``ops/cuda/rms_norm.rms_norm(x, w, b, 1e-6[, has_bias])`` on a
+    rank-3 x returns JAX's ``ops/pallas/rms_norm.rms_norm`` output alone
+    (interpret mode), the bias added only with ``has_bias``, and under
+    autograd JAX's dx, dw (and db)."""
+    rng = np.random.RandomState(8)
+    x, g = _np(rng, 2, 8, 256), _np(rng, 2, 8, 256)
+    w, b = 1.0 + 0.1 * _np(rng, 256), _np(rng, 256)
+    want, vjp = jax.vjp(
+        lambda x_, w_, b_: jax_rn.rms_norm(x_, w_, b_, 1e-6, has_bias),
+        _j(x), _j(w), _j(b))
+    want_grads = vjp(_j(g))
+    with torch.no_grad():
+        got = (rn.rms_norm(_t(x), _t(w), _t(b), 1e-6, has_bias=True)
+               if has_bias else rn.rms_norm(_t(x), _t(w), _t(b), 1e-6))
+    assert isinstance(got, torch.Tensor) and got.shape == x.shape
+    _close(got, want, KERNEL)
+    ts = [_t(a, True) for a in (x, w, b)]
+    rn.rms_norm(*ts, 1e-6, has_bias).backward(_t(g))
+    for t, wg in zip(ts[:2], want_grads[:2]):
+        _close(t.grad, wg, KERNEL)
+    if has_bias:
+        _close(ts[2].grad, want_grads[2], KERNEL)
+    else:
+        assert ts[2].grad is None
+
+
+def test_kernel_module_fused_rope_matches_pallas():
+    """``ops/cuda/fused_ops.fused_rope(q, k, cos, sin)`` with (64, 32)
+    tables for S = 24 (cropped to S, as JAX's) and GQA k: JAX's rotation
+    (interpret mode) and, under autograd, its adjoint; k of None rotates q
+    alone."""
+    rng = np.random.RandomState(9)
+    q, k = _np(rng, 2, 24, 4, 32), _np(rng, 2, 24, 2, 32)
+    gq, gk = _np(rng, 2, 24, 4, 32), _np(rng, 2, 24, 2, 32)
+    cos, sin = _rope_tables(32, 64, 10000.0, "cpu")
+    jc, js = _j(cos.numpy()), _j(sin.numpy())
+    (wq, wk), vjp = jax.vjp(lambda q_, k_: jax_fo.fused_rope(q_, k_, jc, js),
+                            _j(q), _j(k))
+    want_dq, want_dk = vjp((_j(gq), _j(gk)))
+    qt, kt = _t(q, True), _t(k, True)
+    got_q, got_k = fo.fused_rope(qt, kt, cos, sin)
+    _close(got_q, wq, KERNEL)
+    _close(got_k, wk, KERNEL)
+    torch.autograd.backward((got_q, got_k), (_t(gq), _t(gk)))
+    _close(qt.grad, want_dq, KERNEL)
+    _close(kt.grad, want_dk, KERNEL)
+    alone, none = fo.fused_rope(_t(q), None, cos, sin)
+    assert none is None
+    _close(alone, wq, KERNEL)
+
+
+def test_row_and_position_entries_match_plain():
+    """The port's own entries keep their behaviour under their new names:
+    ``rms_norm_rows`` returns ``(y, r)`` with the bias added whenever one
+    is given, and equals ``rms_norm(..., has_bias=True)`` row by row;
+    ``fused_rope_at`` rotates at any (B, S) positions, either way, and at
+    0 .. S - 1 equals ``fused_rope``. All against the plain versions."""
+    rng = np.random.RandomState(10)
+    x, w, b = _t(_np(rng, 16, 64)), _t(_np(rng, 64)), _t(_np(rng, 64))
+    y, r = rn.rms_norm_rows(x, w, b, 1e-6)
+    py, pr = rn.rms_norm_plain(x, w, b, 1e-6)
+    _close(y, py.numpy(), SAME)
+    _close(r, pr.numpy(), SAME)
+    _close(rn.rms_norm(x.view(2, 8, 64), w, b, 1e-6, has_bias=True),
+           py.view(2, 8, 64).numpy(), SAME)
+    q, k = _t(_np(rng, 2, 12, 4, 32)), _t(_np(rng, 2, 12, 2, 32))
+    cos, sin = _rope_tables(32, 40, 10000.0, "cpu")
+    pos = torch.from_numpy(rng.randint(0, 40, (2, 12)).astype(np.int32))
+    for inverse in (False, True):
+        for got, want in zip(fo.fused_rope_at(q, k, cos, sin, pos, inverse),
+                             fo.fused_rope_plain(q, k, cos, sin, pos,
+                                                 inverse)):
+            _close(got, want.numpy(), SAME)
+    arange = torch.arange(12, dtype=torch.int32).expand(2, 12)
+    for got, want in zip(fo.fused_rope(q, k, cos, sin),
+                         fo.fused_rope_at(q, k, cos, sin, arange)):
+        _close(got, want.numpy(), SAME)

@@ -53,7 +53,7 @@ def test_rms_norm_bwd_matches_pallas():
                                                         True),
                      jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
     want_dx, want_dw, want_db = vjp(jnp.asarray(g))
-    _, r = rn.rms_norm(_t(x), _t(w), epsilon=1e-6)
+    _, r = rn.rms_norm_rows(_t(x), _t(w), epsilon=1e-6)
     dx, dw, db = rn.rms_norm_bwd(_t(x), _t(w), r, _t(g))
     _close(dx, want_dx)
     _close(dw, want_dw)
@@ -77,7 +77,7 @@ def test_rope_adjoint_matches_pallas():
         jnp.asarray(q), jnp.asarray(k))
     want_q, want_k = vjp((jnp.asarray(gq), jnp.asarray(gk)))
     pos = torch.arange(s, dtype=torch.int32).expand(b, s)
-    dq, dk = fo.fused_rope(_t(gq), _t(gk), cos, sin, pos, inverse=True)
+    dq, dk = fo.fused_rope_at(_t(gq), _t(gk), cos, sin, pos, inverse=True)
     _close(dq, want_q)
     _close(dk, want_k)
     qt, kt = _t(q, True), _t(k, True)

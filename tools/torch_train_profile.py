@@ -2,6 +2,7 @@
 """Where the PyTorch port's training step spends its time, on one GPU.
 
     python3 tools/torch_train_profile.py [--model llama-438m|bert-base|phi3-4l]
+                                         [--dtype bf16|f32]
 
 Runs one of chip_smoke.py's training workloads: ``llama-438m`` (the
 default; ``train_workload``: the 438M LLaMA in bf16, random weights from
@@ -12,20 +13,24 @@ bench.py section (c2), BERT-base in bf16 with dropout 0, the same AdamW,
 TrainStep over BertPretrainingCriterion, batch 32 x seq 128 ids and
 labels from np.random.RandomState(0)) or ``phi3-4l`` (chip_smoke.py's
 phi3-train: ``train_workload`` at Phi-3-mini's widths, ``CFG_PHI3`` cut to
-``PHI3_TRAIN_LAYERS`` layers). Times it as chip_smoke.py times it
+``PHI3_TRAIN_LAYERS`` layers). ``--dtype f32`` builds the LLaMA
+workloads in f32 (chip_smoke.py's f32-train: the f32 kernels, TF32 off);
+BERT runs in bf16 only. Times it as chip_smoke.py times it
 (``timed_steps``: one warm-up step, then the median of five steps timed
 with CUDA events), then runs two steps under torch.profiler. Prints one
 JSON object: the step time, the device's busy and idle share of the
 profiled steps, device time per step grouped into the port's kernels,
 GEMMs, CE/softmax, LayerNorm, the optimizer (every kernel launched inside
 ``optimizer.step``), elementwise and the rest, and the path's kernels'
-launches per step (the wrappers' counts: the RMSNorm backward is two
-device kernels, the strips' partial sums and their reduction).
+launches per step (the wrappers' counts, ``[f32]`` launches under the
+kernel's name: the RMSNorm backward is two device kernels, the strips'
+partial sums and their reduction).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -36,9 +41,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 PROFILED = 2
-# kernel-name fragment -> the port's kernel; the first match wins. The
-# RoPE kernel's two directions are one template, told apart by its
-# argument as the profiler spells it.
+# kernel-name fragment -> the port's kernel; the first match wins (an f32
+# twin's name holds its bf16 kernel's). The RoPE kernel's two directions
+# are one template, told apart by its last argument as the profiler spells
+# it, after the element type.
 OURS = (("rms_norm_bwd", "rms_norm_bwd"), ("rms_norm_fwd", "rms_norm"),
         ("flash_bwd_dkdv", "flash_attention_bwd_dkdv"),
         ("flash_bwd_dq", "flash_attention_bwd_dq"),
@@ -47,13 +53,13 @@ OURS = (("rms_norm_bwd", "rms_norm_bwd"), ("rms_norm_fwd", "rms_norm"),
 PATH_KERNELS = {label for _, label in OURS} | {"fused_rope",
                                                "fused_rope_bwd"}
 OPTIMIZER = "optimizer.step"
+ROPE_INVERSE = re.compile(r"rope_kernel<(?:[^<>]*, )?(?:true|\(bool\)1|1)>")
 
 
 def group_of(name):
     if "rope_kernel" in name:
-        inverse = any(f"rope_kernel<{t}>" in name
-                      for t in ("true", "(bool)1", "1"))
-        return "fused_rope_bwd" if inverse else "fused_rope"
+        return ("fused_rope_bwd" if ROPE_INVERSE.search(name)
+                else "fused_rope")
     for key, label in OURS:
         if key in name:
             return label
@@ -87,7 +93,10 @@ def main():
     parser.add_argument("--model",
                         choices=("llama-438m", "bert-base", "phi3-4l"),
                         default="llama-438m")
+    parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     args = parser.parse_args()
+    if args.model == "bert-base" and args.dtype != "bf16":
+        parser.error("bert-base runs in bf16 only")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -95,12 +104,15 @@ def main():
     import chip_smoke
     from paddle_tpu_torch.ops.cuda import launch_counts
 
+    dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
+    tag = "[f32]" if args.dtype == "f32" else ""
     workload = {
-        "llama-438m": chip_smoke.train_workload,
+        "llama-438m": lambda: chip_smoke.train_workload(dtype=dtype),
         "bert-base": chip_smoke.bert_train_workload,
         "phi3-4l": lambda: chip_smoke.train_workload(
             {**chip_smoke.CFG_PHI3,
-             "num_hidden_layers": chip_smoke.PHI3_TRAIN_LAYERS})}[args.model]
+             "num_hidden_layers": chip_smoke.PHI3_TRAIN_LAYERS},
+            dtype)}[args.model]
     _, opt, step, ids, labels = workload()
     batch, seqlen = ids.shape
     step_fn = opt.step
@@ -123,7 +135,8 @@ def main():
             step(ids, labels=labels)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    launches = {k: launch_counts[k] / PROFILED for k in sorted(PATH_KERNELS)}
+    launches = {k: launch_counts[k + tag] / PROFILED
+                for k in sorted(PATH_KERNELS)}
     groups, kernels, busy_us = {}, {}, 0.0
     for e in prof.key_averages():
         # the optimizer's range also shows as a device-side annotation
@@ -145,6 +158,7 @@ def main():
                    for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
     print(json.dumps({
         "card": torch.cuda.get_device_name(0), "model": args.model,
+        "dtype": args.dtype,
         "batch": batch, "seq": seqlen,
         "step_ms": step_ms,
         "tokens_per_sec": batch * seqlen / (step_ms / 1e3),
