@@ -35,7 +35,16 @@ so that a fault surfaces in the phase that caused it:
             tests/test_torch_cuda.py's flash tests (bucket 32, ragged
             lengths, GQA groups 2-8, a causal offset, sq > sk non-causal,
             three tiles with the last ragged) and at 1025 and 383 rows,
-            forward, dK/dV and dQ, within the same gate.
+            forward, dK/dV and dQ, within the same gate. The second decode
+            megakernel (csrc/decode_megakernel_any.cuh) at the e2 decode
+            shape: the 438M layer in f32 (the f32 gate below), and in bf16
+            Phi-3-mini's widths (32 heads of 96), Phi-2's (32 of 80),
+            16 heads of 256 on 2 kv heads and a group of 16 (32 heads of
+            128 on 2 kv heads). Paged decode past 8 query heads per kv
+            head (chunks of at most 8 heads, a block each): groups 12
+            (q (8, 96, D) on 8 kv heads, Mistral-Large-2), 16 (128 on 8)
+            and 32 (32 on 1), at D = 128 and 64, bf16 and f32, in e2's
+            pool layout and lengths.
 4. flash-segments  the segment-masked flash kernels (``kSegments``)
             against their plain versions on the same ids, within the
             kernel gate on rows with a visible key, rows with none exactly
@@ -118,16 +127,28 @@ so that a fault surfaces in the phase that caused it:
             dims 96 and 256.
 14. phi3-serve  a LLaMA at Phi-3-mini's widths (CFG_PHI3: 32 layers,
             hidden 3072, 32 heads of 96) behind the engine on e2's
-            traffic, the default decode_megakernel=1 (the megakernel
-            declines head dim 96): all 24 requests finished, tokens/s,
-            launches per decode step, the four unfused kernels launched;
-            gated first on a 2-layer model's logits (prefill and 4 decode
-            steps) against f32 on the CPU within MODEL_REL_L2.
+            traffic in two arms, the default decode_megakernel=1 (fused:
+            the second megakernel at head dim 96, once a layer a decode
+            step) and decode_megakernel=0 (unfused: the four serving
+            kernels): all 24 requests finished, tokens/s, launches per
+            decode step; gated first on a 2-layer model's logits (prefill
+            and 4 decode steps) against f32 on the CPU within
+            MODEL_REL_L2.
 15. phi3-train  the same widths at 4 layers (a depth cut): the train
             phase's step, batch 4 x seq 1536, 1 warm-up and 5 timed
             steps (step ms, MFU, peak memory, losses finite and
             falling); then phi3-grad, the grad phase at those widths.
-16. f32-kernel  the f32 instantiations of the four serving kernels (the
+16. mistral-large-serve  a LLaMA at Mistral-Large-Instruct-2407's
+            widths (CFG_MISTRAL_LARGE: hidden 12288, 96 heads of 128 on 8
+            kv heads, a GQA group of 12), cut to 4 of its 88 layers
+            (~6.3 B parameters), bf16, on e2's traffic with the default
+            decode_megakernel=1, which the probe declines (hidden 12288):
+            paged decode at group 12 once a layer a decode step, the
+            flash forward at group 12 in the prefills; all 24 requests
+            finished, tokens/s, launches per decode step, peak memory;
+            gated first on a 1-layer model's logits against f32 on the
+            CPU within MODEL_REL_L2.
+17. f32-kernel  the f32 instantiations of the four serving kernels (the
             JAX model's default dtype) against their f32 plain versions
             within 1e-4 + 1e-4 |plain| (lse too), TF32 off, each timed
             beside its bound (bytes, or flops at the f32 FMA rate of 67
@@ -139,16 +160,18 @@ so that a fault surfaces in the phase that caused it:
             heads (F.scaled_dot_product_attention in f32 beside it), with
             segments (rows with no key exactly 0, lse -1e30), paged decode
             in e2's pool.
-17. f32-serve  the 438M in f32 behind the engine on e2's traffic (the
-            default decode_megakernel=1; the megakernel takes bf16 only,
-            so decode runs unfused, as in JAX), three runs, each beside a
-            run of the bf16 unfused arm on the same weights rounded:
-            gated on the f32 logits (prefill and 4 decode steps) within
-            1e-3 relative L2 of the CPU, all 24 requests finished, the
-            four [f32] kernels launched and no bf16 one; tokens/s,
-            launches and device idle per decode step, peak memory, and
-            how far the f32 and bf16 greedy streams agree.
-18. f32-train-kernel  the f32 training path's backward kernels against
+18. f32-serve  the 438M in f32 behind the engine on e2's traffic in
+            three arms, in turns, twice: f32 fused (the default
+            decode_megakernel=1: fused_decode_layer[f32]), f32 unfused
+            (decode_megakernel=0: the four [f32] serving kernels) and bf16
+            unfused on the same weights rounded; gated on the f32 logits
+            (prefill and 4 decode steps, unfused and fused) within 1e-3
+            relative L2 of the CPU, the fused steps' pools within the f32
+            kernel gate of the unfused ones', all 24 requests finished,
+            launches in the model's dtype only; tokens/s, launches and
+            device idle per decode step, peak memory, and how far the
+            greedy streams agree.
+19. f32-train-kernel  the f32 training path's backward kernels against
             their f32 plain versions within 1e-4 + 1e-4 |plain|, TF32
             off, each timed beside its bound (bytes, or flops at the f32
             FMA rate), the plain version and a library call
@@ -161,24 +184,27 @@ so that a fault surfaces in the phase that caused it:
             2 kv heads and (4, 1536, 32, 80) through the padded route,
             and the [seg] forms at the varlen shape (1, 6144, 12, 128)
             causal with its 7 packed documents.
-19. f32-grad  the grad phase in f32: a 2-layer model at the 438M widths
+20. f32-grad  the grad phase in f32: a 2-layer model at the 438M widths
             on (1, 256) ids, f32 on the card against f32 on the CPU: the
             loss within 1e-5 relative, every gradient within 1e-4
             relative L2, no bf16 launch.
-20. f32-train  the train phase on the 438M in f32 (the JAX model's
+21. f32-train  the train phase on the 438M in f32 (the JAX model's
             default dtype), full width and depth, batch 4 x seq 1536:
             step ms, tokens/s, MFU against the bf16 peak and the f32 FMA
             peak, peak memory, losses (finite, falling, the first within
             1.0 of ln 32000), and one step's launches: the seven [f32]
             training kernels at 25/25/12/12/12/12/12 and nothing else;
             then the three f32 phases' seconds.
-21. kernels one JSON line listing every ported kernel, with the unfused
+22. kernels one JSON line listing every ported kernel, with the unfused
             serving arm's launches for the serving kernels, the fused
             arm's for the megakernel, the LLaMA training step's for the
             backward kernels, the incubate phase's for the bdrln kernel,
             the varlen phase's for the three [seg] rows, the Phi-3
-            paths' for the eight [d=96] / [h=3072] rows, f32-serve's
-            for the four [f32] serving rows and f32-train's for the four
+            paths' for the eight [d=96] / [h=3072] rows (phi3-serve's
+            unfused arm) and fused_decode_layer[d=96] (its fused arm),
+            mistral-large-serve's for paged_attention[g=12], f32-serve's
+            unfused f32 arm for the four [f32] serving rows and its fused
+            arm for fused_decode_layer[f32], and f32-train's for the four
             [f32] backward rows; before it, the whole script's time.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
@@ -187,6 +213,7 @@ does a machine without a GPU.
 """
 from __future__ import annotations
 
+import copy
 import itertools
 import json
 import subprocess
@@ -321,8 +348,9 @@ def compare(name, got, want, atol=ATOL, rtol=RTOL):
     err = (got - want).abs()
     bad = err > atol + rtol * want.abs()
     if bad.any():
+        at = atol if isinstance(atol, float) else "per element"
         raise PhaseFailed(f"{name}: {int(bad.sum())} elements beyond "
-                          f"atol {atol} + rtol {rtol}; max abs err "
+                          f"atol {at} + rtol {rtol}; max abs err "
                           f"{err.max().item():.3g}")
     return err.max().item()
 
@@ -473,47 +501,114 @@ def kernel_phase(peaks):
 MK_LENGTHS = [1, 17, 127, 128, 200, 255, 256, 510]
 
 
-def megakernel_layer(kvh, gen):
-    """A decoder layer at the 438M widths with ``kvh`` kv heads, drawn by
-    the model's initialiser (weights N(0, 0.02), norm scales 1)."""
+def megakernel_layer(cfg, gen, dtype=torch.bfloat16):
+    """A decoder layer at ``cfg``'s widths in ``dtype``, drawn by the
+    model's initialiser (weights N(0, 0.02), norm scales 1)."""
     from paddle_tpu_torch.models import LlamaConfig
     from paddle_tpu_torch.models.llama import LlamaDecoderLayer
 
-    cfg = LlamaConfig(**{**CFG_438M, "num_key_value_heads": kvh})
-    return LlamaDecoderLayer(cfg, generator=gen, device="cuda",
-                             dtype=torch.bfloat16)
+    return LlamaDecoderLayer(LlamaConfig(**cfg), generator=gen, device="cuda",
+                             dtype=dtype)
 
 
-def megakernel_case(peaks, kvh, gen, randn):
+def h_mid_gate(name, got, want, x, o):
+    """The second decode megakernel's bf16 h_mid = bf16(x + bf16(o))
+    against the plain version's, o (B, hidden) being the plain version's
+    bf16(o). It rounds twice: where kernel and plain version sum o in
+    other orders and land on the two sides of a rounding boundary of o,
+    the kernel's bf16(o) is a bf16 neighbour of the plain one, and h_mid
+    can move by up to an ulp of o, more than an ulp of h_mid where |o| >
+    |h_mid|. An element passes the one-rounding gate (``compare``) or
+    equals bf16(x + o') for o' one of the two bf16 neighbours of the
+    plain bf16(o); nothing else. Returns (max abs err, the elements only
+    the neighbour rule takes)."""
+    got, want = got[:, 0], want[:, 0]
+    if not torch.isfinite(got.float()).all():
+        raise PhaseFailed(f"{name}: kernel output not finite")
+    err = (got.float() - want.float()).abs()
+    one = err <= ATOL + RTOL * want.float().abs()
+    bits = o.contiguous().view(torch.int16)
+    near = torch.zeros_like(one)
+    for step in (-1, 1):
+        o_ = (bits + step).view(torch.bfloat16).float()
+        near |= got == (x[:, 0].float() + o_).to(torch.bfloat16)
+    bad = ~(one | near)
+    if bad.any():
+        raise PhaseFailed(f"{name}: {int(bad.sum())} elements beyond atol "
+                          f"{ATOL} + rtol {RTOL} and not x + a bf16 "
+                          f"neighbour of o; max abs err "
+                          f"{err.max().item():.3g}")
+    return err.max().item(), int((near & ~one).sum())
+
+
+def second_kernel(run, check, kp, vp):
+    """csrc/decode_megakernel_any.cuh's kernel at a case of
+    csrc/decode_megakernel.cu's (``run(k_pages, v_pages)`` launches the
+    wrapper, which picks the first kernel there; for these calls the
+    dispatch's table of first-kernel head dims is emptied), gated by
+    ``check(got, k_pages, v_pages)`` and timed in turns with the first:
+    first, second, second, first. The measured ground for keeping both
+    kernels."""
+    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
+
+    def timed():
+        k, v = kp.clone(), vp.clone()
+        return graph_ms(lambda: run(k, v))
+
+    first_dims = mk._FIRST_HEAD_DIMS
+    try:
+        mk._FIRST_HEAD_DIMS = ()
+        k, v = kp.clone(), vp.clone()
+        with torch.no_grad():
+            err, nb = check(run(k, v), k, v)
+        mk._FIRST_HEAD_DIMS = first_dims
+        ms = [timed()]
+        mk._FIRST_HEAD_DIMS = ()
+        ms += [timed(), timed()]
+    finally:
+        mk._FIRST_HEAD_DIMS = first_dims
+    ms.append(timed())
+    return dict(max_abs_err=err, h_mid_elements_by_neighbour_rule=nb,
+                first_ms=[ms[0], ms[3]], second_ms=[ms[1], ms[2]])
+
+
+def megakernel_case(peaks, cfg, gen, randn, dtype=torch.bfloat16, case=None):
     """The decode megakernel against its plain version at the e2 decode
-    shape: 8 rows over the engine's pool layout (max_len 512, page 128:
-    32 real pages and the dump page; tables of 4 visible columns and a
-    trailing scratch column, tails on the dump page), depths MK_LENGTHS.
-    x is layer 0's input, an embedding row (N(0, 0.02)); weights
-    N(0, 0.02); norm scales random powers of two (0.5, 1, 2), exact in
-    bf16, so that a scale adds no rounding of its own.
+    shape, in a layer at ``cfg``'s widths in ``dtype``: 8 rows over the
+    engine's pool layout (max_len 512, page 128: 32 real pages and the
+    dump page; tables of 4 visible columns and a trailing scratch column,
+    tails on the dump page), depths MK_LENGTHS. x is layer 0's input, an
+    embedding row (N(0, 0.02)); weights N(0, 0.02); norm scales random
+    powers of two (0.5, 1, 2), exact in bf16, so that a scale adds no
+    rounding of its own.
 
     h_mid and both pools (the dump page left out) are held against the
     plain version; y2 against the plain norm of the kernel's own h_mid.
-    h_mid = bf16(x + bf16(o)) already admits a one-ulp difference (f32
-    sums in other orders round o either way), and y2 renormalises h_mid,
-    so held against the plain y2 that one ulp would count twice; the
-    plain y2's difference is reported. Times the kernel, its plain
-    version and the port's own unfused layer half (rms_norm kernel,
+    y2 renormalises h_mid, so held against the plain y2 a difference of
+    h_mid would count again; the plain y2's difference is reported. In
+    f32 nothing is rounded, and h_mid and y2 are held against the plain
+    version's at the f32 gate. In bf16 csrc/decode_megakernel.cu's cases
+    (head dim 64 or 128, groups up to 8) hold h_mid at the one-rounding
+    gate; the second kernel's at ``h_mid_gate``. Times the kernel, its
+    plain version and the port's own unfused layer half (rms_norm kernel,
     GEMMs, RoPE kernel, cache write, paged decode kernel, o_proj,
-    residual, rms_norm kernel) on the same inputs."""
+    residual, rms_norm kernel) on the same inputs. At the first kernel's
+    cases the second kernel runs too, gated and timed beside the first
+    (``second_kernel``)."""
     from paddle_tpu_torch.models.generation import _make_paged_cache
     from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
 
-    layer = megakernel_layer(kvh, gen)
+    layer = megakernel_layer(cfg, gen, dtype)
     attn = layer.self_attn
-    cfg = attn.config
+    lcfg = attn.config
+    f32 = dtype == torch.float32
     with torch.no_grad():
         for ln in (layer.input_layernorm, layer.post_attention_layernorm):
             ln.weight.copy_(2.0 ** torch.randint(
                 -1, 2, ln.weight.shape, generator=gen, device="cuda"))
     b, page, per_seq = 8, 128, 4
-    hidden, heads, hd = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+    hidden, heads = lcfg.hidden_size, lcfg.num_attention_heads
+    hd, kvh = lcfg.head_dim, lcfg.num_key_value_heads
     n_pages = b * per_seq + 1
     dump = n_pages - 1
     perm = np.random.RandomState(0).permutation(b * per_seq)
@@ -525,9 +620,10 @@ def megakernel_case(peaks, kvh, gen, randn):
         used += np_
     tab = torch.tensor(tables, device="cuda")
     lens = torch.tensor(MK_LENGTHS, dtype=torch.int32, device="cuda")
-    x = randn(b, 1, hidden, std=0.02)
-    kp, vp = randn(n_pages, page, kvh, hd), randn(n_pages, page, kvh, hd)
-    eps = cfg.rms_norm_eps
+    x = randn(b, 1, hidden, std=0.02).to(dtype)
+    kp = randn(n_pages, page, kvh, hd).to(dtype)
+    vp = randn(n_pages, page, kvh, hd).to(dtype)
+    eps = lcfg.rms_norm_eps
     args = dict(ln1_weight=layer.input_layernorm.weight, ln1_eps=eps,
                 wq=attn.q_proj.weight, wk=attn.k_proj.weight,
                 wv=attn.v_proj.weight, wo=attn.o_proj.weight,
@@ -540,12 +636,30 @@ def megakernel_case(peaks, kvh, gen, randn):
     with torch.no_grad():
         got = mk.fused_decode_layer(x, k_pages=kk, v_pages=kv_, **args)
         want = mk.fused_decode_layer_plain(x, k_pages=pk, v_pages=pv, **args)
+    tag = f"fused_decode_layer({case or f'kvh={kvh}'})"
+    first = not f32 and (hd in mk._FIRST_HEAD_DIMS
+                         and heads // kvh <= mk._FIRST_MAX_GROUP)
+    o_args = {k: v for k, v in args.items()
+              if k not in ("ln2_weight", "ln2_eps", "dump_page")}
+
+    def check(tag, got, kk, kv_, second):
+        """The gates of one kernel's outputs; returns (max abs err, the
+        h_mid elements that only h_mid_gate's neighbour rule takes)."""
         y2_own = mk.decode_norm_plain(got[0], args["ln2_weight"], eps)
-    tag = f"fused_decode_layer(kvh={kvh})"
-    err = max(compare(f"{tag} h_mid", got[0], want[0]),
-              compare(f"{tag} y2", got[1], y2_own),
-              compare(f"{tag} k_pages", kk[:dump], pk[:dump]),
-              compare(f"{tag} v_pages", kv_[:dump], pv[:dump]))
+        gate = f32_compare if f32 else compare
+        nb = 0
+        if f32 or not second:
+            h = gate(f"{tag} h_mid", got[0], want[0])
+        else:
+            o = mk.decode_attention_o_plain(x, k_pages=kp.clone(),
+                                            v_pages=vp.clone(), **o_args)
+            h, nb = h_mid_gate(f"{tag} h_mid", got[0], want[0], x, o)
+        return max(h, gate(f"{tag} y2", got[1], want[1] if f32 else y2_own),
+                   gate(f"{tag} k_pages", kk[:dump], pk[:dump]),
+                   gate(f"{tag} v_pages", kv_[:dump], pv[:dump])), nb
+
+    with torch.no_grad():
+        err, h_neighbours = check(tag, got, kk, kv_, not first)
     torch.cuda.synchronize()
 
     def unfused():
@@ -555,25 +669,28 @@ def megakernel_case(peaks, kvh, gen, randn):
 
     with torch.no_grad():
         uh, uy = unfused()
-    w_bytes = sum(w.numel() * 2 for w in (attn.q_proj.weight,
-                                          attn.k_proj.weight,
-                                          attn.v_proj.weight,
-                                          attn.o_proj.weight))
+    size = x.element_size()
+    w_bytes = sum(w.numel() * size for w in (attn.q_proj.weight,
+                                             attn.k_proj.weight,
+                                             attn.v_proj.weight,
+                                             attn.o_proj.weight))
     toks = sum(min(n, per_seq * page) for n in MK_LENGTHS)  # pool rows read
-    nb = (w_bytes + 2 * hidden * 2 + 3 * b * hidden * 2
-          + 2 * (toks + b) * kvh * hd * 2 + 2 * b * hd * 4
+    nb = (w_bytes + 2 * hidden * size + 3 * b * hidden * size
+          + 2 * (toks + b) * kvh * hd * size + 2 * b * hd * 4
           + tab.numel() * 4 + b * 4)
     flops = (2 * b * hidden * (heads + 2 * kvh) * hd
              + 2 * b * heads * hd * hidden
              + 4 * (toks + b) * heads * hd)
-    bms, by = bound_ms(nb, flops, peaks)
+    bms, by = bound_ms(nb, flops, peaks, flop_rate=peaks[2] if f32 else None)
     with torch.no_grad():
         rec = dict(
-            case=f"e2 decode, kv heads {kvh}", shape=[b, hidden],
-            lengths=MK_LENGTHS, max_abs_err=err,
+            case=f"e2 decode, {case or f'kv heads {kvh}'}",
+            dtype=str(dtype), shape=[b, hidden], heads=heads, kv_heads=kvh,
+            head_dim=hd, lengths=MK_LENGTHS, max_abs_err=err,
             y2_vs_plain_max_abs=float((got[1].float()
                                        - want[1].float()).abs().max()),
             h_mid_elements_differing=int((got[0] != want[0]).sum()),
+            h_mid_elements_by_neighbour_rule=h_neighbours,
             unfused_vs_fused_h_mid_max_abs=float(
                 (uh.float() - got[0].float()).abs().max()),
             ms=graph_ms(lambda: mk.fused_decode_layer(
@@ -585,7 +702,14 @@ def megakernel_case(peaks, kvh, gen, randn):
                 x, k_pages=kk, v_pages=kv_, **args)),
             eager_unfused_ms=eager_ms(unfused),
             bound_ms=bms, bound_by=by, bound_bytes=nb, bound_flops=flops)
-    emit("kernel", name="fused_decode_layer", **rec)
+        if first:
+            rec["second_kernel"] = second_kernel(
+                lambda k, v: mk.fused_decode_layer(x, k_pages=k, v_pages=v,
+                                                   **args),
+                lambda got, k, v: check(f"{tag} second kernel", got, k, v,
+                                        True), kp, vp)
+    emit("kernel", name="fused_decode_layer" + ("[f32]" if f32 else ""),
+         **rec)
     torch.cuda.synchronize()
     return rec
 
@@ -593,33 +717,57 @@ def megakernel_case(peaks, kvh, gen, randn):
 def megakernel_phase(peaks):
     """The decode megakernel at the 438M serving decode (12 kv heads) and
     on a GQA case (4 kv heads, 3 query heads each), which the 438M model
-    does not exercise."""
+    does not exercise; then the cases of csrc/decode_megakernel_any.cuh
+    (all but bf16 at head dims 64 and 128 with groups up to 8): the 438M
+    layer in f32, Phi-3-mini's widths (32 heads of 96), Phi-2's (32 heads
+    of 80), head dim 256 (16 heads on 2 kv heads) and a group of 16 (32
+    heads of 128 on 2 kv heads). Widths are a LLaMA's, head dim hidden /
+    heads. Returns the rows of the kernels line."""
     from paddle_tpu_torch import seed
 
     gen = seed(4, "cuda")
 
     def randn(*shape, std=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda")
-                * std).to(torch.bfloat16)
+        return torch.randn(shape, generator=gen, device="cuda") * std
 
-    rec = megakernel_case(peaks, 12, gen, randn)
-    megakernel_case(peaks, 4, gen, randn)
-    return {"fused_decode_layer": rec}
+    rec = megakernel_case(peaks, CFG_438M, gen, randn)
+    megakernel_case(peaks, {**CFG_438M, "num_key_value_heads": 4}, gen, randn)
+    results = {"fused_decode_layer": rec}
+    results["fused_decode_layer[f32]"] = megakernel_case(
+        peaks, CFG_438M, gen, randn, torch.float32, "438M f32")
+    results["fused_decode_layer[d=96]"] = megakernel_case(
+        peaks, CFG_PHI3, gen, randn, case="phi3-mini widths, d 96")
+    for case, widths in (
+            ("phi2 widths, d 80", dict(hidden_size=2560,
+                                       num_attention_heads=32)),
+            ("d 256 on 2 kv heads", dict(hidden_size=4096,
+                                         num_attention_heads=16,
+                                         num_key_value_heads=2)),
+            ("group 16", dict(hidden_size=4096, num_attention_heads=32,
+                              num_key_value_heads=2))):
+        megakernel_case(peaks, {**CFG_438M, "num_key_value_heads": None,
+                                **widths}, gen, randn, case=case)
+    return results
 
 
-def card_and_cpu(cfg, seeds, dtype=torch.bfloat16):
+def card_and_cpu(cfg, seed_, dtype=torch.bfloat16):
     """The model of ``cfg`` in ``dtype`` on the card (random N(0, 0.02)
-    weights from ``seed(seeds[0])``) and the same weights in f32 on the
-    CPU."""
+    weights from ``seed(seed_)``) and a copy of it in f32 on the CPU (the
+    same weights; no second draw). The copy's RoPE tables (buffers that
+    are no part of the weights) are built anew on the CPU, so that the
+    reference owes nothing to tables computed on the card."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import _rope_tables
 
     card = LlamaForCausalLM(cfg, device="cuda", dtype=dtype,
-                            generator=seed(seeds[0], "cuda"))
-    cpu = LlamaForCausalLM(cfg, device="cpu", dtype=torch.float32,
-                           generator=seed(seeds[1], "cpu"))
-    cpu.load_state_dict({k: v.float().cpu()
-                         for k, v in card.state_dict().items()})
+                            generator=seed(seed_, "cuda"))
+    cpu = copy.deepcopy(card).to(device="cpu", dtype=torch.float32)
+    for m in cpu.modules():
+        if hasattr(m, "rope_cos"):
+            c = m.config
+            m.rope_cos, m.rope_sin = _rope_tables(
+                c.head_dim, c.max_position_embeddings, c.rope_theta, "cpu")
     return card, cpu
 
 
@@ -627,7 +775,8 @@ def prefill_decode(model, prompts, steps, fused=False):
     """Last-position logits (f32, on the CPU) of a bucket prefill of
     ``prompts`` (B, S) into paged caches (page 128), then of each decode
     step's tokens in ``steps`` (n, B); ``fused`` gives the caches per-slot
-    (B,) depths and decodes under megakernel_scope(True)."""
+    (B,) depths and decodes under megakernel_scope(True). Returns the
+    logits and the caches."""
     from paddle_tpu_torch.models.llama import PagedKVCache
     from paddle_tpu_torch.ops.cuda.decode_megakernel import megakernel_scope
 
@@ -648,7 +797,7 @@ def prefill_decode(model, prompts, steps, fused=False):
                 outs.append(model(torch.tensor(tok[:, None],
                                                device=model.device),
                                   caches=caches)[:, -1].float().cpu())
-    return outs
+    return outs, caches
 
 
 def model_phase():
@@ -656,13 +805,13 @@ def model_phase():
     from paddle_tpu_torch.ops.cuda import launch_counts
 
     cfg = LlamaConfig(**CFG_438M)
-    card, cpu = card_and_cpu(cfg, (0, 1))
+    card, cpu = card_and_cpu(cfg, 0)
     rng = np.random.RandomState(0)
     prompts = rng.randint(0, cfg.vocab_size, (2, 128))
     steps = rng.randint(0, cfg.vocab_size, (4, 2))
 
     def run(model, fused=False):
-        return prefill_decode(model, prompts, steps, fused)
+        return prefill_decode(model, prompts, steps, fused)[0]
 
     t0 = time.monotonic()
     got, want = run(card), run(cpu)
@@ -725,47 +874,62 @@ SERVE_UNFUSED_KERNELS = ("rms_norm", "fused_rope", "flash_attention",
                          "paged_attention")
 
 
-def serving_arm(model, fused, name, smi):
-    """One arm of the e2 run; launch counts zeroed just before the run and
-    read just after it. Returns (prompts, outputs, stats, counts)."""
+def serving_arm(model, decode_megakernel, name, smi, phase="serving",
+                fused=None):
+    """One run of e2's traffic (``serving_workload``) on ``model`` with
+    the engine's ``decode_megakernel`` (1: the fused decode layers where
+    the probe takes the model, 0: unfused); ``fused`` is the decision the
+    engine must make (default: ``decode_megakernel``). Launch counts are
+    zeroed just before the run and read just after it. Gated: every
+    request finishes with SERVE_NEW_TOKENS tokens, the pools stay finite,
+    and only kernels of the model's dtype launch (an f32 launch counted
+    as ``<kernel>[f32]``): fused, the megakernel once a layer a decode
+    step and paged decode never; unfused, the four serving kernels and no
+    megakernel. Returns (engine, prompts, outputs, record)."""
     from paddle_tpu_torch.ops.cuda import launch_counts
 
+    fused = bool(decode_megakernel) if fused is None else fused
+    tag = "[f32]" if model.dtype == torch.float32 else ""
     arm = "fused" if fused else "unfused"
     vocab = model.config.vocab_size
-    eng, prompts = serving_workload(model, decode_megakernel=int(fused))
+    eng, prompts = serving_workload(model, decode_megakernel)
     torch.cuda.synchronize()
     launch_counts.clear()
     outs, stats = eng.run(prompts, max_new_tokens=SERVE_NEW_TOKENS,
                           segment=SERVE_SEGMENT)
     torch.cuda.synchronize()
     counts = dict(launch_counts)
-    ok = all(len(o) == SERVE_NEW_TOKENS and o.min() >= 0 and o.max() < vocab
-             for o in outs)
-    finite = all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
     steps = stats["segments"] * SERVE_SEGMENT
-    emit("serving", arm=arm, megakernel=stats["megakernel"],
-         requests=len(outs), new_tokens=SERVE_NEW_TOKENS,
-         tokens_per_sec=stats["tokens_per_sec"], wall_s=stats["wall_s"],
-         useful_tokens=stats["useful_tokens"], segments=stats["segments"],
-         decode_steps=steps, mean_occupancy=stats["mean_occupancy"],
-         launches=counts, kv_finite=finite, card=name, nvidia_smi=smi)
-    if (not ok or not finite or stats["megakernel"] != fused
-            or stats["useful_tokens"] != len(prompts) * SERVE_NEW_TOKENS):
-        raise PhaseFailed(f"serving ({arm}): outputs ok={ok}, kv finite="
-                          f"{finite}, megakernel {stats['megakernel']}, "
-                          f"tokens {stats['useful_tokens']}")
+    finished = sum(bool(len(o) == SERVE_NEW_TOKENS and o.min() >= 0
+                        and o.max() < vocab) for o in outs)
+    finite = all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
+    rec = dict(arm=arm, dtype=str(model.dtype), megakernel=stats["megakernel"],
+               requests=len(outs), finished=finished,
+               new_tokens=SERVE_NEW_TOKENS,
+               tokens_per_sec=stats["tokens_per_sec"], wall_s=stats["wall_s"],
+               useful_tokens=stats["useful_tokens"],
+               segments=stats["segments"], decode_steps=steps,
+               mean_occupancy=stats["mean_occupancy"], launches=counts,
+               launches_per_decode_step={k: v / steps
+                                         for k, v in counts.items()},
+               kernel_launches_per_decode_step=sum(counts.values()) / steps,
+               kv_finite=finite, card=name, nvidia_smi=smi)
+    emit(phase, **rec)
     layers = model.config.num_hidden_layers
+    wrong = [k for k in counts if k.endswith("[f32]") != bool(tag)]
     if fused:
-        if (counts.get("fused_decode_layer", 0) != layers * steps
-                or counts.get("paged_attention", 0)):
-            raise PhaseFailed(f"serving (fused): launches {counts}, want "
-                              f"fused_decode_layer {layers} x {steps} and no "
-                              f"paged_attention")
+        bad = (counts.get("fused_decode_layer" + tag, 0) != layers * steps
+               or counts.get("paged_attention" + tag, 0))
     else:
-        missing = [k for k in SERVE_UNFUSED_KERNELS if counts.get(k, 0) <= 0]
-        if missing or counts.get("fused_decode_layer", 0):
-            raise PhaseFailed(f"serving (unfused): launches {counts}")
-    return prompts, outs, stats, counts
+        bad = (any(counts.get(k + tag, 0) <= 0 for k in SERVE_UNFUSED_KERNELS)
+               or counts.get("fused_decode_layer" + tag, 0))
+    if (finished != len(prompts) or not finite or wrong or bad
+            or stats["megakernel"] != fused
+            or stats["useful_tokens"] != len(prompts) * SERVE_NEW_TOKENS):
+        raise PhaseFailed(f"{phase} ({arm}): finished {finished} of "
+                          f"{len(prompts)}, kv finite {finite}, megakernel "
+                          f"{stats['megakernel']}, launches {counts}")
+    return eng, prompts, outs, rec
 
 
 def serving_phase(model, name, smi):
@@ -774,26 +938,26 @@ def serving_phase(model, name, smi):
     forward over the prompt and the common prefix says how near a tie the
     choice was (printed beside the logits' scale, not gated). Returns each
     arm's launch counts."""
-    prompts, u_outs, u_stats, u_counts = serving_arm(model, False, name, smi)
-    _, f_outs, f_stats, f_counts = serving_arm(model, True, name, smi)
-    parts = [next((i for i, (a, b) in enumerate(zip(u, f)) if a != b), None)
-             for u, f in zip(u_outs, f_outs)]
+    _, prompts, u_outs, u = serving_arm(model, 0, name, smi)
+    _, _, f_outs, f = serving_arm(model, 1, name, smi)
+    parts = [next((i for i, (a, b) in enumerate(zip(u_, f_)) if a != b), None)
+             for u_, f_ in zip(u_outs, f_outs)]
     gaps, scales = [], []
     with torch.no_grad():
-        for prompt, u, p in zip(prompts, u_outs, parts):
+        for prompt, u_, p in zip(prompts, u_outs, parts):
             if p is None:
                 continue
-            seq = np.concatenate([prompt, u[:p]]).astype(np.int64)
+            seq = np.concatenate([prompt, u_[:p]]).astype(np.int64)
             logits = model(torch.tensor(seq[None], device="cuda"))[0, -1]
             top2 = torch.topk(logits.float(), 2).values
             gaps.append(float(top2[0] - top2[1]))
             scales.append(float(logits.float().std()))
-    emit("serving_arms", unfused_tokens_per_sec=u_stats["tokens_per_sec"],
-         fused_tokens_per_sec=f_stats["tokens_per_sec"],
+    emit("serving_arms", unfused_tokens_per_sec=u["tokens_per_sec"],
+         fused_tokens_per_sec=f["tokens_per_sec"],
          streams_agree=sum(p is None for p in parts) / len(parts),
          first_index_where_streams_part=parts,
          top2_gap_where_streams_part=gaps, logit_std_there=scales)
-    return {"serving": u_counts, "serving_fused": f_counts}
+    return {"serving": u["launches"], "serving_fused": f["launches"]}
 
 
 FLASH_NAMES = ("flash_attention", "flash_attention_bwd_dkdv",
@@ -854,6 +1018,41 @@ def paged_row(da, peaks, pool, f32=False):
         eager_ms=eager_ms(lambda: da.paged_attention(
             *args, pages_per_seq=per_seq)),
         bound_ms=bms, bound_by=by)
+
+
+# paged decode past 8 query heads per kv head: (heads, kv heads) of
+# Mistral-Large-2 (group 12), Llama-3.1-405B (group 16) and multi-query
+# attention (group 32)
+PAGED_GROUP_CASES = [(96, 8), (128, 8), (32, 1)]
+
+
+def paged_group_phase(peaks):
+    """Paged decode at the groups of PAGED_GROUP_CASES, where the kernel
+    cuts a group into chunks of at most 8 query heads, a block each: at D
+    = 128 and 64, in bf16 and f32, in e2's pool layout and lengths, each
+    against its plain version and timed (``paged_row``). Returns the
+    kernels line's row: Mistral-Large-2's q (8, 96, 128) on 8 kv heads in
+    bf16."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    results = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        f32 = dtype == torch.float32
+        for heads, kvh in PAGED_GROUP_CASES:
+            for hd in (128, 64):
+                rec = paged_row(da, peaks, e2_pool(randn, heads, kvh, hd),
+                                f32=f32)
+                emit("kernel", name="paged_attention" + ("[f32]" if f32
+                                                         else ""),
+                     case=f"group {heads // kvh}, d {hd}", **rec)
+                if (heads, kvh, hd, f32) == (96, 8, 128, False):
+                    results["paged_attention[g=12]"] = rec
+    torch.cuda.synchronize()
+    return results
 
 
 def flash_rows(peaks, gen, case, b, s, h, kvh, d, causal):
@@ -1079,7 +1278,7 @@ def grad_phase(base=CFG_438M, phase="grad", dtype=torch.bfloat16):
         (F32_LOSS_REL, F32_GRAD_REL_L2, F32_LOSS_REL) if f32
         else (GRAD_LOSS_REL, GRAD_REL_L2, LABELS_REL))
     cfg = LlamaConfig(**{**base, "num_hidden_layers": 2})
-    card, cpu = card_and_cpu(cfg, (2, 3), dtype)
+    card, cpu = card_and_cpu(cfg, 2, dtype)
     ids = np.random.RandomState(1).randint(0, cfg.vocab_size, (1, 256))
     crit = LlamaPretrainingCriterion()
     t0 = time.monotonic()
@@ -2249,86 +2448,101 @@ def head_dims_phase(peaks):
     return results
 
 
-PHI3_SERVE_KERNELS = ("rms_norm", "fused_rope", "flash_attention",
-                      "paged_attention")
-
-
-def phi3_serve_phase(name, smi):
-    """The 32-layer model at Phi-3-mini's widths behind the engine on e2's
-    traffic (``serving_workload``: 8 slots, max_len 512, page 128,
-    buckets (32, 128), 24 requests of 8-119 prompt tokens from
-    RandomState(7), 64 new tokens each, greedy, segments of 32), the
-    engine's default ``decode_megakernel=1``: the megakernel declines head
-    dim 96, so the decode layers run unfused (JAX's probe declines this
-    model too: its q/k/v/o weights pass its VMEM budget). Launch counts
-    are zeroed just before the run and read just after it. First the gate:
-    a 2-layer model of the same widths, bf16 on the card against f32 on
-    the CPU, a bucket-128 prefill of 2 prompts and 4 decode steps through
-    the paged cache, logits within MODEL_REL_L2. Returns the counts."""
-    from paddle_tpu_torch.models import LlamaConfig
-    from paddle_tpu_torch.ops.cuda import launch_counts
+def llama_serve_phase(phase, cfg, gate_layers, seeds, name, smi, arms):
+    """A LLaMA at ``cfg``'s published widths in bf16 (random N(0, 0.02)
+    weights from ``seed(seeds[0])``) behind the engine on e2's traffic
+    (``serving_workload``: 8 slots, max_len 512, page 128, buckets (32,
+    128), 24 requests of 8-119 prompt tokens from RandomState(7), 64 new
+    tokens each, greedy, segments of 32), one ``serving_arm`` run for each
+    (decode_megakernel, fused) of ``arms``, in order. First the gate: a
+    ``gate_layers``-layer model of the same widths (from
+    ``seed(seeds[1])``), bf16 on the card against f32 on the CPU, a
+    bucket-128 prefill of 2 prompts and 4 decode steps through the paged
+    cache, logits within MODEL_REL_L2. Returns each arm's ``serving_arm``
+    record, by its arm name ("fused", "unfused")."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     t0 = time.monotonic()
-    small = LlamaConfig(**{**CFG_PHI3, "num_hidden_layers": 2})
-    card, cpu = card_and_cpu(small, (20, 21))
+    small = LlamaConfig(**{**cfg, "num_hidden_layers": gate_layers})
+    card, cpu = card_and_cpu(small, seeds[1])
     rng = np.random.RandomState(0)
     prompts = rng.randint(0, small.vocab_size, (2, 128))
     steps = rng.randint(0, small.vocab_size, (4, 2))
-    got = prefill_decode(card, prompts, steps)
-    want = prefill_decode(cpu, prompts, steps)
+    got, _ = prefill_decode(card, prompts, steps)
+    want, _ = prefill_decode(cpu, prompts, steps)
     rel = [float((a - b).norm() / b.norm()) for a, b in zip(got, want)]
     finite = all(bool(torch.isfinite(a).all()) for a in got)
     del card, cpu
     torch.cuda.empty_cache()
     gate_s = time.monotonic() - t0
+    emit(phase, gate_layers=gate_layers, gate_rel_l2=rel,
+         gate_tolerance=MODEL_REL_L2, gate_seconds=gate_s)
     if not finite or max(rel) > MODEL_REL_L2:
-        raise PhaseFailed(f"phi3-serve: 2-layer logits finite={finite}, "
-                          f"rel L2 {rel}")
-
-    from paddle_tpu_torch import seed
-    from paddle_tpu_torch.models import LlamaForCausalLM
+        raise PhaseFailed(f"{phase}: {gate_layers}-layer logits finite="
+                          f"{finite}, rel L2 {rel}")
 
     torch.cuda.reset_peak_memory_stats()
-    cfg = LlamaConfig(**CFG_PHI3)
-    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                             generator=seed(0, "cuda"))
-    n_params = sum(p.numel() for p in model.parameters())
-    vocab = cfg.vocab_size
-    eng, reqs = serving_workload(model)
-    torch.cuda.synchronize()
-    launch_counts.clear()
-    outs, stats = eng.run(reqs, max_new_tokens=SERVE_NEW_TOKENS,
-                          segment=SERVE_SEGMENT)
-    torch.cuda.synchronize()
-    counts = dict(launch_counts)
-    decode_steps = stats["segments"] * SERVE_SEGMENT
-    ok = all(len(o) == SERVE_NEW_TOKENS and o.min() >= 0 and o.max() < vocab
-             for o in outs)
-    finite = all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
-    emit("phi3-serve", layers=cfg.num_hidden_layers, params=n_params,
-         head_dim=cfg.head_dim, megakernel=stats["megakernel"],
-         requests=len(outs), new_tokens=SERVE_NEW_TOKENS,
-         finished=sum(len(o) == SERVE_NEW_TOKENS for o in outs),
-         tokens_per_sec=stats["tokens_per_sec"], wall_s=stats["wall_s"],
-         useful_tokens=stats["useful_tokens"], segments=stats["segments"],
-         decode_steps=decode_steps, mean_occupancy=stats["mean_occupancy"],
-         launches=counts,
-         paged_attention_per_decode_step=counts.get("paged_attention", 0)
-         / decode_steps,
-         kernel_launches_per_decode_step=sum(counts.values()) / decode_steps,
-         kv_finite=finite, max_memory_allocated=torch.cuda.max_memory_allocated(),
-         gate_rel_l2=rel, gate_tolerance=MODEL_REL_L2,
-         gate_seconds=gate_s, card=name, nvidia_smi=smi)
-    if (not ok or not finite or stats["megakernel"]
-            or stats["useful_tokens"] != len(reqs) * SERVE_NEW_TOKENS):
-        raise PhaseFailed(f"phi3-serve: outputs ok={ok}, kv finite={finite},"
-                          f" megakernel {stats['megakernel']}, tokens "
-                          f"{stats['useful_tokens']}")
-    missing = [k for k in PHI3_SERVE_KERNELS if counts.get(k, 0) <= 0]
-    if missing or counts.get("fused_decode_layer", 0):
-        raise PhaseFailed(f"phi3-serve: launches {counts}")
-    del eng, model
+    model = LlamaForCausalLM(LlamaConfig(**cfg), device="cuda",
+                             dtype=torch.bfloat16, generator=seed(seeds[0],
+                                                                  "cuda"))
+    recs = {}
+    for decode_megakernel, fused in arms:
+        _, _, _, rec = serving_arm(model, decode_megakernel, name, smi,
+                                   phase, fused)
+        recs[rec["arm"]] = rec
+    lcfg = model.config
+    emit(phase, layers=lcfg.num_hidden_layers,
+         params=sum(p.numel() for p in model.parameters()),
+         heads=lcfg.num_attention_heads, kv_heads=lcfg.num_key_value_heads,
+         head_dim=lcfg.head_dim,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         seconds=time.monotonic() - t0, card=name, nvidia_smi=smi)
+    del model
     torch.cuda.empty_cache()
+    return recs
+
+
+def phi3_serve_phase(name, smi):
+    """The 32-layer model at Phi-3-mini's widths (head dim 96) through
+    ``llama_serve_phase`` (2-layer gate), in two arms: the engine's
+    default decode_megakernel=1, which now fuses (the second megakernel
+    takes head dim 96; JAX's probe declines this model, whose q/k/v/o
+    weights pass its VMEM budget), then decode_megakernel=0, which keeps
+    paged decode at 96 on the path. Returns (unfused, fused) counts."""
+    recs = llama_serve_phase("phi3-serve", CFG_PHI3, 2, (0, 20), name,
+                             smi, ((1, True), (0, False)))
+    return recs["unfused"]["launches"], recs["fused"]["launches"]
+
+
+# Mistral-Large-Instruct-2407's published widths (its config.json): 88
+# layers of 96 heads of 128 on 8 kv heads, a GQA group of 12
+CFG_MISTRAL_LARGE = dict(vocab_size=32768, hidden_size=12288,
+                         intermediate_size=28672, num_hidden_layers=88,
+                         num_attention_heads=96, num_key_value_heads=8,
+                         max_position_embeddings=131072, rms_norm_eps=1e-5,
+                         rope_theta=1e6, tie_word_embeddings=False)
+# mistral-large-serve's depth cut: 4 of the 88 layers (about 6.3 B
+# parameters, 12.7 GB in bf16)
+MISTRAL_LARGE_LAYERS = 4
+
+
+def mistral_large_serve_phase(name, smi):
+    """MISTRAL_LARGE_LAYERS layers at Mistral-Large-2's widths through
+    ``llama_serve_phase`` (1-layer gate, ~8.8 GB of f32 on the CPU) with
+    the engine's default decode_megakernel=1: both packages' probes
+    decline the layer (hidden 12288 > MAX_HIDDEN here; its 0.6 GB of
+    q/k/v/o pass JAX's VMEM budget), so decode runs unfused, through paged
+    decode at a group of 12, once a layer a decode step; the prefill
+    takes the flash forward at group 12. Returns the run's counts."""
+    cfg = {**CFG_MISTRAL_LARGE, "num_hidden_layers": MISTRAL_LARGE_LAYERS}
+    rec = llama_serve_phase("mistral-large-serve", cfg, 1, (50, 51),
+                            name, smi, ((1, False),))["unfused"]
+    counts, steps = rec["launches"], rec["decode_steps"]
+    if counts.get("paged_attention", 0) != MISTRAL_LARGE_LAYERS * steps:
+        raise PhaseFailed(f"mistral-large-serve: paged_attention launched "
+                          f"{counts.get('paged_attention', 0)} times, want "
+                          f"{MISTRAL_LARGE_LAYERS} x {steps} decode steps")
     return counts
 
 
@@ -2358,14 +2572,12 @@ F32_RTOL = F32_ATOL = 1e-4
 # (plain versions): f32 rounding over 12 layers, ~1e-6; a bf16 rounding
 # anywhere on the path gives ~1e-2
 F32_MODEL_REL_L2 = 1e-3
-F32_SERVE_RUNS = 3
+F32_SERVE_RUNS = 2
 # f32-grad, a 2-layer model at the 438M's widths in f32 on the card against
 # f32 on the CPU: the loss (and the labels= loss) to 1e-5 relative, each
 # gradient to 1e-4 relative L2. f32 sums in other orders give ~1e-6; one
 # bf16 rounding on the path gives ~1e-3 and a TF32 one ~3e-4
 F32_LOSS_REL, F32_GRAD_REL_L2 = 1e-5, 1e-4
-F32_KERNELS = ("rms_norm[f32]", "fused_rope[f32]", "flash_attention[f32]",
-               "paged_attention[f32]")
 # the flash forward in f32 beyond e2's prefill: (case, b, s, heads, kv
 # heads, d), causal, sq == sk
 F32_FLASH_CASES = [
@@ -2719,122 +2931,110 @@ def f32_train_phase(name, smi, peaks):
     return counts
 
 
-def f32_serve_arm(model, name, smi, arm, decode_megakernel):
-    """One e2 run (``serving_workload``) on ``model``; launch counts
-    zeroed just before the run and read just after it. Gated: all 24 requests finish with 64
-    tokens, the KV pools finite, the decode layers unfused, the four
-    serving kernels launched in the model's dtype and none in the other.
-    Returns (outputs, record, engine, prompts)."""
-    from paddle_tpu_torch.ops.cuda import launch_counts
-
-    tag = "[f32]" if model.dtype == torch.float32 else ""
-    vocab = model.config.vocab_size
-    eng, prompts = serving_workload(model, decode_megakernel)
-    torch.cuda.synchronize()
-    launch_counts.clear()
-    outs, stats = eng.run(prompts, max_new_tokens=SERVE_NEW_TOKENS,
-                          segment=SERVE_SEGMENT)
-    torch.cuda.synchronize()
-    counts = dict(launch_counts)
-    steps = stats["segments"] * SERVE_SEGMENT
-    finished = sum(bool(len(o) == SERVE_NEW_TOKENS and o.min() >= 0
-                        and o.max() < vocab) for o in outs)
-    finite = all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
-    rec = dict(arm=arm, dtype=str(model.dtype), megakernel=stats["megakernel"],
-               requests=len(outs), finished=finished,
-               tokens_per_sec=stats["tokens_per_sec"], wall_s=stats["wall_s"],
-               useful_tokens=stats["useful_tokens"], decode_steps=steps,
-               launches=counts,
-               kernel_launches_per_decode_step=sum(counts.values()) / steps,
-               kv_finite=finite, card=name, nvidia_smi=smi)
-    emit("f32-serve", **rec)
-    wrong = [k for k in counts if k.endswith("[f32]") != bool(tag)]
-    missing = [k + tag for k in SERVE_UNFUSED_KERNELS
-               if counts.get(k + tag, 0) <= 0]
-    if (finished != len(prompts) or not finite or stats["megakernel"]
-            or missing or wrong):
-        raise PhaseFailed(f"f32-serve ({arm}): finished {finished}, kv "
-                          f"finite {finite}, megakernel "
-                          f"{stats['megakernel']}, launches {counts}")
-    return outs, rec, eng, prompts
-
-
 def f32_serve_phase(name, smi):
     """The 438M LLaMA in f32 (the JAX model's default) behind the engine on
-    e2's traffic with its default decode_megakernel=1 (the megakernel
-    takes bf16 only, so the decode layers run unfused, as JAX's probe
-    declines this model in f32), F32_SERVE_RUNS runs, each beside a run of
-    the bf16 unfused arm (decode_megakernel=0, the same weights rounded to
-    bf16) in turns. First the
-    gate: the f32 model's logits on the card (a bucket-128 prefill of 2
-    prompts and 4 decode steps) within F32_MODEL_REL_L2 of the same
-    weights on the CPU. Reports tokens/s, launches per decode step, peak
-    memory, the device's idle share (one more run of each under
-    torch.profiler) and how far the f32 and bf16 greedy streams agree.
-    Returns the first f32 run's launch counts."""
+    e2's traffic in two arms, its default decode_megakernel=1, which now
+    fuses (``fused_decode_layer[f32]``; JAX's probe declines this model in
+    f32, as in bf16, by its VMEM budget), and decode_megakernel=0 (paged
+    decode in f32), each F32_SERVE_RUNS times, in turns with a run of the
+    bf16 unfused arm (decode_megakernel=0, the same weights rounded to
+    bf16), through ``serving_arm``'s gates. First the gate: the f32
+    model's logits on the card (a bucket-128 prefill of 2 prompts and 4
+    decode steps, unfused and then fused) within F32_MODEL_REL_L2 of the
+    same weights on the CPU, and the fused steps' pools within the f32
+    kernel gate of the unfused steps'. Reports tokens/s, launches per
+    decode step, peak memory, the device's idle share (one more run of
+    each f32 arm under torch.profiler) and how far the greedy streams
+    agree.
+    Returns the first runs' launch counts of the f32 arms, (unfused,
+    fused)."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     t0 = time.monotonic()
     cfg = LlamaConfig(**CFG_438M)
-    card, cpu = card_and_cpu(cfg, (30, 31), dtype=torch.float32)
+    card, cpu = card_and_cpu(cfg, 30, dtype=torch.float32)
     rng = np.random.RandomState(0)
     prompts = rng.randint(0, cfg.vocab_size, (2, 128))
     steps = rng.randint(0, cfg.vocab_size, (4, 2))
-    got = prefill_decode(card, prompts, steps)
-    want = prefill_decode(cpu, prompts, steps)
-    rel = [float((a - b).norm() / b.norm()) for a, b in zip(got, want)]
-    agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
-             for a, b in zip(got, want)]
-    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    want, _ = prefill_decode(cpu, prompts, steps)
+    gate = {}
+    for arm, fused in (("unfused", False), ("fused", True)):
+        got, caches = prefill_decode(card, prompts, steps, fused)
+        gate[arm] = dict(
+            rel=[float((a - b).norm() / b.norm()) for a, b in zip(got, want)],
+            agree=[float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                   for a, b in zip(got, want)],
+            finite=all(bool(torch.isfinite(a).all()) for a in got),
+            pools=[(c.k_pages, c.v_pages) for c in caches])
     del cpu
-    emit("f32-serve", gate_rel_l2=rel, gate_tolerance=F32_MODEL_REL_L2,
-         gate_argmax_agree=agree, gate_seconds=time.monotonic() - t0)
-    if not finite or max(rel) > F32_MODEL_REL_L2:
-        raise PhaseFailed(f"f32-serve: 438M f32 logits finite={finite}, rel "
-                          f"L2 {rel}")
+    pool_err = max(f32_compare(f"f32-serve pools, layer {i}", f, u)
+                   for i, (fp, up) in enumerate(zip(gate["fused"]["pools"],
+                                                    gate["unfused"]["pools"]))
+                   for f, u in zip(fp, up))
+    emit("f32-serve", **{f"gate_{arm}_rel_l2": g["rel"]
+                         for arm, g in gate.items()},
+         **{f"gate_{arm}_argmax_agree": g["agree"]
+            for arm, g in gate.items()},
+         gate_tolerance=F32_MODEL_REL_L2,
+         fused_vs_unfused_pools_max_abs=pool_err,
+         gate_seconds=time.monotonic() - t0)
+    for arm, g in gate.items():
+        if not g["finite"] or max(g["rel"]) > F32_MODEL_REL_L2:
+            raise PhaseFailed(f"f32-serve: 438M f32 logits ({arm} decode) "
+                              f"finite={g['finite']}, rel L2 {g['rel']}")
+    del gate
 
     bf16 = LlamaForCausalLM(cfg, dtype=torch.bfloat16,
                             generator=seed(32, "cuda"))
     bf16.load_state_dict(card.state_dict())  # the f32 weights, rounded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    runs, engines = {"f32": [], "bf16": []}, {}
+    arms = (("f32 fused", card, 1), ("f32 unfused", card, 0),
+            ("bf16 unfused", bf16, 0))
+    runs = {arm: [] for arm, _, _ in arms}
+    engines = {}
     for _ in range(F32_SERVE_RUNS):
-        for arm, model, mk in (("f32", card, 1), ("bf16", bf16, 0)):
-            outs, rec, eng, prompts = f32_serve_arm(model, name, smi, arm,
-                                                    mk)
+        for arm, model, mk in arms:
+            eng, prompts, outs, rec = serving_arm(model, mk, name, smi,
+                                                  "f32-serve")
             runs[arm].append((outs, rec))
             engines.setdefault(arm, (eng, prompts))
     peak = torch.cuda.max_memory_allocated()
-    f32_outs = runs["f32"][0][0]
     summary = {}
     for arm, (eng, prompts) in engines.items():
         recs = [r for _, r in runs[arm]]
         first = recs[0]
-        prof = device_profile(lambda: eng.run(
-            prompts, max_new_tokens=SERVE_NEW_TOKENS,
-            segment=SERVE_SEGMENT), steps=1)
         summary[arm] = dict(
             tokens_per_sec=[r["tokens_per_sec"] for r in recs],
             kernel_launches_per_decode_step=first[
-                "kernel_launches_per_decode_step"],
-            device_idle_share=prof["device_idle_share"],
-            device_busy_ms_per_decode_step=prof["device_busy_ms_per_call"]
-            / first["decode_steps"],
-            wall_ms_per_decode_step=prof["wall_ms_per_call"]
-            / first["decode_steps"],
-            top_kernels=prof["top_kernels"][:5])
+                "kernel_launches_per_decode_step"])
+        if arm.startswith("f32"):  # a profiled run takes ~40 s
+            prof = device_profile(lambda: eng.run(
+                prompts, max_new_tokens=SERVE_NEW_TOKENS,
+                segment=SERVE_SEGMENT), steps=1)
+            steps = first["decode_steps"]
+            summary[arm].update(
+                device_idle_share=prof["device_idle_share"],
+                device_busy_ms_per_decode_step=prof[
+                    "device_busy_ms_per_call"] / steps,
+                wall_ms_per_decode_step=prof["wall_ms_per_call"] / steps,
+                top_kernels=prof["top_kernels"][:5])
+    f32_outs = runs["f32 fused"][0][0]
     repeat = all(all((a == b).all() for a, b in zip(f32_outs, outs))
-                 for outs, _ in runs["f32"][1:])
-    agree_tokens = [float((a == b).mean())
-                    for a, b in zip(f32_outs, runs["bf16"][0][0])]
-    counts = runs["f32"][0][1]["launches"]
+                 for outs, _ in runs["f32 fused"][1:])
+
+    def agreement(arm):
+        return float(np.mean([(a == b).mean() for a, b in
+                              zip(f32_outs, runs[arm][0][0])]))
+
     emit("f32-serve", summary=summary, max_memory_allocated=peak,
-         f32_launches=counts, f32_runs_token_identical=bool(repeat),
-         f32_bf16_token_agreement=float(np.mean(agree_tokens)),
-         f32_bf16_streams_identical=sum(a == 1.0 for a in agree_tokens),
+         f32_fused_runs_token_identical=bool(repeat),
+         f32_fused_vs_unfused_token_agreement=agreement("f32 unfused"),
+         f32_fused_vs_bf16_token_agreement=agreement("bf16 unfused"),
          seconds=time.monotonic() - t0, card=name, nvidia_smi=smi)
+    counts = (runs["f32 unfused"][0][1]["launches"],
+              runs["f32 fused"][0][1]["launches"])
     del card, bf16, runs, engines
     torch.cuda.empty_cache()
     return counts
@@ -2905,6 +3105,18 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
      "paddle_tpu/ops/pallas/flash_attention.py:86", "f32-serve"),
     ("paged_attention[f32]", "paddle_tpu_torch/csrc/decode_attention.cu",
      "paddle_tpu/ops/pallas/decode_attention.py:58", "f32-serve"),
+    # paged decode past 8 query heads per kv head, and the second decode
+    # megakernel's f32 and head dim 96 on their paths
+    ("paged_attention[g=12]", "paddle_tpu_torch/csrc/decode_attention.cu",
+     "paddle_tpu/ops/pallas/decode_attention.py:58", "mistral-large-serve",
+     "paged_attention"),
+    ("fused_decode_layer[f32]",
+     "paddle_tpu_torch/csrc/decode_megakernel_f32.cu",
+     "paddle_tpu/ops/pallas/decode_megakernel.py:189", "f32-serve-fused"),
+    ("fused_decode_layer[d=96]",
+     "paddle_tpu_torch/csrc/decode_megakernel_any.cu",
+     "paddle_tpu/ops/pallas/decode_megakernel.py:189", "phi3-serve-fused",
+     "fused_decode_layer"),
     # the f32 backward kernels and the RoPE adjoint in f32 (f32-train)
     ("rms_norm_bwd[f32]", "paddle_tpu_torch/csrc/rms_norm.cu",
      "paddle_tpu/ops/pallas/rms_norm.py:100", "f32-train"),
@@ -2951,6 +3163,7 @@ def main():
 
     results = kernel_phase(peaks)
     results.update(megakernel_phase(peaks))
+    results.update(paged_group_phase(peaks))
     results.update(train_kernel_phase(peaks))
     results.update(bdrln_phase(peaks))
     bert_flash_phase(peaks)
@@ -2979,13 +3192,17 @@ def main():
     torch.cuda.empty_cache()
     results.update(head_dims_phase(peaks))
     flash_edge_phase(widths=(96, 256))
-    counts["phi3-serve"] = phi3_serve_phase(name, smi)
+    counts["phi3-serve"], counts["phi3-serve-fused"] = phi3_serve_phase(
+        name, smi)
     torch.cuda.synchronize()
     counts["phi3-train"] = phi3_train_phase(name, smi, peaks)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    counts["mistral-large-serve"] = mistral_large_serve_phase(name, smi)
+    torch.cuda.synchronize()
     results.update(f32_kernel_phase(peaks))
-    counts["f32-serve"] = f32_serve_phase(name, smi)
+    counts["f32-serve"], counts["f32-serve-fused"] = f32_serve_phase(name,
+                                                                     smi)
     torch.cuda.synchronize()
     t_f32 = time.monotonic()
     results.update(f32_train_kernel_phase(peaks))

@@ -42,6 +42,17 @@
 // DPL = 4 a warp keeps 2 rows in flight rather than 4, so the K/V rows,
 // the group's q and its accumulators stay in registers.
 //
+// GQA groups (the Pallas kernel takes any h % kvh == 0,
+// paged_attention_supported :49-55): a block holds at most kMaxGroup = 8
+// query heads' q and (m, l, acc) in registers. A larger group (Mistral-
+// Large-2's 12, Llama-3.1-405B's 16, multi-query attention's all) is cut
+// into ceil(group / 8) chunks of near-equal size, and paged_decode_group_
+// kernel gives each chunk its own block: a grid of (kv head x chunk,
+// sequence). Each chunk reads its kv head's K/V rows again, the later
+// reads mostly from L2, and the extra blocks fill more SMs where there are
+// few kv heads. It shares paged_decode_any_kernel's body and lane layout
+// at every D; groups up to 8 keep their kernels.
+//
 // float32 (the Pallas kernel is generic in its dtype, :112, :179, and the
 // JAX engine's pool takes the parameters' dtype, f32 by default): both
 // kernels are templates on the element type T of q, the pools and o, and
@@ -170,20 +181,19 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-// ceil(head_dim / 32) columns per lane, the last masked
+// Query heads h0 .. h0 + count - 1 (count <= kMaxGroup) of kv head kh
+// over row b's pages, ceil(head_dim / 32) columns per lane, the last
+// masked: the body of paged_decode_any_kernel (h0 = kh * group, count =
+// group) and of paged_decode_group_kernel (a chunk of the group).
 template <typename T, int DPL>
-__global__ void __launch_bounds__(kNumWarps * 32)
-paged_decode_any_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                        const T* __restrict__ v_pages,
-                        const int* __restrict__ tables,
-                        const int* __restrict__ lengths,
-                        T* __restrict__ o, int heads,
-                        int kv_heads, int d, int page_size, int n_pages,
-                        int table_cols, int max_tokens, float scale) {
+__device__ __forceinline__ void paged_decode_heads(
+    const T* __restrict__ q, const T* __restrict__ k_pages,
+    const T* __restrict__ v_pages, const int* __restrict__ tables,
+    const int* __restrict__ lengths, T* __restrict__ o, int heads,
+    int kv_heads, int d, int page_size, int n_pages, int table_cols,
+    int max_tokens, float scale, int kh, int b, int h0, int count) {
   constexpr int kU = DPL > 4 ? 2 : kUnroll;  // K/V rows in flight per warp
-  const int kh = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int group = heads / kv_heads;
   const int len = max(min(lengths[b], max_tokens), 0);
   const int* trow = tables + static_cast<long long>(b) * table_cols;
 
@@ -192,11 +202,11 @@ paged_decode_any_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int g = 0; g < kMaxGroup; ++g) {
     m[g] = ptt::kNegInf;
     l[g] = 0.f;
-    const T* qr = q + (static_cast<long long>(b) * heads + kh * group + g) * d;
+    const T* qr = q + (static_cast<long long>(b) * heads + h0 + g) * d;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int c = lane + 32 * i;
-      qf[g][i] = g < group && c < d ? ptt::to_float(qr[c]) * scale : 0.f;
+      qf[g][i] = g < count && c < d ? ptt::to_float(qr[c]) * scale : 0.f;
       acc[g][i] = 0.f;
     }
   }
@@ -223,7 +233,7 @@ paged_decode_any_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     }
 #pragma unroll
     for (int g = 0; g < kMaxGroup; ++g) {
-      if (g >= group) break;  // uniform across the warp
+      if (g >= count) break;  // uniform across the warp
       float s[kU];
       float mx = m[g];
 #pragma unroll
@@ -261,7 +271,7 @@ paged_decode_any_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 #pragma unroll
   for (int g = 0; g < kMaxGroup; ++g) {
-    if (g >= group) break;  // uniform across the block
+    if (g >= count) break;  // uniform across the block
     __syncthreads();  // the previous head's reads of acc_s are done
 #pragma unroll
     for (int i = 0; i < DPL; ++i) acc_s[warp][lane + 32 * i] = acc[g][i];
@@ -278,20 +288,72 @@ paged_decode_any_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         lsum += l_s[w][g] * f;
         val += acc_s[w][c] * f;
       }
-      o[(static_cast<long long>(b) * heads + kh * group + g) * d + c] =
+      o[(static_cast<long long>(b) * heads + h0 + g) * d + c] =
           ptt::from_float<T>(val / fmaxf(lsum, 1e-30f));
     }
   }
 }
 
+// ceil(head_dim / 32) columns per lane, the last masked; the whole GQA
+// group (at most kMaxGroup query heads) of kv head blockIdx.x
+template <typename T, int DPL>
+__global__ void __launch_bounds__(kNumWarps * 32)
+paged_decode_any_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                        const T* __restrict__ v_pages,
+                        const int* __restrict__ tables,
+                        const int* __restrict__ lengths,
+                        T* __restrict__ o, int heads,
+                        int kv_heads, int d, int page_size, int n_pages,
+                        int table_cols, int max_tokens, float scale) {
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int group = heads / kv_heads;
+  paged_decode_heads<T, DPL>(q, k_pages, v_pages, tables, lengths, o, heads,
+                             kv_heads, d, page_size, n_pages, table_cols,
+                             max_tokens, scale, kh, b, kh * group, group);
+}
+
+// A group past kMaxGroup query heads, cut into `chunks` chunks of at most
+// kMaxGroup (sizes differ by at most one): block x = kh * chunks + chunk
+// takes one chunk, so the chunks of a kv head read its K/V rows each,
+// the later reads mostly from L2.
+template <typename T, int DPL>
+__global__ void __launch_bounds__(kNumWarps * 32)
+paged_decode_group_kernel(const T* __restrict__ q,
+                          const T* __restrict__ k_pages,
+                          const T* __restrict__ v_pages,
+                          const int* __restrict__ tables,
+                          const int* __restrict__ lengths,
+                          T* __restrict__ o, int heads, int kv_heads, int d,
+                          int page_size, int n_pages, int table_cols,
+                          int max_tokens, float scale, int chunks) {
+  const int kh = blockIdx.x / chunks, chunk = blockIdx.x % chunks;
+  const int b = blockIdx.y;
+  const int group = heads / kv_heads;
+  const int per = (group + chunks - 1) / chunks;
+  const int first = chunk * per, count = min(per, group - first);
+  if (count <= 0) return;  // uniform across the block
+  paged_decode_heads<T, DPL>(q, k_pages, v_pages, tables, lengths, o, heads,
+                             kv_heads, d, page_size, n_pages, table_cols,
+                             max_tokens, scale, kh, b, kh * group + first,
+                             count);
+}
+
+// chunks > 1: the group kernel, kv_heads * chunks blocks a row
 template <typename T, int DPL>
 void launch_any(dim3 grid, dim3 block, cudaStream_t st, const T* q,
                 const T* kp, const T* vp, const int* tp, const int* lp, T* op,
                 int heads, int kv_heads, int d, int page_size, int n_pages,
-                int table_cols, int max_tokens, float scale) {
-  paged_decode_any_kernel<T, DPL><<<grid, block, 0, st>>>(
-      q, kp, vp, tp, lp, op, heads, kv_heads, d, page_size, n_pages,
-      table_cols, max_tokens, scale);
+                int table_cols, int max_tokens, float scale, int chunks) {
+  if (chunks > 1) {
+    paged_decode_group_kernel<T, DPL>
+        <<<dim3(grid.x * chunks, grid.y), block, 0, st>>>(
+            q, kp, vp, tp, lp, op, heads, kv_heads, d, page_size, n_pages,
+            table_cols, max_tokens, scale, chunks);
+  } else {
+    paged_decode_any_kernel<T, DPL><<<grid, block, 0, st>>>(
+        q, kp, vp, tp, lp, op, heads, kv_heads, d, page_size, n_pages,
+        table_cols, max_tokens, scale);
+  }
 }
 
 template <typename T>
@@ -299,9 +361,10 @@ int launch_paged(const void* q, const void* k_pages, const void* v_pages,
                  const void* tables, const void* lengths, void* o, int b,
                  int heads, int kv_heads, int d, int page_size, int n_pages,
                  int table_cols, int max_tokens, float scale, void* stream) {
-  if (heads / kv_heads > kMaxGroup || d < 1 || d > 256) {
+  if (kv_heads < 1 || heads % kv_heads || d < 1 || d > 256) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int chunks = (heads / kv_heads + kMaxGroup - 1) / kMaxGroup;
   const dim3 grid(kv_heads, b);
   const dim3 block(kNumWarps * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -316,11 +379,11 @@ int launch_paged(const void* q, const void* k_pages, const void* v_pages,
                          reinterpret_cast<uintptr_t>(k_pages) |
                          reinterpret_cast<uintptr_t>(v_pages);
   const bool vec = sizeof(T) == 2 || addr % 16 == 0;
-  if (d == 128 && vec) {
+  if (d == 128 && vec && chunks == 1) {
     paged_decode_kernel<T, 4><<<grid, block, 0, st>>>(
         qp, kp, vp, tp, lp, op, heads, kv_heads, page_size, n_pages,
         table_cols, max_tokens, scale);
-  } else if (d == 64 && vec) {
+  } else if (d == 64 && vec && chunks == 1) {
     paged_decode_kernel<T, 2><<<grid, block, 0, st>>>(
         qp, kp, vp, tp, lp, op, heads, kv_heads, page_size, n_pages,
         table_cols, max_tokens, scale);
@@ -337,7 +400,7 @@ int launch_paged(const void* q, const void* k_pages, const void* v_pages,
       default: break;
     }
     launch(grid, block, st, qp, kp, vp, tp, lp, op, heads, kv_heads, d,
-           page_size, n_pages, table_cols, max_tokens, scale);
+           page_size, n_pages, table_cols, max_tokens, scale, chunks);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -347,7 +410,7 @@ int launch_paged(const void* q, const void* k_pages, const void* v_pages,
 // q, o: (b, heads, d) bf16; k_pages, v_pages: (n_pages, page_size,
 // kv_heads, d) bf16; tables: (b, table_cols) int32; lengths: (b,) int32.
 // max_tokens = pages_per_seq * page_size caps the walk. d is 1 to 256,
-// heads / kv_heads at most 8.
+// heads a multiple of kv_heads.
 PTT_EXPORT int ptt_paged_attention(const void* q, const void* k_pages,
                                    const void* v_pages, const void* tables,
                                    const void* lengths, void* o, int b,

@@ -22,7 +22,6 @@ __all__ = ["paged_attention", "paged_attention_plain",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # the kernel's lanes hold up to 8 columns each
-MAX_GROUP = 8  # query heads per kv head the kernel holds
 
 
 def paged_attention_plain(q, k_pages, v_pages, block_tables, lengths,
@@ -56,8 +55,9 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths,
     """See :func:`paged_attention_plain`. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (q and pools both bf16 or
     both f32, int32 tables and lengths, all contiguous; any D up to 256,
-    read at its own width; at most 8 query heads per kv head) or raises.
-    An f32 launch counts as ``paged_attention[f32]``."""
+    read at its own width; any number of query heads per kv head, a group
+    past 8 cut into chunks of at most 8, a block each) or raises. An f32
+    launch counts as ``paged_attention[f32]``."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_tables,
                                      lengths, pages_per_seq)
@@ -71,14 +71,14 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths,
     n_pages, page, kvh, _ = k_pages.shape
     cols = block_tables.shape[1]
     if (v_pages.shape != k_pages.shape or k_pages.shape[3] != d
-            or d > MAX_HEAD_DIM or h % kvh or h // kvh > MAX_GROUP
+            or d > MAX_HEAD_DIM or h % kvh
             or block_tables.shape[0] != b or lengths.shape[0] != b):
         raise ValueError(
             f"{name}: q {tuple(q.shape)}, pools {tuple(k_pages.shape)}, "
             f"tables {tuple(block_tables.shape)}, lengths "
             f"{tuple(lengths.shape)}; head_dim must be at most "
-            f"{MAX_HEAD_DIM}, with at most {MAX_GROUP} query heads per kv "
-            f"head")
+            f"{MAX_HEAD_DIM}, and the query heads a multiple of the kv "
+            f"heads")
     walk = cols if pages_per_seq is None else min(pages_per_seq, cols)
     out = torch.empty_like(q)
     fn = _build.function("ptt_paged_attention"

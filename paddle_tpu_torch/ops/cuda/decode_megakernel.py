@@ -27,11 +27,21 @@ the JAX function:
   not its byte budget. ``MEGAKERNEL_VMEM_BUDGET`` (:69-71) caps the q/k/v/o
   weights at 12 MiB because the Pallas kernel stages them whole in the
   TPU's VMEM (:354, :394-397); the 438M model's 18.9 MB decline there.
-  The CUDA kernel streams the weights from device memory through L2 and
-  holds only one row of activations in shared memory, so its limits are
-  its own (``HEAD_DIMS``, ``MAX_GROUP``, ``MAX_HIDDEN``, bf16), checked
-  when the weights live on a CUDA device. The 438M model takes the fused
-  path on the card.
+  The CUDA kernels stream the weights from device memory through L2 and
+  hold only one row of activations in shared memory, so their limits are
+  their own, checked when the weights live on a CUDA device: one float
+  type throughout, bf16 or f32; a head dim up to ``MAX_HEAD_DIM``; a
+  hidden size that is a multiple of 8 up to ``MAX_HIDDEN``. Any GQA group
+  is taken. The 438M model takes the fused path on the card in both
+  types, and so do Phi-3-mini's widths (head dim 96).
+
+Two kernels: ``csrc/decode_megakernel.cu`` for bf16 at head dims 64 and
+128 with at most 8 query heads per kv head, and
+``csrc/decode_megakernel_any.cuh`` for every other case (f32, any even
+head dim up to 256, any group; a group past 8 attended in chunks of at
+most 8), entered through ``csrc/decode_megakernel_any.cu`` (bf16) and
+``csrc/decode_megakernel_f32.cu``. An f32 launch counts as
+``fused_decode_layer[f32]``.
 
 Outside ``megakernel_scope(True)`` (which the serving engine enters for
 its decode steps when it decided at construction to take the fused path)
@@ -58,17 +68,19 @@ import torch
 from . import _build
 
 __all__ = ["fused_decode_layer", "fused_decode_layer_plain",
-           "decode_norm_plain",
+           "decode_attention_o_plain", "decode_norm_plain",
            "megakernel_layer_supported", "megakernel_model_supported",
            "megakernel_supported", "megakernel_scope", "megakernel_enabled",
-           "HEAD_DIMS", "MAX_GROUP", "MAX_HIDDEN"]
+           "MAX_HEAD_DIM", "MAX_HIDDEN"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 NEG_INF = -1e30
-# the CUDA kernel's limits (csrc/decode_megakernel.cu)
-HEAD_DIMS = (64, 128)  # its instantiations: head_dim / 32 values per lane
-MAX_GROUP = 8  # query heads per kv head a block holds in registers
+# the CUDA kernels' limits (csrc/decode_megakernel*.cu)
+MAX_HEAD_DIM = 256  # ceil(head_dim / 32) values per lane, at most 8
 MAX_HIDDEN = 4096  # the shared-memory row buffer of one hidden state
+# the cases of csrc/decode_megakernel.cu's kernel; the rest take
+# csrc/decode_megakernel_any.cuh's
+_FIRST_HEAD_DIMS, _FIRST_MAX_GROUP = (64, 128), 8
 
 # per-thread stack of scopes: the engine pins dispatch around its calls
 _scope = threading.local()
@@ -95,13 +107,16 @@ def megakernel_enabled():
     return bool(stack) and stack[-1]
 
 
-def _kernel_takes(attn, norms, h, kv, d, hidden):
-    """The CUDA kernel's own limits, for weights on a CUDA device."""
+def _kernel_takes(attn, norms, d, hidden):
+    """The CUDA kernels' own limits, for weights on a CUDA device: q/k/v/o
+    and the norm scales contiguous and of one type, bf16 or f32; ``d`` up
+    to ``MAX_HEAD_DIM``; ``hidden`` a multiple of 8 up to ``MAX_HIDDEN``.
+    Every GQA group is taken."""
     ws = [attn.q_proj.weight, attn.k_proj.weight, attn.v_proj.weight,
           attn.o_proj.weight] + [ln.weight for ln in norms]
-    return (d in HEAD_DIMS and h // kv <= MAX_GROUP and hidden <= MAX_HIDDEN
-            and hidden % 8 == 0
-            and all(w.dtype == torch.bfloat16 and w.is_contiguous()
+    return (d <= MAX_HEAD_DIM and hidden <= MAX_HIDDEN and hidden % 8 == 0
+            and ws[0].dtype in _build.FLOATS
+            and all(w.dtype == ws[0].dtype and w.is_contiguous()
                     for w in ws))
 
 
@@ -129,7 +144,7 @@ def megakernel_layer_supported(layer):
         if not hasattr(attn, "rope_cos") or not hasattr(attn, "rope_sin"):
             return False
         if attn.q_proj.weight.is_cuda and not _kernel_takes(
-                attn, norms, h, kv, d, cfg.hidden_size):
+                attn, norms, d, cfg.hidden_size):
             return False
     except AttributeError:
         return False
@@ -168,15 +183,15 @@ def decode_norm_plain(x, weight, eps):
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
-def fused_decode_layer_plain(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo,
-                             rope_cos, rope_sin, ln2_weight, ln2_eps,
-                             k_pages, v_pages, tables, lengths, heads,
-                             attn_pages=None, dump_page=None):
-    """See :func:`fused_decode_layer`. The append is skipped for a row
-    whose ``len // page`` lies past the table; masked positions weigh 0,
-    so a row with no visible position gives ``o = 0``."""
-    del dump_page  # only the appended row is stored: see the module doc
-    b, _, hidden = x.shape
+def decode_attention_o_plain(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo,
+                             rope_cos, rope_sin, k_pages, v_pages, tables,
+                             lengths, heads, attn_pages=None):
+    """The plain version's ``o = att @ wo`` (B, hidden), summed in f32 and
+    rounded to x's dtype, with the append into the pools: everything of
+    :func:`fused_decode_layer_plain` before the residual. The append is
+    skipped for a row whose ``len // page`` lies past the table; masked
+    positions weigh 0, so a row with no visible position gives ``o = 0``."""
+    b = x.shape[0]
     n_pages, page, kvh, d = k_pages.shape
     dt = x.dtype
     xn = _build.upcast(decode_norm_plain(x[:, 0], ln1_weight, ln1_eps))
@@ -224,7 +239,22 @@ def fused_decode_layer_plain(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo,
     p = torch.exp(sc - sc.amax(-1, keepdim=True)) * valid
     att = torch.einsum("bht,bthd->bhd", p, vv)
     att = att / p.sum(-1, keepdim=True).clamp_min(1e-30)
-    o = (_build.upcast(att.to(dt)).reshape(b, heads * d) @ wo.to(wt)).to(dt)
+    return (_build.upcast(att.to(dt)).reshape(b, heads * d)
+            @ wo.to(wt)).to(dt)
+
+
+def fused_decode_layer_plain(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo,
+                             rope_cos, rope_sin, ln2_weight, ln2_eps,
+                             k_pages, v_pages, tables, lengths, heads,
+                             attn_pages=None, dump_page=None):
+    """See :func:`fused_decode_layer`: :func:`decode_attention_o_plain`,
+    then ``h_mid = x + o`` in x's dtype and its ln2."""
+    del dump_page  # only the appended row is stored: see the module doc
+    o = decode_attention_o_plain(
+        x, ln1_weight=ln1_weight, ln1_eps=ln1_eps, wq=wq, wk=wk, wv=wv,
+        wo=wo, rope_cos=rope_cos, rope_sin=rope_sin, k_pages=k_pages,
+        v_pages=v_pages, tables=tables, lengths=lengths, heads=heads,
+        attn_pages=attn_pages)
     h_mid = x[:, 0] + o
     y2 = decode_norm_plain(h_mid, ln2_weight, ln2_eps)
     return h_mid[:, None], y2[:, None]
@@ -249,11 +279,12 @@ def fused_decode_layer(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo, rope_cos,
     and writes the new k/v rows into the pools; the caller advances the
     cache's length by one.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (bf16 activations, weights and pools, f32 tables, int32 tables and
-    lengths, all contiguous and 16-byte aligned; D in ``HEAD_DIMS``, at
-    most ``MAX_GROUP`` query heads per kv head, hidden a multiple of 8 up
-    to ``MAX_HIDDEN``) or raises."""
+    A CPU tensor takes the plain version; a CUDA tensor launches a kernel
+    (activations, norm scales, weights and pools all bf16 or all f32, f32
+    RoPE tables, int32 tables and lengths, all contiguous and 16-byte
+    aligned; an even D up to ``MAX_HEAD_DIM``, any number of query heads
+    per kv head, hidden a multiple of 8 up to ``MAX_HIDDEN``) or raises.
+    An f32 launch counts as ``fused_decode_layer[f32]``."""
     kw = dict(ln1_weight=ln1_weight, ln1_eps=ln1_eps, wq=wq, wk=wk, wv=wv,
               wo=wo, rope_cos=rope_cos, rope_sin=rope_sin,
               ln2_weight=ln2_weight, ln2_eps=ln2_eps, k_pages=k_pages,
@@ -262,23 +293,23 @@ def fused_decode_layer(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo, rope_cos,
     if x.device.type == "cpu":
         return fused_decode_layer_plain(x, **kw)
     name = "fused_decode_layer"
-    bf16 = torch.bfloat16
-    _build.expect(name, "x", x, bf16, 3)
+    _build.expect(name, "x", x, _build.FLOATS, 3)
+    dt = x.dtype
     for arg in ("ln1_weight", "ln2_weight"):
-        _build.expect(name, arg, kw[arg], bf16, 1)
+        _build.expect(name, arg, kw[arg], dt, 1)
     for arg in ("wq", "wk", "wv", "wo"):
-        _build.expect(name, arg, kw[arg], bf16, 2)
+        _build.expect(name, arg, kw[arg], dt, 2)
     for arg in ("rope_cos", "rope_sin"):
         _build.expect(name, arg, kw[arg], torch.float32, 2)
-    _build.expect(name, "k_pages", k_pages, bf16, 4)
-    _build.expect(name, "v_pages", v_pages, bf16, 4)
+    _build.expect(name, "k_pages", k_pages, dt, 4)
+    _build.expect(name, "v_pages", v_pages, dt, 4)
     _build.expect(name, "tables", tables, torch.int32, 2)
     _build.expect(name, "lengths", lengths, torch.int32, 1)
     b, s, hidden = x.shape
     n_pages, page, kvh, d = k_pages.shape
     cols = tables.shape[1]
-    if (s != 1 or v_pages.shape != k_pages.shape or d not in HEAD_DIMS
-            or heads % kvh or heads // kvh > MAX_GROUP
+    if (s != 1 or v_pages.shape != k_pages.shape or d % 2
+            or d > MAX_HEAD_DIM or heads % kvh
             or hidden % 8 or hidden > MAX_HIDDEN
             or wq.shape != (hidden, heads * d)
             or wk.shape != (hidden, kvh * d) or wv.shape != wk.shape
@@ -291,9 +322,9 @@ def fused_decode_layer(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo, rope_cos,
             f"{tuple(wq.shape)}, wk {tuple(wk.shape)}, wv {tuple(wv.shape)}, "
             f"wo {tuple(wo.shape)}, rope {tuple(rope_cos.shape)}, pools "
             f"{tuple(k_pages.shape)}, tables {tuple(tables.shape)}, lengths "
-            f"{tuple(lengths.shape)}; head_dim must be one of {HEAD_DIMS} "
-            f"with at most {MAX_GROUP} query heads per kv head, and hidden "
-            f"a multiple of 8 up to {MAX_HIDDEN}")
+            f"{tuple(lengths.shape)}; head_dim must be even and at most "
+            f"{MAX_HEAD_DIM}, the query heads a multiple of the kv heads, "
+            f"and hidden a multiple of 8 up to {MAX_HIDDEN}")
     if not _aligned(x, wq, wk, wv, wo, k_pages, v_pages):
         raise ValueError(f"{name}: x, weights and pools must be 16-byte "
                          f"aligned")
@@ -306,8 +337,13 @@ def fused_decode_layer(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo, rope_cos,
     partial = torch.empty((b, kvh, hidden), dtype=torch.float32,
                           device=x.device)
     counters = torch.zeros((b,), dtype=torch.int32, device=x.device)
-    fn = _build.function("ptt_fused_decode_layer",
-                         [_P] * 17 + [_I] * 10 + [_F] * 3 + [_P])
+    if dt == torch.float32:
+        entry = "ptt_fused_decode_layer_f32"
+    elif d in _FIRST_HEAD_DIMS and heads // kvh <= _FIRST_MAX_GROUP:
+        entry = "ptt_fused_decode_layer"
+    else:
+        entry = "ptt_fused_decode_layer_any"
+    fn = _build.function(entry, [_P] * 17 + [_I] * 10 + [_F] * 3 + [_P])
     _build.check(fn(x.data_ptr(), ln1_weight.data_ptr(),
                     ln2_weight.data_ptr(), wq.data_ptr(), wk.data_ptr(),
                     wv.data_ptr(), wo.data_ptr(), rope_cos.data_ptr(),
@@ -318,5 +354,5 @@ def fused_decode_layer(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo, rope_cos,
                     rope_cos.shape[0], page, n_pages, cols, walk,
                     float(ln1_eps), float(ln2_eps), 1.0 / math.sqrt(d),
                     _build.stream_of(x)), name)
-    _build.launch_counts[name] += 1
+    _build.count(name, dt)
     return h_mid, y2

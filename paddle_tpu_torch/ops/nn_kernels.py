@@ -171,13 +171,13 @@ def rotary_position_embedding(q, k, cos, sin, position_ids=None,
     """Neox RoPE of q (B, S, H, D) and k (B, S, KVH, D) from (P, D) f32
     cos/sin tables. ``position_ids`` is (B, S) or (S,); None means
     ``arange(S)`` for every row. A k of None rotates q alone and returns
-    ``(q_rot, None)``, as JAX does. ``use_neox_rotary_style=False`` (the
-    interleaved pairs) raises ``NotImplementedError``: not ported yet
-    (ROADMAP Queue 2a item 4)."""
+    ``(q_rot, None)``, as JAX does. ``use_neox_rotary_style=False``
+    rotates the interleaved pairs ``(x[..., 0::2], x[..., 1::2])`` with
+    JAX's jnp formula, in plain torch on every device, as JAX computes it
+    in jnp (its fused-RoPE probe declines it)."""
     if not use_neox_rotary_style:
-        raise NotImplementedError(
-            "rotary_position_embedding: use_neox_rotary_style=False (the "
-            "interleaved pairs) is not ported yet (ROADMAP Queue 2a item 4)")
+        return (_rope_interleaved(q, cos, sin, position_ids),
+                _rope_interleaved(k, cos, sin, position_ids))
     b, s = q.shape[:2]
     if position_ids is None:
         position_ids = torch.arange(s, device=q.device)
@@ -185,6 +185,24 @@ def rotary_position_embedding(q, k, cos, sin, position_ids=None,
     if _records(q, k):
         return RopeFunction.apply(q, k, cos, sin, pos)
     return fused_rope_at(q, k, cos, sin, pos)
+
+
+def _rope_interleaved(x, cos, sin, position_ids):
+    """``x * cos + rotated * sin`` with ``rotated[..., 2i] = -x[..., 2i+1]``
+    and ``rotated[..., 2i+1] = x[..., 2i]``, the tables cast to x's dtype
+    and taken at ``position_ids`` ((B, S) or (S,)) or at ``arange(S)``:
+    ``paddle_tpu/ops/nn_kernels.py`` :818-845. None stays None."""
+    if x is None:
+        return None
+    pid = (torch.arange(x.shape[1], device=x.device) if position_ids is None
+           else position_ids.long())
+    c = cos.to(x.dtype).reshape(-1, cos.shape[-1])[pid]
+    sn = sin.to(x.dtype).reshape(-1, sin.shape[-1])[pid]
+    if pid.dim() == 1:  # one row of positions for the whole batch
+        c, sn = c[None], sn[None]
+    c, sn = c[:, :, None, :], sn[:, :, None, :]
+    rotated = torch.stack([-x[..., 1::2], x[..., 0::2]], -1).reshape(x.shape)
+    return x * c + rotated * sn
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes off the serving and training paths' (ragged lengths, head dims 32
 to 256 and the padded route's 80, GQA groups up to 8, causal offsets, empty rows, clamped positions, row
-counts off the RMSNorm backward's strip; the decode megakernel at a small
-size, at the 438M serving decode and on GQA; the bias-dropout-residual-
+counts off the RMSNorm backward's strip; paged decode at groups past 8;
+the decode megakernels at a small size, at the 438M serving decode, on
+GQA, at head dims 12, 80, 96 and 256 and at groups 12 and 16; the
+bias-dropout-residual-
 LayerNorm kernel at BERT-base's shape, in f32, at odd widths and off
 alignment; the segment-masked flash kernels with seq_lens, packed ids and
 a pair), the refusals of what the kernels do not take, a tiny model
@@ -115,7 +117,13 @@ def test_flash_attention_kernel(gen, b, sq, sk, h, kvh, d, causal):
                                               (32, 32, 96, 128, None),
                                               (16, 2, 256, 16, 3),
                                               (8, 4, 80, 16, None),
-                                              (4, 2, 32, 128, 2)])
+                                              (4, 2, 32, 128, 2),
+                                              # groups past 8: chunks
+                                              (96, 8, 128, 128, None),
+                                              (128, 8, 64, 16, 3),
+                                              (32, 1, 128, 16, None),
+                                              (18, 1, 80, 16, 3),
+                                              (24, 2, 256, 128, 2)])
 def test_paged_attention_kernel(gen, h, kvh, d, page, pps):
     from paddle_tpu_torch.ops.cuda import decode_attention as da
 
@@ -305,12 +313,16 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(TypeError, match="int32"):
         fa.flash_attention_fwd(y, y, y, True, lens[None].float(),
                                lens[None].float())
+    # 16 query heads per kv head, once refused, now taken in chunks
     q = _randn(gen, 1, 32, 64)
-    kp = _randn(gen, 2, 16, 2, 64)  # 16 query heads per kv head
+    kp = _randn(gen, 2, 16, 2, 64)
     tab = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
-    one = torch.ones((1,), dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="query heads per kv head"):
-        da.paged_attention(q, kp, kp, tab, one)
+    one = torch.full((1,), 9, dtype=torch.int32, device="cuda")
+    _close(da.paged_attention(q, kp, kp, tab, one),
+           da.paged_attention_plain(q, kp, kp, tab, one))
+    k4 = _randn(gen, 2, 16, 4, 64)  # 6 query heads on 4 kv heads
+    with pytest.raises(ValueError, match="multiple of the kv heads"):
+        da.paged_attention(_randn(gen, 1, 6, 64), k4, k4, tab, one)
     q, kp = _randn(gen, 1, 2, 320), _randn(gen, 2, 16, 2, 320)
     with pytest.raises(ValueError, match="head_dim"):
         da.paged_attention(q, kp, kp, tab, one)
@@ -392,17 +404,40 @@ def _megakernel_args(gen, b, hidden, heads, kvh, d, page, cols, lens):
         heads=heads, attn_pages=cols, dump_page=n_pages - 1)
 
 
-@pytest.mark.parametrize("b,hidden,heads,kvh,d,page,cols,lens", [
+MEGAKERNEL_CASES = [  # b, hidden, heads, kvh, d, page, cols, lens
     (3, 256, 4, 2, 64, 16, 4, [0, 16, 63]),          # small, group 2
     (8, 1536, 12, 12, 128, 128, 4,                   # the 438M decode
      [1, 17, 127, 128, 200, 255, 256, 510]),
     (4, 1536, 12, 4, 128, 128, 4, [5, 128, 300, 511]),  # GQA, group 3
     (2, 1024, 16, 2, 64, 32, 3, [31, 95]),            # group 8, D = 64
-])
+    # csrc/decode_megakernel_any.cuh: head dims off 64 and 128, groups
+    # past 8, D off the 16-byte grid (value-by-value weight reads)
+    (8, 3072, 32, 32, 96, 128, 4, [1, 17, 127, 128, 200, 255, 256, 510]),
+    (3, 640, 8, 8, 80, 16, 4, [0, 16, 63]),
+    (2, 2048, 16, 2, 256, 16, 3, [5, 40]),
+    (4, 4096, 32, 2, 128, 128, 4, [5, 128, 300, 511]),  # group 16
+    (3, 1536, 12, 1, 128, 16, 4, [0, 17, 63]),          # group 12
+    (2, 1024, 16, 1, 64, 32, 3, [31, 95]),              # group 16, D = 64
+    (2, 48, 4, 2, 12, 16, 2, [3, 20]),                  # D = 12
+]
+
+
+@pytest.mark.parametrize("b,hidden,heads,kvh,d,page,cols,lens",
+                         MEGAKERNEL_CASES)
 def test_decode_megakernel(gen, b, hidden, heads, kvh, d, page, cols, lens):
     from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
 
     args = _megakernel_args(gen, b, hidden, heads, kvh, d, page, cols, lens)
+    got = _fused_matches_plain(mk, args)
+    # the same bits on a second launch (fixed order, no float atomics)
+    again = mk.fused_decode_layer(**dict(args, k_pages=args["k_pages"].clone(),
+                                         v_pages=args["v_pages"].clone()))
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def _fused_matches_plain(mk, args):
+    """One launch against the plain version on copies of the pools;
+    returns the kernel's (h_mid, y2)."""
     plain = dict(args, k_pages=args["k_pages"].clone(),
                  v_pages=args["v_pages"].clone())
     got = mk.fused_decode_layer(**args)
@@ -415,27 +450,36 @@ def test_decode_megakernel(gen, b, hidden, heads, kvh, d, page, cols, lens):
     dump = args["dump_page"]
     _close(args["k_pages"][:dump], plain["k_pages"][:dump])
     _close(args["v_pages"][:dump], plain["v_pages"][:dump])
-    # the same bits on a second launch (fixed order, no float atomics)
-    again = mk.fused_decode_layer(**dict(args, k_pages=args["k_pages"].clone(),
-                                         v_pages=args["v_pages"].clone()))
-    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    return got
 
 
 def test_decode_megakernel_refuses_what_it_does_not_take(gen):
+    """Head dim 96, 16 query heads per kv head and f32, once refused, are
+    taken now and agree with the plain version; head dim 320, an odd head
+    dim, f16, mixed types and non-contiguous weights are refused."""
     from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
 
     base = _megakernel_args(gen, 2, 256, 4, 2, 64, 16, 2, [3, 9])
     # head_dim 96
-    a = _megakernel_args(gen, 2, 192, 2, 2, 96, 16, 2, [3, 9])
-    with pytest.raises(ValueError, match="head_dim"):
-        mk.fused_decode_layer(**a)
+    _fused_matches_plain(mk, _megakernel_args(gen, 2, 192, 2, 2, 96, 16, 2,
+                                              [3, 9]))
     # 16 query heads per kv head
-    a = _megakernel_args(gen, 2, 1024, 16, 1, 64, 16, 2, [3, 9])
-    with pytest.raises(ValueError, match="query heads per kv head"):
-        mk.fused_decode_layer(**a)
+    _fused_matches_plain(mk, _megakernel_args(gen, 2, 1024, 16, 1, 64, 16, 2,
+                                              [3, 9]))
     # f32 activations and weights
-    a = {k: v.float() if isinstance(v, torch.Tensor) and v.is_floating_point()
-         else v for k, v in base.items()}
+    _fused_matches_plain(mk, {
+        k: v.float() if isinstance(v, torch.Tensor) and v.is_floating_point()
+        else v for k, v in base.items()})
+    for d in (320, 63):
+        a = _megakernel_args(gen, 2, 64 * 8, 4, 2, d, 16, 2, [3, 9])
+        with pytest.raises(ValueError, match="head_dim"):
+            mk.fused_decode_layer(**a)
+    for dt in (torch.float16, torch.float64):
+        a = {k: v.to(dt) if isinstance(v, torch.Tensor)
+             and v.dtype == torch.bfloat16 else v for k, v in base.items()}
+        with pytest.raises(TypeError, match="float32"):
+            mk.fused_decode_layer(**a)
+    a = dict(base, wq=base["wq"].float())
     with pytest.raises(TypeError, match="bfloat16"):
         mk.fused_decode_layer(**a)
     # non-contiguous weights

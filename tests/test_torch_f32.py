@@ -1,5 +1,5 @@
 """float32 through the port's serving kernels: RMSNorm, RoPE, the flash
-forward and paged decode.
+forward, paged decode and the decode megakernel.
 
 The JAX package's LLaMA is f32 by default and every Pallas kernel is
 generic in its dtype, so the port's default model is f32 too and its four
@@ -17,7 +17,9 @@ Pallas paged_attention in interpret mode), logits within 1e-5 relative L2
 On the card (the ``cuda`` marker; skipped without one): each f32 kernel
 against its plain version at the edge shapes of tests/test_torch_cuda.py
 and tests/test_torch_head_dims.py (head dims 32-256, GQA, segments,
-lengths 0, 1 and across a page), within 1e-4 + 1e-4 |want| with TF32 off;
+lengths 0, 1 and across a page; paged decode at groups past 8; the
+decode megakernel at the 438M's, Phi-3-mini's and other widths), within
+1e-4 + 1e-4 |want| with TF32 off;
 each f32 launch counted under ``<kernel>[f32]``; f16 and f64 refused; the
 public entries' f32 gradients (the f32 backward kernels, held in full by
 tests/test_torch_f32_train.py) equal the plain versions'. These import
@@ -279,10 +281,15 @@ def test_f32_rope_kernel(gen, b, s, h, kvh, d):
                                               (32, 32, 96, 128, None),
                                               (16, 2, 256, 16, 3),
                                               (8, 4, 80, 16, None),
-                                              (4, 2, 32, 128, 2)])
+                                              (4, 2, 32, 128, 2),
+                                              (96, 8, 128, 128, None),
+                                              (128, 8, 64, 16, 3),
+                                              (32, 1, 128, 16, None),
+                                              (24, 2, 256, 128, 2)])
 def test_f32_paged_attention_kernel(gen, h, kvh, d, page, pps):
     """Lengths 0, 1, one page, across a page and the full table, dump-page
-    tails; D = 64 and 128 take the vector kernel, the rest the other."""
+    tails; D = 64 and 128 at groups up to 8 take the vector kernel, the
+    rest the other, a group past 8 in chunks of at most 8 heads."""
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import launch_counts
 
@@ -306,6 +313,64 @@ def test_f32_paged_attention_kernel(gen, h, kvh, d, page, pps):
     assert _launched("paged_attention[f32]") == 1
     _close(got, da.paged_attention_plain(*args, pages_per_seq=pps))
     assert torch.all(got[0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hidden,heads,kvh,d,page,cols,lens", [
+    (8, 1536, 12, 12, 128, 128, 4,                   # the 438M decode
+     [1, 17, 127, 128, 200, 255, 256, 510]),
+    (4, 1536, 12, 4, 128, 128, 4, [5, 128, 300, 511]),  # group 3
+    (4, 3072, 32, 32, 96, 128, 4, [1, 17, 127, 200]),   # Phi-3-mini
+    (3, 640, 8, 8, 80, 16, 4, [0, 16, 63]),
+    (2, 2048, 16, 2, 256, 16, 3, [5, 40]),
+    (4, 4096, 32, 2, 128, 128, 4, [5, 128, 300, 511]),  # group 16
+    (2, 40, 4, 2, 10, 16, 2, [3, 20]),                  # D off 4 floats
+])
+def test_f32_decode_megakernel(gen, b, hidden, heads, kvh, d, page, cols,
+                               lens):
+    """The decode megakernel in f32 (x, norm scales, weights and pools)
+    against its f32 plain version, which in f32 is the unfused
+    composition: h_mid, y2 and the pools within 1e-4 + 1e-4 |want|; one
+    launch counted as ``fused_decode_layer[f32]``; the same bits on a
+    second launch."""
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    n_pages = b * cols + 1
+    rng = np.random.RandomState(0)
+    perm, used = rng.permutation(n_pages - 1), 0
+    tables = np.full((b, cols + 1), n_pages - 1, np.int32)
+    for i, n in enumerate(lens):
+        k_ = -(-(n + 1) // page)
+        tables[i, :k_] = perm[used:used + k_]
+        used += k_
+    cos, sin = _rope_tables(d, 1024, 10000.0, "cuda")
+    w = lambda *shape: 0.02 * _randn(gen, *shape)
+    args = dict(
+        x=w(b, 1, hidden), ln1_weight=1.0 + 0.1 * _randn(gen, hidden),
+        ln1_eps=1e-6, wq=w(hidden, heads * d), wk=w(hidden, kvh * d),
+        wv=w(hidden, kvh * d), wo=w(heads * d, hidden), rope_cos=cos,
+        rope_sin=sin, ln2_weight=1.0 + 0.1 * _randn(gen, hidden),
+        ln2_eps=1e-6, k_pages=_randn(gen, n_pages, page, kvh, d),
+        v_pages=_randn(gen, n_pages, page, kvh, d),
+        tables=torch.tensor(tables, device="cuda"),
+        lengths=torch.tensor(lens, dtype=torch.int32, device="cuda"),
+        heads=heads, attn_pages=cols, dump_page=n_pages - 1)
+    plain = dict(args, k_pages=args["k_pages"].clone(),
+                 v_pages=args["v_pages"].clone())
+    launch_counts.clear()
+    got = mk.fused_decode_layer(**args)
+    assert dict(launch_counts) == {"fused_decode_layer[f32]": 1}
+    want = mk.fused_decode_layer_plain(**plain)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_)
+    dump = n_pages - 1
+    _close(args["k_pages"][:dump], plain["k_pages"][:dump])
+    _close(args["v_pages"][:dump], plain["v_pages"][:dump])
+    again = mk.fused_decode_layer(**dict(args, k_pages=args["k_pages"].clone(),
+                                         v_pages=args["v_pages"].clone()))
+    assert all(torch.equal(a, g_) for a, g_ in zip(again, got))
 
 
 def _segments(kind, b, sq, sk):
@@ -429,8 +494,10 @@ def test_f16_and_f64_raise(gen, dtype):
 def test_f32_model_serves_on_card_through_the_f32_kernels(gen):
     """A small f32 LLaMA (the default dtype) on the card: its logits within
     1e-4 relative L2 of the same weights on the CPU through the plain
-    versions, and behind the engine it launches the four f32 kernels and
-    no bf16 one, decoding unfused (the megakernel takes bf16 only)."""
+    versions, and behind the engine it decodes fused, through the f32
+    decode megakernel, and launches only f32 kernels: RMSNorm, RoPE and
+    the flash forward in the prefill, the megakernel in the decode steps
+    (and paged decode never)."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import ContinuousBatchingEngine
     from paddle_tpu_torch.ops.cuda import launch_counts
@@ -456,8 +523,9 @@ def test_f32_model_serves_on_card_through_the_f32_kernels(gen):
     counts = dict(launch_counts)
     assert stats["statuses"] == ["ok"] * len(prompts)
     assert [len(o) for o in outs] == [8] * len(prompts)
-    assert not stats["megakernel"]
+    assert stats["megakernel"]
     for name in ("rms_norm", "fused_rope", "flash_attention",
-                 "paged_attention"):
+                 "fused_decode_layer"):
         assert counts.get(name + "[f32]", 0) > 0, counts
-        assert counts.get(name, 0) == 0, counts
+    assert all(k.endswith("[f32]") for k in counts), counts
+    assert counts.get("paged_attention[f32]", 0) == 0, counts

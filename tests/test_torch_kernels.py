@@ -117,13 +117,17 @@ def _paged_inputs(rng, lengths, cols, page=16, kvh=2, h=4, d=32):
             np.asarray(lengths, np.int32))
 
 
-@pytest.mark.parametrize("pages_per_seq", [None, 3])
-def test_paged_attention_matches_pallas(pages_per_seq):
+@pytest.mark.parametrize("pages_per_seq,h,kvh", [
+    pytest.param(None, 4, 2, id="None"), pytest.param(3, 4, 2, id="3"),
+    # GQA groups past 8: multi-query attention and a group of 12
+    pytest.param(None, 12, 1, id="h12-kvh1"),
+    pytest.param(3, 24, 2, id="h24-kvh2")])
+def test_paged_attention_matches_pallas(pages_per_seq, h, kvh):
     rng = np.random.RandomState(4)
     # page boundaries (16, 32, 48), mid-page, one token, and a length
     # past the pages_per_seq cap
     q, kp, vp, tables, lens = _paged_inputs(rng, [16, 32, 7, 1, 48, 60],
-                                            cols=4)
+                                            cols=4, kvh=kvh, h=h)
     want = jax_da.paged_attention(*(jnp.asarray(a) for a in
                                     (q, kp, vp, tables, lens)),
                                   pages_per_seq=pages_per_seq)

@@ -86,6 +86,41 @@ def test_prefill_and_paged_decode_match_jax_full_forward(models):
     assert caches[0].length == 20
 
 
+def test_group12_llama_prefill_and_decode_match_jax():
+    """A GQA group of 12 (hidden 96, 12 heads of 8 on one kv head, 2
+    layers, f32), past the 8 query heads a block of the card's paged
+    decode kernel holds: the port's prefill into the paged cache and 4
+    decode steps, unfused and then fused (per-slot depths inside
+    ``megakernel_scope(True)``), each step's logits equal to the JAX
+    model's at that position."""
+    from paddle_tpu_torch.ops.cuda.decode_megakernel import megakernel_scope
+
+    cfg = dict(CFG, hidden_size=96, num_attention_heads=12,
+               num_key_value_heads=1)
+    paddle.seed(3)
+    jm = JaxLlamaForCausalLM(JaxLlamaConfig(**cfg))
+    tm = LlamaForCausalLM(LlamaConfig(**cfg), device="cpu",
+                          dtype=torch.float32)
+    params_from_paddle_tpu(
+        {k: np.asarray(v) for k, v in jm.raw_state()[0].items()}, tm)
+    ids = np.random.RandomState(2).randint(0, 128, (2, 16)).astype(np.int32)
+    want = np.asarray(paddle.jit.to_static(jm)(paddle.to_tensor(ids))._value)
+    for fused in (False, True):
+        caches = [PagedKVCache(2, 32, 1, 8, page_size=16, device="cpu",
+                               dtype=torch.float32) for _ in range(2)]
+        with torch.no_grad():
+            got = [tm(torch.tensor(ids[:, :12]), caches=caches)]
+            if fused:
+                for c in caches:
+                    c.length = torch.full((2,), 12, dtype=torch.int32)
+            with megakernel_scope(fused):
+                for t in range(12, 16):
+                    got.append(tm(torch.tensor(ids[:, t:t + 1]),
+                                  caches=caches))
+        np.testing.assert_allclose(torch.cat(got, dim=1).numpy(), want,
+                                   atol=1e-5, rtol=0, err_msg=f"{fused=}")
+
+
 def test_generate_matches_jax_generate(models):
     jm, tm = models
     prompt = np.random.RandomState(2).randint(0, 128, (1, 9)).astype(np.int32)

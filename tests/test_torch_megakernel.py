@@ -20,7 +20,9 @@ Probes: the port keeps the JAX probe's structural checks and replaces its
 the JAX probe declines are taken by the port.
 """
 import functools
+import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,12 +86,16 @@ def _jax_args(case):
 
 
 @functools.lru_cache(maxsize=None)
-def _reference(lens, kvh, pages_per_seq):
+def _reference(lens, kvh, pages_per_seq, heads=4, d=8):
     """JAX ``reference_decode_layer`` outputs as numpy (shared by both
-    flush modes)."""
-    case, _ = _case(3, list(lens), kvh=kvh, pages_per_seq=pages_per_seq)
-    return [np.asarray(a) for a in
-            jax_mk.reference_decode_layer(**_jax_args(case))]
+    flush modes), jitted once per case: its eager ops would each compile
+    on their own."""
+    case, _ = _case(3, list(lens), heads=heads, kvh=kvh, d=d,
+                    pages_per_seq=pages_per_seq)
+    args = _jax_args(case)
+    static = {k: args.pop(k) for k in ("heads", "ln1_eps", "ln2_eps")}
+    ref = jax.jit(functools.partial(jax_mk.reference_decode_layer, **static))
+    return [np.asarray(a) for a in ref(**args)]
 
 
 def _port(case, dump_page):
@@ -108,22 +114,35 @@ def _assert_outputs(got, want, keep, label):
                                    rtol=RTOL, err_msg=f"{label}: {name}")
 
 
-@pytest.mark.parametrize("kvh,lens,mode", [
-    (kvh, lens, mode)
-    for lens in ((0, 5), (15, 16, 0, 31), (127, 1, 64, 33))
-    for kvh, mode in ((2, "dump"), (2, "writeback"))] + [(1, (17,), "dump")])
-def test_plain_matches_jax_megakernel_and_reference(kvh, lens, mode):
+@pytest.mark.parametrize("kvh,lens,mode,heads,d", [
+    pytest.param(kvh, lens, mode, 4, 8, id=f"{kvh}-lens{i}-{mode}")
+    for i, (kvh, lens, mode) in enumerate(
+        [(kvh, lens, mode)
+         for lens in ((0, 5), (15, 16, 0, 31), (127, 1, 64, 33))
+         for kvh, mode in ((2, "dump"), (2, "writeback"))]
+        + [(1, (17,), "dump")])] + [
+    # a GQA group of 12 (12 heads of 8 on one kv head), and a head dim
+    # that is not a multiple of 8
+    pytest.param(1, (17, 40), "dump", 12, 8, id="group12"),
+    pytest.param(2, (15, 33), "writeback", 4, 12, id="d12")])
+def test_plain_matches_jax_megakernel_and_reference(kvh, lens, mode, heads,
+                                                    d):
     """Fresh sequences (length 0), appends at and across page boundaries,
-    near-full depths and one kv head: the port's plain version equals the
+    near-full depths, one kv head, a group of 12 and D = 12: the port's
+    plain version equals the unfused reference and, but at D = 12, the
     Pallas kernel (interpret mode) in the dump-page and the write-back
-    flush modes, and the unfused reference. The Pallas kernel's dump page
-    absorbs garbage by design, so it is left out of that comparison."""
+    flush modes. The Pallas kernel's dump page absorbs garbage by design,
+    so it is left out of that comparison."""
     pps = max(n // 16 for n in lens) + 2
-    case, dump = _case(3, list(lens), kvh=kvh, pages_per_seq=pps)
+    case, dump = _case(3, list(lens), heads=heads, kvh=kvh, d=d,
+                       pages_per_seq=pps)
     dump_page = dump if mode == "dump" else None
     got = _port(case, dump_page)
     keep = np.ones(case["k_pages"].shape[0], bool)
-    _assert_outputs(got, _reference(lens, kvh, pps), keep, "reference")
+    _assert_outputs(got, _reference(lens, kvh, pps, heads, d), keep,
+                    "reference")
+    if d != 8:  # D = 12 against the reference alone, to keep the suite fast
+        return
     want = jax_mk.fused_decode_layer(**_jax_args(case), dump_page=dump_page,
                                      interpret=True)
     if mode == "dump":
@@ -287,8 +306,9 @@ def test_probes_differ_at_the_438m_widths():
     """The one intended difference: at hidden 1536 and 12 heads of 128 the
     q/k/v/o weights (18.9 MB in bf16) exceed the JAX probe's 12 MiB VMEM
     budget (decode_megakernel.py:69-71, :151-156), and the port, whose
-    kernel streams the weights, takes the layer; in bf16 it is within the
-    CUDA kernel's limits too."""
+    kernels stream the weights, takes the layer; in f32 and in bf16 it is
+    within the CUDA kernels' limits too, and so are head dim 96 and a
+    group of 12. A hidden size past ``MAX_HIDDEN`` (8192) is declined."""
     jm, tm = _pair(hidden_size=1536, num_attention_heads=12,
                    num_key_value_heads=12,
                    max_position_embeddings=256)
@@ -296,12 +316,41 @@ def test_probes_differ_at_the_438m_widths():
     assert mk.megakernel_model_supported(tm)
     layer = tm.model.layers[0]
     norms = (layer.input_layernorm, layer.post_attention_layernorm)
-    assert not mk._kernel_takes(layer.self_attn, norms, 12, 12, 128, 1536)
-    layer.to(torch.bfloat16)
-    assert mk._kernel_takes(layer.self_attn, norms, 12, 12, 128, 1536)
-    assert not mk._kernel_takes(layer.self_attn, norms, 12, 12, 96, 1536)
-    assert not mk._kernel_takes(layer.self_attn, norms, 12, 1, 128, 1536)
-    assert not mk._kernel_takes(layer.self_attn, norms, 12, 12, 128, 8192)
+    for dtype in (torch.float32, torch.bfloat16):
+        layer.to(dtype)
+        assert mk._kernel_takes(layer.self_attn, norms, 128, 1536)
+        assert mk._kernel_takes(layer.self_attn, norms, 96, 1536)
+        assert not mk._kernel_takes(layer.self_attn, norms, 128, 8192)
+    tm = LlamaForCausalLM(LlamaConfig(**{  # a group of 12
+        **CFG, "num_hidden_layers": 1, "hidden_size": 96,
+        "num_attention_heads": 12, "num_key_value_heads": 1}), device="cpu",
+        dtype=torch.float32)
+    assert mk.megakernel_model_supported(tm)
+
+
+def test_card_probe_takes_every_dtype_head_dim_and_group():
+    """The card probe's limits are the kernels' own: one float type
+    throughout (bf16 or f32), any even head dim up to 256 and any group
+    (the structural probe checks those two), and a hidden size that is a
+    multiple of 8 up to ``MAX_HIDDEN``; f16, a mix of types, a hidden past
+    ``MAX_HIDDEN`` or off the multiple of 8 are declined."""
+    def layer(dtype, ln_dtype=None):
+        w = lambda dt: types.SimpleNamespace(weight=torch.empty(2, dtype=dt))
+        attn = types.SimpleNamespace(q_proj=w(dtype), k_proj=w(dtype),
+                                     v_proj=w(dtype), o_proj=w(dtype))
+        return attn, (w(ln_dtype or dtype), w(ln_dtype or dtype))
+
+    for dtype in (torch.bfloat16, torch.float32):
+        attn, norms = layer(dtype)
+        for d in range(2, mk.MAX_HEAD_DIM + 1, 2):
+            for hidden in (8, 1536, mk.MAX_HIDDEN):
+                assert mk._kernel_takes(attn, norms, d, hidden), (dtype, d)
+        assert not mk._kernel_takes(attn, norms, 128, mk.MAX_HIDDEN + 8)
+        assert not mk._kernel_takes(attn, norms, 128, 1540)
+        assert not mk._kernel_takes(attn, norms, 2 * mk.MAX_HEAD_DIM, 1536)
+    assert not mk._kernel_takes(*layer(torch.float16), 128, 1536)
+    assert not mk._kernel_takes(*layer(torch.bfloat16, torch.float32), 128,
+                                1536)
 
 
 def test_probes_decline_a_biased_projection():

@@ -22,6 +22,7 @@ kernel runs its plain version. Tolerances: 1e-6 where both sides compute
 the same f32 composition; 1e-5 against a Pallas kernel, whose sums
 (online softmax, blocked reductions) run in another order.
 """
+import functools
 import math
 
 import jax
@@ -211,14 +212,29 @@ ROPE_CALLS = {  # name -> (args after q, k, cos, sin), kwargs
 @pytest.mark.parametrize("call", sorted(ROPE_CALLS) + ["interleaved"])
 def test_rope_signature_matches_jax(call):
     """``use_neox_rotary_style=True`` (the default) is the port's rotation;
-    ``False`` (interleaved pairs) raises, not ported yet."""
+    ``False`` rotates the interleaved pairs as JAX's jnp formula does:
+    without position ids, with (B, S) and (S,) ones, and with k=None."""
     rng = np.random.RandomState(4)
     q, k = _np(rng, 2, 24, 4, 32), _np(rng, 2, 24, 2, 32)
     cos, sin = _rope_tables(32, 64, 10000.0, "cpu")
     if call == "interleaved":
-        with pytest.raises(NotImplementedError, match="Queue 2a item 4"):
-            nn_kernels.rotary_position_embedding(
-                _t(q), _t(k), cos, sin, use_neox_rotary_style=False)
+        jcos, jsin = _j(cos.numpy()), _j(sin.numpy())
+        pos2 = rng.randint(0, 64, (2, 24)).astype(np.int32)
+        pos1 = rng.randint(0, 64, (24,)).astype(np.int32)
+        jax_rope = jax.jit(functools.partial(jax_nn.rotary_position_embedding,
+                                             use_neox_rotary_style=False))
+        for pos, kk in ((None, k), (pos2, k), (pos1, k), (pos2, None)):
+            wq, wk = jax_rope(_j(q), None if kk is None else _j(kk), jcos,
+                              jsin, None if pos is None else _j(pos))
+            gq, gk = nn_kernels.rotary_position_embedding(
+                _t(q), None if kk is None else _t(kk), cos, sin,
+                None if pos is None else _t(pos),
+                use_neox_rotary_style=False)
+            _close(gq, wq, KERNEL)
+            if kk is None:
+                assert gk is None and wk is None
+            else:
+                _close(gk, wk, KERNEL)
         return
     args, kwargs = ROPE_CALLS[call]
     wq, wk = jax_nn.rotary_position_embedding(

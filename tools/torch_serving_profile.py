@@ -17,8 +17,8 @@ decode step (prefill included, spread over the decode steps), the
 device's idle share of the profiled run, device time grouped into the
 port's kernels, GEMMs and the rest, and kernel launches per decode step.
 ``--model phi3`` runs chip_smoke.py's phi3-serve model instead (32 layers
-at Phi-3-mini's widths, ``CFG_PHI3``) in one arm, the engine's default
-(the megakernel declines head dim 96, so its decode layers run unfused).
+at Phi-3-mini's widths, ``CFG_PHI3``), whose fused arm takes the second
+decode megakernel (head dim 96).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 OURS = {"rms_norm_fwd_kernel": "rms_norm", "rope_kernel": "fused_rope",
         "flash_fwd_kernel": "flash_attention",
         "paged_decode": "paged_attention",
-        "decode_layer_kernel": "fused_decode_layer"}
+        "decode_layer_": "fused_decode_layer"}
 
 
 def group_of(name):
@@ -122,9 +122,8 @@ def main():
     cfg = CFG_PHI3 if args.model == "phi3" else CFG_438M
     model = LlamaForCausalLM(LlamaConfig(**cfg), dtype=torch.bfloat16,
                              generator=seed(0, "cuda"))
-    arms = ({"default": profile_arm(model, True)} if args.model == "phi3"
-            else {"unfused": profile_arm(model, False),
-                  "fused": profile_arm(model, True)})
+    arms = {"unfused": profile_arm(model, False),
+            "fused": profile_arm(model, True)}
     print(json.dumps({"card": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi_line(), "model": args.model,
                       "arms": arms}), flush=True)
