@@ -15,10 +15,12 @@ so that a fault surfaces in the phase that caused it:
             alone and neither, also at widths 100 and 4096), the training
             path's backward kernels and the forward kernels at the
             training shape, (4, 1536) tokens of the 438M model (the
-            RMSNorm forward also timed with a bias), plus a GQA case for
-            flash dK/dV and dQ. Max abs error within
-            the stated tolerance, device time per call (a CUDA graph of
-            many calls, so host launch cost is excluded), the plain
+            RMSNorm forward also timed with a bias; the backward's two
+            launches, its rows and the sum of their partials, also timed
+            apart by torch.profiler), plus a GQA case for flash dK/dV and
+            dQ. Max abs error within the stated tolerance, device time
+            per call (a CUDA graph of many calls, so host launch cost is
+            excluded), the plain
             version's and a PyTorch library call's time, and the bound
             (the larger of bytes over the memory rate and flops over the
             bf16 peak); for the megakernel also the time of the port's
@@ -122,9 +124,10 @@ so that a fault surfaces in the phase that caused it:
             32, 80) causal through the padded route (Phi-2's widths,
             printed beside the native 96) and at (2, 256, 4, 32); paged
             decode at q (8, 32, 96) and q (8, 16, 256) on 2 kv heads in
-            e2's pool layout; RMSNorm at width 3072 and RoPE at head dim
-            96 (with k=None too). Then the flash-edge cases again at head
-            dims 96 and 256.
+            e2's pool layout; RMSNorm at width 3072 (the backward's two
+            launches timed apart) and RoPE at head dim 96 (with k=None
+            too). Then the flash-edge cases again at head dims 96 and
+            256.
 14. phi3-serve  a LLaMA at Phi-3-mini's widths (CFG_PHI3: 32 layers,
             hidden 3072, 32 heads of 96) behind the engine on e2's
             traffic in two arms, the default decode_megakernel=1 (fused:
@@ -152,10 +155,11 @@ so that a fault surfaces in the phase that caused it:
             JAX model's default dtype) against their f32 plain versions
             within 1e-4 + 1e-4 |plain| (lse too), TF32 off, each timed
             beside its bound (bytes, or flops at the f32 FMA rate of 67
-            TFLOP/s), the plain version and a library call: RMSNorm at
-            (8, 1536) and (1024, 1536), RoPE on (8, 128, 12, 128) both
-            ways and at decode positions, the flash forward at e2's
-            prefill (8, 128, 12, 128) causal, at (4, 1536, 12, 128), at
+            TFLOP/s; the flash forward, in 3xTF32, three TF32 products a
+            flop at 495 TFLOP/s), the plain version and a library call:
+            RMSNorm at (8, 1536) and (1024, 1536), RoPE on (8, 128, 12,
+            128) both ways and at decode positions, the flash forward at
+            e2's prefill (8, 128, 12, 128) causal, at (4, 1536, 12, 128), at
             Phi-3's (8, 128, 32, 96) and at (2, 2048, 16, 256) on 2 kv
             heads (F.scaled_dot_product_attention in f32 beside it), with
             segments (rows with no key exactly 0, lse -1e30), paged decode
@@ -183,7 +187,8 @@ so that a fault surfaces in the phase that caused it:
             non-causal, Phi-3's (4, 1536, 32, 96), (2, 2048, 16, 256) on
             2 kv heads and (4, 1536, 32, 80) through the padded route,
             and the [seg] forms at the varlen shape (1, 6144, 12, 128)
-            causal with its 7 packed documents.
+            causal with its 7 packed documents; at each shape the f32
+            forward's out and lse too, at the same gate.
 20. f32-grad  the grad phase in f32: a 2-layer model at the 438M widths
             on (1, 256) ids, f32 on the card against f32 on the CPU: the
             loss within 1e-5 relative, every gradient within 1e-4
@@ -225,8 +230,9 @@ import torch
 
 # Published dense peaks (NVIDIA data sheets, SXM parts at 700 W):
 # (memory bytes/s, bf16 tensor-core flop/s, f32 flop/s outside the
-# tensor cores)
-PEAKS = {"H100": (3.35e12, 989e12, 67e12), "H200": (4.8e12, 989e12, 67e12)}
+# tensor cores, TF32 tensor-core flop/s)
+PEAKS = {"H100": (3.35e12, 989e12, 67e12, 495e12),
+         "H200": (4.8e12, 989e12, 67e12, 495e12)}
 # kernel results within atol + rtol * |plain|: rtol is one bf16 ulp
 # (2^-7 relative), as kernel and plain version round their f32 results to
 # bf16 after summing in different orders
@@ -361,6 +367,28 @@ def bound_ms(nbytes, flops, peaks, flop_rate=None):
     t_bytes, t_ops = nbytes / peaks[0], flops / (flop_rate or peaks[1])
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def launch_split(fn, calls=10):
+    """Device time of each kernel that ``fn`` launches, in ms a call, by
+    kernel name: ``calls`` eager calls after a warm-up under torch.profiler
+    (a wrapper of two launches, timed apart)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = float(getattr(e, "self_device_time_total", 0.0))
+            split[e.key[:60]] = us / 1e3 / calls
+    if not split:
+        raise PhaseFailed("torch.profiler recorded no device time")
+    return split
 
 
 def rates(flops, ms, bms):
@@ -1217,6 +1245,7 @@ def train_kernel_phase(peaks):
         library_ms=graph_ms(lambda: torch.autograd.grad(
             yl, (xl, wl), g, retain_graph=True), calls=10, stream=side),
         eager_ms=eager_ms(lambda: rn.rms_norm_bwd(x, w, r, g), calls=20),
+        launches_ms=launch_split(lambda: rn.rms_norm_bwd(x, w, r, g)),
         bound_ms=bms, bound_by=by)
     emit("kernel", name="rms_norm_bwd", **rec)
     torch.cuda.synchronize()
@@ -2410,6 +2439,7 @@ def head_dims_phase(peaks):
                           calls=10),
         library_ms=graph_ms(lambda: torch.autograd.grad(
             yl, (xl, wl), g, retain_graph=True), calls=10, stream=side),
+        launches_ms=launch_split(lambda: rn.rms_norm_bwd(x, w, r, g)),
         bound_ms=bms, bound_by=by)
     emit("kernel", name="rms_norm_bwd", case="phi3 train", **rec)
 
@@ -2596,9 +2626,12 @@ def f32_compare(name, got, want):
 
 def f32_flash_row(fa, peaks, gen, case, b, s, h, kvh, d, calls=3):
     """The f32 flash forward at one causal shape against its plain
-    version (out and lse), timed beside its bound (bytes, or flops at the
-    f32 FMA rate), the plain version and F.scaled_dot_product_attention on
-    the same f32 inputs (TF32 off)."""
+    version (out and lse), timed beside its bound, the plain version and
+    F.scaled_dot_product_attention on the same f32 inputs (TF32 off). The
+    kernel takes its products in 3xTF32, so its bound is the larger of the
+    bytes over the memory rate and three TF32 products a flop over the
+    TF32 tensor-core peak; ``fma_bound_ms`` keeps the flops over the f32
+    FMA rate, the first design's bound."""
     q = torch.randn((b, s, h, d), generator=gen, device="cuda")
     k = torch.randn((b, s, kvh, d), generator=gen, device="cuda")
     v = torch.randn((b, s, kvh, d), generator=gen, device="cuda")
@@ -2609,11 +2642,12 @@ def f32_flash_row(fa, peaks, gen, case, b, s, h, kvh, d, calls=3):
                                                        plse))
     del pout, plse
     flops = 4 * d * b * h * s * (s + 1) // 2
-    bms, by = bound_ms(4 * q.numel() * 4 + lse.numel() * 4, flops, peaks,
-                       flop_rate=peaks[2])
+    nb = 4 * q.numel() * 4 + lse.numel() * 4
+    bms, by = bound_ms(nb, 3 * flops, peaks, flop_rate=peaks[3])
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     rec = dict(case=case, shape=[b, s, h, d], kv_heads=kvh, causal=True,
                max_abs_err=err,
+               fma_bound_ms=bound_ms(nb, flops, peaks, flop_rate=peaks[2])[0],
                ms=graph_ms(lambda: fa.flash_attention_fwd(q, k, v, True),
                            calls=calls, replays=3),
                plain_ms=graph_ms(lambda: fa.flash_attention_fwd_plain(
@@ -2752,7 +2786,8 @@ F32_BWD_CASES = [
 def f32_bwd_rows(fa, peaks, gen, case, b, s, h, kvh, d, causal, seg=None):
     """f32 dK/dV and dQ at one shape (sq == sk) against their plain
     version from the f32 forward kernel's out and lse, within the f32
-    gate; each timed (a CUDA graph of 3 calls) beside its bound (bytes, or
+    gate (the forward's out and lse too, against its plain version); each
+    timed (a CUDA graph of 3 calls) beside its bound (bytes, or
     flops at the f32 FMA rate over the visible pairs, counted from the ids
     with segments), the plain backward and ``autograd.grad`` through
     ``F.scaled_dot_product_attention`` in f32 (with a dense boolean mask
@@ -2765,6 +2800,11 @@ def f32_bwd_rows(fa, peaks, gen, case, b, s, h, kvh, d, causal, seg=None):
     q, do = randn(b, s, h, d), randn(b, s, h, d)
     k, v = randn(b, s, kvh, d), randn(b, s, kvh, d)
     out, lse = fa.flash_attention_fwd(q, k, v, causal, seg, seg)
+    # the forward kernel (3xTF32) at this shape too, at the same gate
+    pout, plse = fa.flash_attention_fwd_plain(q, k, v, causal, seg, seg)
+    fwd_err = max(f32_compare("out" + tag, out, pout),
+                  f32_compare("lse" + tag, lse, plse))
+    del pout, plse
     delta = fa._delta(out, do)
     got_dk, got_dv = fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
                                                  causal, seg, seg)
@@ -2817,7 +2857,7 @@ def f32_bwd_rows(fa, peaks, gen, case, b, s, h, kvh, d, causal, seg=None):
         bms, by = bound_ms(nb, flops, peaks, flop_rate=peaks[2])
         rec = dict(case=case, shape=[b, s, h, d], kv_heads=kvh,
                    causal=causal, route=route, pairs=pairs,
-                   max_abs_err=errs[kname],
+                   max_abs_err=errs[kname], fwd_max_abs_err=fwd_err,
                    ms=graph_ms(fn, calls=3, replays=3), plain_ms=plain,
                    library_ms=lib, bound_ms=bms, bound_by=by)
         rec.update(rates(flops, rec["ms"], bms))

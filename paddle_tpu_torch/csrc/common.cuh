@@ -171,6 +171,46 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
   lo = pack_bf16(a - hf.x, b - hf.y);
 }
 
+// ---- 3xTF32: an f32 product on the tensor cores. Each f32 operand is
+// split into hi, its TF32 rounding (to nearest, ties away from zero, as
+// cvt.rna.tf32.f32 rounds), and lo = the rest, exact in f32, which the
+// tensor core reads as TF32 by dropping its low 13 bits; a b is then
+// hi_a hi_b + hi_a lo_b + lo_a hi_b, which errs by about 2^-21 relative
+// where one TF32 product (1xTF32) errs by 2^-11. hi is formed with two
+// integer operations, the value cvt.rna.tf32.f32 gives a finite x: the
+// instruction compiles to a longer sequence (it checks for NaN and
+// infinity), on the hot path of every product. The m16n8k8 TF32
+// fragments, lane = 4 g + t: A (16 x 8,
+// row-major) holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) in
+// a[0..3]; B (8 x 8, k x n) holds (k t, n g) in b0 and (k t + 4, n g) in
+// b1; the accumulator as bf16's m16n8k16.
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b over one 16 x 8 x 8 step, TF32 operands, f32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32, a and b given split: the two small products first.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(c, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(c, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(c, a_hi, b_hi[0], b_hi[1]);
+}
+
 // Rows [row0, row0 + kRows) of a bf16 matrix with D columns whose row i
 // starts at src + i * row_stride, into dst[kRows][D + 8] (each row padded
 // by 8 bf16, so that the 8 row addresses of an ldmatrix fall in distinct

@@ -1,6 +1,7 @@
 // Flash-attention forward in float32: O = softmax(Q K^T * scale [+ causal
 // mask]) V and the per-row log-sum-exp, online softmax, never forming the
-// (Sq, Sk) score matrix in memory, with every product in f32.
+// (Sq, Sk) score matrix in memory, with both products in 3xTF32 on the
+// tensor cores.
 //
 // Replaces the Pallas kernel paddle_tpu/ops/pallas/flash_attention.py:86
 // (_fwd_kernel, called from _fwd at :137) on f32 inputs. The Pallas kernel
@@ -13,57 +14,69 @@
 // whose id range does not meet the query tile's (ptt::SegWalk); a query
 // row with no visible key gets out = 0 and lse = -1e30.
 //
-// Numerics: no tensor core here. bf16 operands would round Q, K, P and V
-// to 8 bits, and TF32 to 11; JAX's f32 kernel rounds none of them. Every
-// product is an f32 FMA (SIMT), summed in f32, so the kernel agrees with
-// an f32 matmul composition to ~1e-6 relative.
+// Numerics: every product is 3xTF32 (ptt::mma_3xtf32): each f32 operand
+// (Q, K, P, V) is split into two TF32 terms, hi (its rounding to nearest)
+// and lo (the rest, truncated), and a b is hi hi + hi lo + lo hi, summed
+// in f32, about 2^-21 relative per product.
+// One TF32 product (1xTF32, what allow_tf32 gives a matmul) keeps 11 bits
+// and misses the f32 gate (1e-4 + 1e-4 relative against the plain f32
+// version): tests/test_torch_flash_rounding.py emulates both on the CPU
+// against JAX's f32 Pallas kernel. The softmax is f32, as before.
 //
-// Bound on the H100: the f32 FMA rate outside the tensor cores (67
-// TFLOP/s) at the training shape (4, 1536, 12, 128) causal (28.99 GFLOP,
-// 433 us); bytes at the serving prefill (8, 128, 12, 128) causal (25.2 MB
-// of q, k, v and out, 7.5 us at 3.35 TB/s). Design, for the FMA pipes:
-// - A block of 256 threads owns kBQ = 64 query rows of one (b, h) and
-//   walks kBK = 32-key tiles up to the tile's causal limit. Thread (rg,
-//   cg), rg = tid / 16 and cg = tid % 16, holds rows 4 rg .. 4 rg + 3: for
-//   S = Q K^T the keys cg and cg + 16 of the tile (8 scores), and for O
-//   the 16-byte column chunks cg, cg + 16, ... (D / 64 chunks, 4 rows each:
-//   32 f32 accumulators at D = 128, 64 at 256). The 16 threads of a row
-//   group are one half-warp, so row max and row sum reduce with 4
-//   shuffles and P passes through shared memory with no block barrier.
-// - Q, K and V rows sit in shared memory with a stride of D + 4 floats,
-//   read as float4: a half-warp's 16 K rows fall in distinct bank groups
-//   (2 wavefronts for 256 bytes), and its Q and P reads are broadcasts.
-//   Each k-step of Q K^T is 6 float4 loads for 32 FMAs, each key of P V
-//   1 + D / 64 float4 loads for 4 D / 16 FMAs.
+// Bound on the H100: the tensor cores at the training shape (4, 1536, 12,
+// 128) causal: 3 x 28.99 GFLOP of TF32 products at 495 TFLOP/s, 176 us
+// (the f32 FMA rate outside the tensor cores, 67 TFLOP/s, would give 433
+// us: the first design, SIMT FMAs, ran at 46% of that); bytes at the
+// serving prefill (8, 128, 12, 128) causal (25.2 MB of q, k, v and out,
+// 7.5 us at 3.35 TB/s). Design, the bf16 kernel's:
+// - A block of 4 warps owns kBQ = 64 query rows of one (b, h), each warp
+//   16 of them, and walks key tiles (kKeyTile<D>: 64 keys up to D = 64,
+//   32 past it, so that two blocks share an SM up to D = 128) up to the
+//   tile's causal limit, heaviest causal tiles first.
+// - Every product is mma.sync m16n8k8 TF32 with f32 accumulators, three
+//   a step. Q's A fragments come from shared memory by ldmatrix (8 x 16
+//   bytes is 8 rows of 4 floats: lane (g, t) gets [g][t], the TF32
+//   layout) and are split once (kQInRegisters<D>: D <= 64) or at each
+//   k-step; K's B fragments by ldmatrix too, split at each k-step.
+// - The keys of an 8-key block are taken in the order t, t + 4: K's row
+//   for score column n is key n / 2 + 4 (n % 2), so that the score a
+//   lane holds at columns 2t and 2t + 1 is P at keys t and t + 4, which
+//   is the A fragment of P V as it stands (no shuffle), and V's B
+//   fragment is rows t and t + 4 in order.
+// - O's columns are taken in the order n-block j, column n -> n D / 8 + j,
+//   so that a lane's V values for all n-blocks are D / 8 neighbouring
+//   floats of a row: float4 loads (no bank conflict at D = 128). The
+//   output tile is written back in order through the block's Q rows.
 // - K and V tiles are staged with 16-byte cp.async in a ring of two, the
-//   next tile's copies in flight while the current one is multiplied.
-//   Shared memory: 108 KB at D = 128 (two blocks an SM), 204 KB at 256
-//   (one). Causal tiles run heaviest first, as in the bf16 kernel.
+//   next tile's copies in flight while the current one is multiplied;
+//   rows padded by 4 floats (ldmatrix's 8 rows in distinct bank groups).
+//   Shared memory 101 KB at D = 128 (two blocks an SM), 200 KB at 256
+//   (one).
 //
 // Head dims: instantiated at D = 32, 64, 96, 128 and 256, the bf16 kernel's
 // widths, so the wrapper's padded route (ops/cuda/flash_attention.py)
-// serves the others up to 256 the same way. At D = 32 and 96 some threads
-// own one chunk fewer of O (D / 4 chunks over 16 threads).
+// serves the others up to 256 the same way.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows a block
-constexpr int kBK = 32;        // keys a tile
-constexpr int kThreads = 256;  // 16 row groups of 4 rows x 16 threads
-constexpr int kRows = 4;       // rows a thread
-constexpr int kKeys = kBK / 16;  // keys a thread holds in S
-constexpr int kPs = kBK + 4;   // P's shared row stride, floats
+constexpr int kBQ = 64;  // query rows a block: 4 warps x 16
+constexpr int kThreads = kBQ / 16 * 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// keys a tile, and whether a warp holds its Q fragments (split) in
+// registers
 template <int D>
-constexpr int kChunks = (D / 4 + 15) / 16;  // O's 16-byte chunks a thread
+constexpr int kKeyTile = D <= 64 ? 64 : 32;
+template <int D>
+constexpr bool kQInRegisters = D <= 64;
 
 template <int D, bool kSegments>
 constexpr int smem_bytes() {
-  // Q, two stages of K and V, P; with segments the query ids and two
+  // Q, and two stages of K and V; with segments the Q tile's ids and two
   // stages of key ids
-  return ((kBQ + 4 * kBK) * (D + 4) + kBQ * kPs) * 4 +
+  constexpr int kBK = kKeyTile<D>;
+  return (kBQ + 4 * kBK) * (D + 4) * 4 +
          (kSegments ? (kBQ + 2 * kBK) * 4 : 0);
 }
 
@@ -74,17 +87,19 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ lse, const ptt::SegIds seg, int sq,
                      int sk, int heads, int kv_heads, float scale,
                      int causal) {
-  static_assert(D % 32 == 0 && D <= 256, "head dims of whole bank rows");
-  constexpr int S = D + 4;         // Q, K, V shared row stride, floats
-  constexpr int kNC = kChunks<D>;  // O chunks a thread
-  constexpr bool kFull = (D / 4) % 16 == 0;  // every thread owns kNC chunks
+  static_assert(D % 32 == 0 && D <= 256, "head dims of whole float4 runs");
+  constexpr int kBK = kKeyTile<D>;
+  constexpr bool kQRegs = kQInRegisters<D>;
+  constexpr int S = D + 4;      // shared row stride, floats
+  constexpr int kKd = D / 8;    // k-steps of Q K^T
+  constexpr int kNs = kBK / 8;  // score n-blocks of a key tile
+  constexpr int kNo = D / 8;    // output n-blocks
   extern __shared__ __align__(16) unsigned char fwd_f32_smem[];
   float* qs = reinterpret_cast<float*>(fwd_f32_smem);  // [kBQ][S]
   float* ks = qs + kBQ * S;                            // [2][kBK][S]
   float* vs = ks + 2 * kBK * S;                        // [2][kBK][S]
-  float* ps = vs + 2 * kBK * S;                        // [kBQ][kPs]
-  int* qid_s = reinterpret_cast<int*>(ps + kBQ * kPs);  // [kBQ]
-  int* kid_s = qid_s + kBQ;                              // [2][kBK]
+  int* qid_s = reinterpret_cast<int*>(vs + 2 * kBK * S);  // [kBQ]
+  int* kid_s = qid_s + kBQ;                               // [2][kBK]
 
   // the last query tiles see the most keys: schedule them first
   const int n_qt = (sq + kBQ - 1) / kBQ;
@@ -92,7 +107,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / hb;
   const int h = blockIdx.x % hb % heads, b = blockIdx.x % hb / heads;
   const int kh = h / (heads / kv_heads);
-  const int rg = threadIdx.x / 16, cg = threadIdx.x % 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
   const int q0 = qt * kBQ, off = sk - sq;
   const long long q_row = static_cast<long long>(heads) * D;
   const long long kv_row = static_cast<long long>(kv_heads) * D;
@@ -145,20 +161,22 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (kt < n_kt) stage_kv(kt, 0);
   ptt::cp_async_commit();
 
-  const int r0 = rg * kRows;  // this thread's rows in the tile: r0 .. r0 + 3
-  float acc[kRows][kNC][4];
+  const int row = q0 + warp * 16 + g;  // this thread's rows: row, row + 8
+  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: matrix, its row
+  // Q's A fragment of k-step kk: rows 0-7 and 8-15 of the warp's 16, at
+  // columns 8 kk .. + 3 and 8 kk + 4 .. + 7
+  const float* q_frag = qs + (warp * 16 + mrow + 8 * (mat & 1)) * S +
+                        4 * (mat >> 1);
+  // K's B fragments of n-blocks 2j, 2j + 1: key row n / 2 + 4 (n % 2)
+  const int k_frag = (8 * (mat >> 1) + (mrow >> 1) + 4 * (mrow & 1)) * S +
+                     4 * (mat & 1);
+  uint32_t qh[kQRegs ? kKd : 1][4], ql[kQRegs ? kKd : 1][4];
+  float acc[kNo][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+  for (int n = 0; n < kNo; ++n)
 #pragma unroll
-    for (int j = 0; j < kNC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = ptt::kNegInf;
-    l[i] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {ptt::kNegInf, ptt::kNegInf}, l[2] = {0.f, 0.f};
 
   // it counts the tiles visited; unmasked it equals kt
   for (int it = 0; kt < n_kt; ++it) {
@@ -173,144 +191,186 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       ptt::cp_async_wait<0>();
     }
     __syncthreads();
+    if (kQRegs && step == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKd; ++kk) {
+        uint32_t raw[4];
+        ptt::ldmatrix_x4<false>(raw, q_frag + kk * 8);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          ptt::split_tf32(__uint_as_float(raw[a]), qh[kk][a], ql[kk][a]);
+        }
+      }
+    }
     const float* kst = ks + stage * kBK * S;
     const float* vst = vs + stage * kBK * S;
 
-    // S = Q K^T: rows r0 .. r0 + 3, keys cg and cg + 16
-    float s[kRows][kKeys];
+    // S = Q K^T over this warp's 16 rows and the tile's keys
+    float s[kNs][4];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int n = 0; n < kNs; ++n)
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d0 = 0; d0 < D; d0 += 4) {
-      float4 qv[kRows], kv[kKeys];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        qv[i] = *reinterpret_cast<const float4*>(qs + (r0 + i) * S + d0);
-      }
+    for (int kk = 0; kk < kKd; ++kk) {
+      if (!kQRegs) {  // this k-step's Q fragment, from the Q rows
+        uint32_t raw[4];
+        ptt::ldmatrix_x4<false>(raw, q_frag + kk * 8);
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        kv[j] = *reinterpret_cast<const float4*>(kst + (cg + 16 * j) * S + d0);
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        for (int a = 0; a < 4; ++a) {
+          ptt::split_tf32(__uint_as_float(raw[a]), qh[0][a], ql[0][a]);
         }
+      }
+      const uint32_t(&qfh)[4] = qh[kQRegs ? kk : 0];
+      const uint32_t(&qfl)[4] = ql[kQRegs ? kk : 0];
+#pragma unroll
+      for (int j = 0; j < kBK / 16; ++j) {
+        uint32_t raw[4], bh[2][2], bl[2][2];
+        ptt::ldmatrix_x4<false>(raw, kst + k_frag + 16 * j * S + kk * 8);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          ptt::split_tf32(__uint_as_float(raw[a]), bh[a >> 1][a & 1],
+                          bl[a >> 1][a & 1]);
+        }
+        ptt::mma_3xtf32(s[2 * j], qfh, qfl, bh[0], bl[0]);
+        ptt::mma_3xtf32(s[2 * j + 1], qfh, qfl, bh[1], bl[1]);
       }
     }
 
     const bool need_mask =
         kSegments || k0 + kBK > sk || (causal && k0 + kBK - 1 > q0 + off);
+    int rid[2] = {0, 0};  // this thread's rows' ids
+    if (kSegments) {
+      rid[0] = qid_s[warp * 16 + g];
+      rid[1] = qid_s[warp * 16 + g + 8];
+    }
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = q0 + r0 + i;
-      const int rid = kSegments ? qid_s[r0 + i] : 0;
+    for (int n = 0; n < kNs; ++n) {
+      int cid[2] = {0, 0};  // the ids of keys t and t + 4 of the n-block
+      if (kSegments) {
+        cid[0] = kid_s[stage * kBK + n * 8 + t];
+        cid[1] = kid_s[stage * kBK + n * 8 + t + 4];
+      }
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        s[i][j] *= scale;
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] *= scale;
         if (need_mask) {
-          const int c = k0 + cg + 16 * j;
+          const int c = k0 + n * 8 + t + 4 * (e & 1);
+          const int r = row + (e >> 1) * 8;
           if (c >= sk || (causal && c > r + off) ||
-              (kSegments && kid_s[stage * kBK + cg + 16 * j] != rid)) {
-            s[i][j] = ptt::kNegInf;
+              (kSegments && cid[e & 1] != rid[e >> 1])) {
+            s[n][e] = ptt::kNegInf;
           }
         }
       }
     }
 
-    // online softmax: the row max over the half-warp, then P = exp(S - m)
+    // online softmax: the row max over the quad, then P = exp(S - m)
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float mx = m[i];
+    for (int n = 0; n < kNs; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    float mb[2];
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) mx = fmaxf(mx, s[i][j]);
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float alpha = exp2f((m[r] - mx[r]) * kLog2e);
+      l[r] *= alpha;
 #pragma unroll
-      for (int o2 = 8; o2 > 0; o2 >>= 1) {
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+      for (int n = 0; n < kNo; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
       }
-      const float alpha = exp2f((m[i] - mx) * kLog2e);
-      l[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kNC; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] *= alpha;
-      m[i] = mx;
+      m[r] = mx[r];
       // a row with no visible key yet keeps m = -1e30: its P must be 0
-      const float mb = (mx == ptt::kNegInf ? 0.f : mx) * kLog2e;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float p = exp2f(fmaf(s[i][j], kLog2e, -mb));
-        l[i] += p;
-        ps[(r0 + i) * kPs + cg + 16 * j] = p;
-      }
+      mb[r] = (mx[r] == ptt::kNegInf ? 0.f : mx[r]) * kLog2e;
     }
-    __syncwarp();  // P of this half-warp's rows is written
-
-    // O += P V: 4 keys a step, P as float4 of each row
-#pragma unroll 2
-    for (int c0 = 0; c0 < kBK; c0 += 4) {
-      float4 pv[kRows];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        pv[i] = *reinterpret_cast<const float4*>(ps + (r0 + i) * kPs + c0);
+    for (int n = 0; n < kNs; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(fmaf(s[n][e], kLog2e, -mb[e >> 1]));
       }
+      l[0] += s[n][0] + s[n][1];
+      l[1] += s[n][2] + s[n][3];
+    }
+
+    // O += P V: n-block kk of P is the A fragment of keys 8 kk + (t, t + 4)
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float* vrow = vst + (c0 + kk) * S;
+    for (int kk = 0; kk < kNs; ++kk) {
+      uint32_t ph[4], pl[4];
+      ptt::split_tf32(s[kk][0], ph[0], pl[0]);  // (g, t)
+      ptt::split_tf32(s[kk][2], ph[1], pl[1]);  // (g + 8, t)
+      ptt::split_tf32(s[kk][1], ph[2], pl[2]);  // (g, t + 4)
+      ptt::split_tf32(s[kk][3], ph[3], pl[3]);  // (g + 8, t + 4)
+      const float* v0 = vst + (kk * 8 + t) * S + g * kNo;
+      const float* v1 = v0 + 4 * S;
 #pragma unroll
-        for (int j = 0; j < kNC; ++j) {
-          const int ch = cg + 16 * j;
-          if (kFull || ch < D / 4) {
-            const float4 vv = *reinterpret_cast<const float4*>(vrow + 4 * ch);
+      for (int c = 0; c < kNo / 4; ++c) {
+        const float4 a = *reinterpret_cast<const float4*>(v0 + 4 * c);
+        const float4 z = *reinterpret_cast<const float4*>(v1 + 4 * c);
+        const float va[4] = {a.x, a.y, a.z, a.w};
+        const float vz[4] = {z.x, z.y, z.z, z.w};
 #pragma unroll
-            for (int i = 0; i < kRows; ++i) {
-              const float p = kk == 0   ? pv[i].x
-                              : kk == 1 ? pv[i].y
-                              : kk == 2 ? pv[i].z
-                                        : pv[i].w;
-              acc[i][j][0] = fmaf(p, vv.x, acc[i][j][0]);
-              acc[i][j][1] = fmaf(p, vv.y, acc[i][j][1]);
-              acc[i][j][2] = fmaf(p, vv.z, acc[i][j][2]);
-              acc[i][j][3] = fmaf(p, vv.w, acc[i][j][3]);
-            }
-          }
+        for (int e = 0; e < 4; ++e) {
+          uint32_t bh[2], bl[2];
+          ptt::split_tf32(va[e], bh[0], bl[0]);
+          ptt::split_tf32(vz[e], bh[1], bl[1]);
+          ptt::mma_3xtf32(acc[4 * c + e], ph, pl, bh, bl);
         }
       }
     }
-    __syncthreads();  // every warp is done with this stage and with P
+    __syncthreads();  // every warp is done with this stage
     kt = nkt;
   }
   ptt::cp_async_wait<0>();  // with no key tile, the Q copies
+  __syncthreads();          // Q rows are free for the output
 
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  // acc[j][2 r + e] is O at row g + 8 r, column (2 t + e) D / 8 + j
+  float* os = qs + warp * 16 * S;  // this warp's own Q rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float* dst = os + (g + 8 * r) * S + (2 * t + e) * kNo;
+#pragma unroll
+      for (int c = 0; c < kNo / 4; ++c) {
+        *reinterpret_cast<float4*>(dst + 4 * c) = make_float4(
+            acc[4 * c][2 * r + e] * inv[r], acc[4 * c + 1][2 * r + e] * inv[r],
+            acc[4 * c + 2][2 * r + e] * inv[r],
+            acc[4 * c + 3][2 * r + e] * inv[r]);
+      }
+    }
+  }
+  __syncwarp();
+  constexpr int kChunks = D / 4;  // 16-byte chunks a row
   float* ob = o + (static_cast<long long>(b) * sq * heads + h) * D;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    float li = l[i];
-#pragma unroll
-    for (int o2 = 8; o2 > 0; o2 >>= 1) {
-      li += __shfl_xor_sync(0xffffffffu, li, o2);
+  for (int j = 0; j < 16 * kChunks / 32; ++j) {
+    const int i = j * 32 + lane;
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const int qr = q0 + warp * 16 + r;
+    if (qr < sq) {
+      *reinterpret_cast<float4*>(ob + qr * q_row + c) =
+          *reinterpret_cast<const float4*>(os + r * S + c);
     }
-    const int r = q0 + r0 + i;
-    if (r < sq) {
-      const float inv = 1.f / fmaxf(li, 1e-30f);
+  }
+  if (t == 0) {
 #pragma unroll
-      for (int j = 0; j < kNC; ++j) {
-        const int ch = cg + 16 * j;
-        if (kFull || ch < D / 4) {
-          *reinterpret_cast<float4*>(ob + r * q_row + 4 * ch) =
-              make_float4(acc[i][j][0] * inv, acc[i][j][1] * inv,
-                          acc[i][j][2] * inv, acc[i][j][3] * inv);
-        }
-      }
-      if (cg == 0) {
-        lse[(static_cast<long long>(b) * heads + h) * sq + r] =
-            m[i] + logf(fmaxf(li, 1e-30f));
+    for (int r = 0; r < 2; ++r) {
+      if (row + 8 * r < sq) {
+        lse[(static_cast<long long>(b) * heads + h) * sq + row + 8 * r] =
+            m[r] + logf(fmaxf(l[r], 1e-30f));
       }
     }
   }

@@ -37,7 +37,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRows = kThreads / 32;  // forward: rows per block, a warp each
-constexpr int kMaxVecs = 16;             // forward: 16-byte vectors a lane
+constexpr int kMaxVecs = 16;             // 16-byte vectors a lane, at most
 
 __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
   const auto* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -188,17 +188,192 @@ rms_norm_fwd_strided_kernel(const T* __restrict__ x, const T* __restrict__ w,
 //   dx = r * (g*w - x * r^2 * mean(g*w*x)),
 // and over rows dw = sum g*x*r, db = sum g. The Pallas kernel adds dw/db
 // across row blocks in grid order (:113-126); Hopper blocks run in no
-// order, so each block owns a strip of rows and writes the strip's f32
-// partial sums, and a second launch adds the strips per column in strip
-// order: deterministic, no atomics. The strip's column sums live in
-// shared memory, each column owned by one thread (no races); a row's
-// mean(g*w*x) is a warp-shuffle then shared-memory sum.
+// order, so each block writes its rows' f32 column sums to a partial of
+// its own, and a second launch adds the partials per column in block
+// order: deterministic, no atomics.
 //
 // Bound on the H100: bytes. At the training shape (6144, 1536) it reads
 // x and g and writes dx, 2 bytes each per element (56.6 MB, 16.9 us at
-// 3.35 TB/s); the strips' partials add 2 * strips * d * 4 bytes each way
-// (4.7 MB at 16-row strips). x and g are read twice per row, the second
-// time from L1.
+// 3.35 TB/s); the blocks' partials add 2 * blocks * d * 4 bytes each way
+// (1.6 MB at 132 blocks), from L2. Design, as the forward's:
+// - One warp a row and no block barrier: mean(g*w*x) is a warp-shuffle
+//   sum. 16-byte loads of x and g, 8 bf16 a lane (6 vectors a lane at
+//   D = 1536, 12 at 3072), held in registers between the row's sum and
+//   dx, so that x and g come from memory once; up to D = 1536 each warp
+//   loads w once, past it at each use (from L1).
+// - Each lane owns its columns' dw/db f32 sums across its warp's rows:
+//   in registers up to kBwdRegVecs vectors a lane (D = 1536), past it in
+//   a slice of shared memory that only its warp touches, stored
+//   lane-major as float4s (no bank conflict, no barrier).
+// - As many blocks as fit on the card at once (the occupancy), each warp
+//   walking the rows warp, warp + all warps, ...: every SM keeps several
+//   rows' loads in flight. At the end the block's warps' sums are added
+//   in warp order through shared memory into the block's partial.
+// - The sum over partials takes 2 D / kSumCols blocks (192 at D = 1536),
+//   each 16 columns by 16 row groups, the groups then added in order.
+// A D that is not a multiple of 8, a pointer that is not 16-byte
+// aligned, or D > 4096 takes the first design: a block walks a strip of
+// rows one row at a time (a block barrier a row), one element a thread,
+// its column sums in shared memory; its partials go to the same sum.
+constexpr int kBwdRegVecs = 6;  // vectors a lane whose sums stay in registers
+constexpr int kSumCols = 16;    // columns a block of the partials' sum
+
+template <int kVecs>  // warps a block of the vector backward
+constexpr int kBwdWarps = kVecs <= kBwdRegVecs ? 8 : 4;
+template <int kVecs>  // floats of a warp's dw and db sums
+constexpr int kBwdSlice = 2 * kVecs * 256;
+template <int kVecs>
+constexpr size_t kBwdSmem =
+    static_cast<size_t>(kBwdWarps<kVecs>) * kBwdSlice<kVecs> * 4;
+
+__device__ __forceinline__ void add8(float4* p, const float (&v)[8]) {
+  // a lane's 8 columns as two float4s, 32 lanes apart (p[0], p[32])
+  float4 a = p[0], b = p[32];
+  a.x += v[0];
+  a.y += v[1];
+  a.z += v[2];
+  a.w += v[3];
+  b.x += v[4];
+  b.y += v[5];
+  b.z += v[6];
+  b.w += v[7];
+  p[0] = a;
+  p[32] = b;
+}
+
+template <int kVecs>
+__global__ void __launch_bounds__(kBwdWarps<kVecs> * 32)
+rms_norm_bwd_rows_kernel(const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ w,
+                         const float* __restrict__ r,
+                         const __nv_bfloat16* __restrict__ g,
+                         __nv_bfloat16* __restrict__ dx,
+                         float* __restrict__ partial, int n, int d) {
+  constexpr int kWarps = kBwdWarps<kVecs>;
+  constexpr bool kRegs = kVecs <= kBwdRegVecs;
+  constexpr int kSlice = kBwdSlice<kVecs>;
+  // [kWarps][2][kVecs][2][32][4]: warp, dw or db, vector, half, lane
+  extern __shared__ __align__(16) float bwd_sums[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nvec = d / 8;
+  auto* sums = reinterpret_cast<float4*>(bwd_sums + warp * kSlice);
+  const auto* wv = reinterpret_cast<const uint4*>(w);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  // w's vectors: held in registers beside the sums; past them read at
+  // each use (from L1), so that x and g fit in registers
+  uint4 ws[kRegs ? kVecs : 1];
+#pragma unroll
+  for (int i = 0; i < (kRegs ? kVecs : 0); ++i) {
+    const int c = i * 32 + lane;
+    ws[i] = c < nvec ? wv[c] : zero;
+  }
+  auto w_at = [&](int i) {
+    const int c = i * 32 + lane;
+    return kRegs ? ws[kRegs ? i : 0] : c < nvec ? wv[c] : zero;
+  };
+  float sw[kRegs ? kVecs : 1][8], sb[kRegs ? kVecs : 1][8];
+#pragma unroll
+  for (int i = 0; i < (kRegs ? kVecs : 1); ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sw[i][j] = sb[i][j] = 0.f;
+  if (!kRegs) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < 4 * kVecs; ++i) sums[i * 32 + lane] = z;
+  }
+
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long row = static_cast<long long>(blockIdx.x) * kWarps + warp;
+       row < n; row += stride) {
+    const auto* xr = reinterpret_cast<const uint4*>(x + row * d);
+    const auto* gr = reinterpret_cast<const uint4*>(g + row * d);
+    uint4 xs[kVecs], gs[kVecs];
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int c = i * 32 + lane;
+      xs[i] = c < nvec ? xr[c] : zero;
+      gs[i] = c < nvec ? gr[c] : zero;
+    }
+    const float rs = r[row];
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      float xf[8], gf[8], wf[8];
+      unpack8(xs[i], xf);
+      unpack8(gs[i], gf);
+      unpack8(w_at(i), wf);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part = fmaf(gf[j] * wf[j], xf[j], part);
+    }
+    const float inner = ptt::warp_sum(part) / static_cast<float>(d);
+    const float c2 = rs * rs * inner;
+    auto* dxr = reinterpret_cast<uint4*>(dx + row * d);
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int c = i * 32 + lane;
+      if (c < nvec) {
+        float xf[8], gf[8], wf[8], gx[8];
+        unpack8(xs[i], xf);
+        unpack8(gs[i], gf);
+        unpack8(w_at(i), wf);
+        uint4 o;
+        auto* op = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          op[j / 2] = ptt::pack_bf16(rs * fmaf(-xf[j], c2, gf[j] * wf[j]),
+                                     rs * fmaf(-xf[j + 1], c2,
+                                               gf[j + 1] * wf[j + 1]));
+        }
+        dxr[c] = o;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) gx[j] = gf[j] * xf[j] * rs;
+        if constexpr (kRegs) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            sw[i][j] += gx[j];
+            sb[i][j] += gf[j];
+          }
+        } else {
+          add8(sums + (2 * i) * 32 + lane, gx);
+          add8(sums + (2 * (kVecs + i)) * 32 + lane, gf);
+        }
+      }
+    }
+  }
+
+  if constexpr (kRegs) {  // the lane's sums into its warp's slice
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      sums[(2 * i) * 32 + lane] = make_float4(sw[i][0], sw[i][1], sw[i][2],
+                                              sw[i][3]);
+      sums[(2 * i + 1) * 32 + lane] = make_float4(sw[i][4], sw[i][5],
+                                                  sw[i][6], sw[i][7]);
+      sums[(2 * (kVecs + i)) * 32 + lane] = make_float4(
+          sb[i][0], sb[i][1], sb[i][2], sb[i][3]);
+      sums[(2 * (kVecs + i) + 1) * 32 + lane] = make_float4(
+          sb[i][4], sb[i][5], sb[i][6], sb[i][7]);
+    }
+  }
+  __syncthreads();
+  // the block's partial: the warps' slices added in warp order
+  float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * d;
+  for (int idx = threadIdx.x; idx < kSlice; idx += kWarps * 32) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < kWarps; ++k) s += bwd_sums[k * kSlice + idx];
+    // idx = (((a * kVecs + i) * 2 + h) * 32 + l) * 4 + e
+    const int e = idx % 4, l = idx / 4 % 32, h = idx / 128 % 2;
+    const int i = idx / 256 % kVecs, a = idx / (256 * kVecs);
+    const int col = 8 * (i * 32 + l) + 4 * h + e;
+    if (col < d) out[a * d + col] = s;
+  }
+}
+
+// Any D and alignment (the first design): a block walks a strip of
+// strip_rows rows one row at a time, one element a thread, the strip's
+// column sums in shared memory (each column owned by one thread), a
+// row's mean(g*w*x) a warp-shuffle then shared-memory sum. x and g are
+// read twice per row, the second time from L1.
 __global__ void __launch_bounds__(kThreads)
 rms_norm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ w,
@@ -250,27 +425,44 @@ rms_norm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// dw[i] = sum over strips of partial[s][0][i], db likewise, in strip order.
+// dw[i] (column i of the 2 d) and db[i] (column d + i): the sum over
+// partials p of partial[p][col], in a fixed order: row group k of a block
+// adds partials k, k + 16, ..., then the 16 groups are added in order.
 __global__ void __launch_bounds__(kThreads)
-rms_norm_bwd_reduce_kernel(const float* __restrict__ partial, int strips,
-                           int d, __nv_bfloat16* __restrict__ dw,
-                           __nv_bfloat16* __restrict__ db) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= d) return;
-  float sw = 0.f, sb = 0.f;
-  for (int s = 0; s < strips; ++s) {
-    const float* p = partial + static_cast<size_t>(s) * 2 * d;
-    sw += p[i];
-    sb += p[d + i];
+rms_norm_bwd_sum_kernel(const float* __restrict__ partial, int parts, int d,
+                        __nv_bfloat16* __restrict__ dw,
+                        __nv_bfloat16* __restrict__ db) {
+  constexpr int kGroups = kThreads / kSumCols;
+  __shared__ float red[kGroups][kSumCols];
+  const int cl = threadIdx.x % kSumCols, k = threadIdx.x / kSumCols;
+  const int col = blockIdx.x * kSumCols + cl;
+  float s = 0.f;
+  if (col < 2 * d) {
+#pragma unroll 4
+    for (int p = k; p < parts; p += kGroups) {
+      s += partial[static_cast<size_t>(p) * 2 * d + col];
+    }
   }
-  dw[i] = __float2bfloat16(sw);
-  db[i] = __float2bfloat16(sb);
+  red[k][cl] = s;
+  __syncthreads();
+  if (k == 0 && col < 2 * d) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kGroups; ++i) t += red[i][cl];
+    if (col < d) {
+      dw[col] = __float2bfloat16(t);
+    } else {
+      db[col - d] = __float2bfloat16(t);
+    }
+  }
 }
 
 // The backward in f32 (x, w, g, dx, dw, db all f32; the Pallas kernel is
 // generic in its dtype, :100-126, and the JAX model trains in f32): a twin
-// of the two kernels above, which keep their code. The same strips of rows,
-// f32 partials and reduction in strip order (deterministic, no atomics).
+// of the bf16 backward's first design, the strip kernel above and a
+// reduction of one thread a column over all strips. The same strips of
+// rows, f32 partials and reduction in strip order (deterministic, no
+// atomics).
 // kW = 4 moves 16-byte vectors (D % 4 == 0 and x, w, g, dx 16-byte
 // aligned), each thread owning whole vectors of columns in the strip's
 // sums; kW = 1 one value a thread, any D and alignment. Bound: bytes, now
@@ -402,6 +594,37 @@ int launch_rms_bwd_f32(const float* x, const float* w, const float* r,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The vector backward: as many blocks as fit on the card at once, at most
+// one a kWarps rows and at most `strips`, the partials' rows; `parts` gets
+// the blocks launched.
+template <int kVecs>
+cudaError_t launch_rms_bwd_rows(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                const float* r, const __nv_bfloat16* g,
+                                __nv_bfloat16* dx, float* partial, int n,
+                                int d, int sms, int strips, int& parts,
+                                cudaStream_t st) {
+  constexpr int kWarps = kBwdWarps<kVecs>;
+  constexpr size_t kSmem = kBwdSmem<kVecs>;
+  cudaError_t err = cudaFuncSetAttribute(
+      rms_norm_bwd_rows_kernel<kVecs>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
+  if (err != cudaSuccess) return err;
+  // blocks an SM holds, asked once: the query takes longer than a launch
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rms_norm_bwd_rows_kernel<kVecs>, kWarps * 32, kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  const int rows = (n + kWarps - 1) / kWarps;
+  parts = sms * per_sm < rows ? sms * per_sm : rows;
+  parts = parts < strips ? parts : strips;
+  parts = parts > 1 ? parts : 1;
+  rms_norm_bwd_rows_kernel<kVecs><<<parts, kWarps * 32, kSmem, st>>>(
+      x, w, r, g, dx, partial, n, d);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_rms_fwd(const void* x, const void* w, const void* b, void* y,
                    void* r, int n, int d, float eps, void* stream) {
@@ -479,29 +702,68 @@ PTT_EXPORT int ptt_rms_norm_fwd_f32(const void* x, const void* w,
 }
 
 // x, g, dx: (n, d) bf16 row-major; w, dw, db: (d,) bf16; r: (n,) f32;
-// partial: (ceil(n / strip_rows), 2, d) f32 scratch.
+// partial: (ceil(n / strip_rows), 2, d) f32 scratch. The vector kernel
+// takes at most that many blocks; the strided one strips of strip_rows.
 PTT_EXPORT int ptt_rms_norm_bwd(const void* x, const void* w, const void* r,
                                 const void* g, void* dx, void* dw, void* db,
                                 void* partial, int n, int d, int strip_rows,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const __nv_bfloat16*>(w);
+  const auto* rp = static_cast<const float*>(r);
+  const auto* gp = static_cast<const __nv_bfloat16*>(g);
+  auto* dxp = static_cast<__nv_bfloat16*>(dx);
+  auto* pp = static_cast<float*>(partial);
   const int strips = (n + strip_rows - 1) / strip_rows;
-  const size_t smem = 2 * static_cast<size_t>(d) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rms_norm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const uintptr_t addr =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+      reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dx);
+  const int vecs = (d / 8 + 31) / 32;  // 16-byte vectors a lane
+  int parts = strips;
+  cudaError_t err = cudaSuccess;
+  if (d % 8 != 0 || addr % 16 != 0 || vecs > kMaxVecs) {
+    const size_t smem = 2 * static_cast<size_t>(d) * sizeof(float);
+    err = cudaFuncSetAttribute(rms_norm_bwd_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rms_norm_bwd_kernel<<<strips, kThreads, smem, st>>>(
+        xp, wp, rp, gp, dxp, pp, n, d, strip_rows);
+  } else {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+#define PTT_RMS_BWD(V) \
+  launch_rms_bwd_rows<V>(xp, wp, rp, gp, dxp, pp, n, d, sms, strips, parts, st)
+    if (vecs <= 1) {
+      err = PTT_RMS_BWD(1);
+    } else if (vecs <= 2) {
+      err = PTT_RMS_BWD(2);
+    } else if (vecs <= 3) {  // BERT-base, D = 768
+      err = PTT_RMS_BWD(3);
+    } else if (vecs <= 4) {
+      err = PTT_RMS_BWD(4);
+    } else if (vecs <= 6) {  // the 438M model, D = 1536
+      err = PTT_RMS_BWD(6);
+    } else if (vecs <= 8) {
+      err = PTT_RMS_BWD(8);
+    } else if (vecs <= 12) {  // Phi-3-mini, D = 3072
+      err = PTT_RMS_BWD(12);
+    } else {
+      err = PTT_RMS_BWD(kMaxVecs);
+    }
+#undef PTT_RMS_BWD
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  rms_norm_bwd_kernel<<<strips, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(r),
-      static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(dx),
-      static_cast<float*>(partial), n, d, strip_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rms_norm_bwd_reduce_kernel<<<(d + kThreads - 1) / kThreads, kThreads, 0,
-                               st>>>(
-      static_cast<const float*>(partial), strips, d,
-      static_cast<__nv_bfloat16*>(dw), static_cast<__nv_bfloat16*>(db));
+  rms_norm_bwd_sum_kernel<<<(2 * d + kSumCols - 1) / kSumCols, kThreads, 0,
+                            st>>>(pp, parts, d,
+                                  static_cast<__nv_bfloat16*>(dw),
+                                  static_cast<__nv_bfloat16*>(db));
   return static_cast<int>(cudaGetLastError());
 }
 

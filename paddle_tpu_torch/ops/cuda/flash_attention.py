@@ -30,9 +30,10 @@ q . k and give zero output and gradient columns, so the result is the
 unpadded function's; such launches count as ``<kernel>[pad]``.
 
 Dtypes: every kernel takes bf16 (``csrc/flash_attention.cu``,
-``csrc/flash_attention_bwd.cu``, tensor cores) and f32
-(``csrc/flash_attention_f32.cu``, ``csrc/flash_attention_bwd_f32.cu``, f32
-FMAs, as JAX's f32 kernels round nothing), q, k, v, out and dO all of one
+``csrc/flash_attention_bwd.cu``, tensor cores) and f32 (the forward
+``csrc/flash_attention_f32.cu`` on the tensor cores in 3xTF32, dK/dV and
+dQ ``csrc/flash_attention_bwd_f32.cu`` in f32 FMAs: JAX's f32 kernels round
+nothing, and one TF32 product would), q, k, v, out and dO all of one
 dtype; an f32 launch counts with ``[f32]`` appended, after ``[seg]`` and
 ``[pad]`` (``flash_attention_bwd_dq[seg][f32]``).
 """

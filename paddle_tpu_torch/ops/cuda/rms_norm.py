@@ -21,8 +21,13 @@ __all__ = ["rms_norm", "rms_norm_rows", "rms_norm_plain", "rms_norm_bwd",
            "rms_norm_bwd_plain", "RMSNormFunction"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-STRIP_ROWS = 16  # rows per block of the backward; each writes f32 partials
-MAX_D = 16384  # the backward keeps a strip's 2 * D column sums in smem
+# The backward's blocks each write f32 column sums to a partial of their
+# own: the f32 kernel's blocks walk strips of STRIP_ROWS rows; the bf16
+# vector kernel takes at most one block per BF16_PART_ROWS rows (its
+# strided kernel strips of that many)
+STRIP_ROWS = 16
+BF16_PART_ROWS = 8
+MAX_D = 16384  # the strip kernels keep a strip's 2 * D column sums in smem
 
 
 def rms_norm_plain(x, weight=None, bias=None, epsilon=1e-6):
@@ -126,15 +131,15 @@ def rms_norm_bwd(x, weight, r, g):
                          f"{tuple(g.shape)}; D at most {MAX_D}")
     dx = torch.empty_like(x)
     dw, db = torch.empty_like(weight), torch.empty_like(weight)
-    strips = -(-n // STRIP_ROWS)
-    partial = torch.empty((strips, 2, d), dtype=torch.float32,
-                          device=x.device)
     f32 = "_f32" if x.dtype == torch.float32 else ""
+    rows = STRIP_ROWS if f32 else BF16_PART_ROWS
+    partial = torch.empty((-(-n // rows), 2, d), dtype=torch.float32,
+                          device=x.device)
     fn = _build.function("ptt_rms_norm_bwd" + f32,
                          [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
     _build.check(fn(x.data_ptr(), weight.data_ptr(), r.data_ptr(),
                     g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                    partial.data_ptr(), n, d, STRIP_ROWS,
+                    partial.data_ptr(), n, d, rows,
                     _build.stream_of(x)), name)
     _build.count(name, x.dtype)
     return dx, dw, db

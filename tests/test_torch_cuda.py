@@ -147,17 +147,33 @@ def test_paged_attention_kernel(gen, h, kvh, d, page, pps):
     assert torch.all(got[0] == 0)
 
 
-@pytest.mark.parametrize("n,d", [(37, 64), (1, 100), (19, 4096),
-                                 (64, 1536)])
-def test_rms_norm_bwd_kernel(gen, n, d):
+@pytest.mark.parametrize("n,d,offset", [
+    (37, 64, 0), (1, 100, 0), (19, 4096, 0), (64, 1536, 0),
+    (1, 1536, 0),      # one row: one block, seven warps without a row
+    (6143, 1536, 0),   # rows off every block's share
+    (6144, 1536, 0),   # the 438M's training step
+    (6144, 3072, 0),   # Phi-3-mini's: column sums in shared memory
+    (3, 16384, 0),     # MAX_D: the strip kernel
+    (37, 100, 1),      # D = 100 with x, g and dx off 16-byte alignment
+    (5, 1536, 1),      # off alignment at a vector width
+])
+def test_rms_norm_bwd_kernel(gen, n, d, offset):
+    """The vector kernel (D a multiple of 8 up to 4096, 16-byte aligned) and
+    the strip kernel (any other D or alignment) against the plain version;
+    a second call on the same inputs gives dx, dw and db bit for bit."""
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
-    x, g = _randn(gen, n, d), _randn(gen, n, d)
+    def rows():
+        return _randn(gen, n * d + offset)[offset:].view(n, d)
+
+    x, g = rows(), rows()
     w = (1.0 + 0.1 * _randn(gen, d, dtype=torch.float32)).bfloat16()
     _, r = rn.rms_norm_rows(x, w, epsilon=1e-5)
-    for got, want in zip(rn.rms_norm_bwd(x, w, r, g),
-                         rn.rms_norm_bwd_plain(x, w, r, g)):
-        _close(got, want)
+    got = rn.rms_norm_bwd(x, w, r, g)
+    for a, want in zip(got, rn.rms_norm_bwd_plain(x, w, r, g)):
+        _close(a, want)
+    for a, again in zip(got, rn.rms_norm_bwd(x, w, r, g)):
+        assert torch.equal(a, again)
 
 
 @pytest.mark.parametrize("b,s,h,kvh,d", [(2, 7, 4, 2, 64), (1, 33, 12, 12, 128),

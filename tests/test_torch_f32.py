@@ -425,6 +425,14 @@ def test_f32_flash_attention_kernel(gen, seg, b, sq, sk, h, kvh, d, causal):
 
 
 @pytest.mark.cuda
+def test_f32_flash_attention_kernel_at_the_training_length(gen):
+    """(1, 1536, 12, 128) causal: the training shape's tile schedule, 24
+    query tiles by up to 48 key tiles, heaviest first."""
+    test_f32_flash_attention_kernel(gen, None, 1, 1536, 1536, 12, 12, 128,
+                                    True)
+
+
+@pytest.mark.cuda
 def test_f32_public_entries_and_the_backward_refusal(gen):
     """``flash_attention`` and ``scaled_dot_product_attention`` take f32
     under no_grad; under autograd the forward runs and the backward runs

@@ -22,6 +22,16 @@ its 2^-9 relative error per term.
 Tolerance: ``chip_smoke.py``'s kernel gate, |got - want| <= 1e-3 + 2^-7
 |want| with both sides rounded to bf16 (as the kernel's output and the
 plain version's are on the card), and lse within 1e-3 absolute.
+
+The f32 forward (``csrc/flash_attention_f32.cu``) takes both of its
+products, Q K^T and P V, on the tensor cores in 3xTF32: each f32 operand
+is split into hi, its TF32 rounding (to nearest, ties away, as cvt.rna),
+and lo, the rest, which the tensor core truncates to TF32; a b is hi hi +
+hi lo + lo hi. Its tile loop
+(64 query rows by 64 keys up to D = 64, 32 past it) is emulated the same
+way on f32 inputs and held against JAX's ``_fwd`` in f32 at
+``chip_smoke.py``'s f32 gate, |got - want| <= 1e-4 + 1e-4 |want| (out and
+lse); one TF32 product (1xTF32) misses it.
 """
 import functools
 import math
@@ -250,3 +260,109 @@ def test_one_bf16_rounding_of_p_and_ds_misses_the_gate():
     _, want_dk, want_dv = _reference_bwd("causal_d128", out, lse)
     assert _gate_misses(got_dk, want_dk) > 0
     assert _gate_misses(got_dv, want_dv) > 0
+
+
+F32_RTOL = F32_ATOL = 1e-4  # chip_smoke.py's f32 gate
+
+
+def _tf32(x, nearest=True):
+    """``x`` rounded to TF32 (10 mantissa bits), kept in f32: to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32``, or toward zero, as
+    the tensor core reads an f32 register as TF32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + (0x1000 if nearest else 0)) & -0x2000).view(
+        torch.float32)
+
+
+def _mm(a, b, mode):
+    """``a @ b`` as the f32 kernel multiplies: ``"3x"`` in 3xTF32 (hi
+    rounded to nearest, lo the rest, truncated), ``"1x"`` as one TF32
+    product."""
+    ah, bh = _tf32(a), _tf32(b)
+    if mode == "1x":
+        return ah @ bh
+    al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def emulate_fwd_f32(q, k, v, causal, mode):
+    """The f32 forward kernel's tile loop with its products in ``mode``:
+    (out f32 (B, Sq, H, D), lse f32 (B, H, Sq))."""
+    b, sq, h, d = q.shape
+    sk, group = k.shape[1], h // k.shape[2]
+    scale, off = 1.0 / math.sqrt(d), sk - sq
+    bk = 64 if d <= 64 else 32
+    out = torch.zeros_like(q)
+    lse = torch.zeros(b, h, sq)
+    for bi in range(b):
+        for hi in range(h):
+            kh = hi // group
+            for q0 in range(0, sq, BQ):
+                rows = torch.arange(q0, min(q0 + BQ, sq))
+                qt = q[bi, rows, hi]
+                k_end = (max(min(sk, int(rows[-1]) + 1 + off), 0) if causal
+                         else sk)
+                m = torch.full((len(rows),), NEG_INF)
+                l = torch.zeros(len(rows))
+                acc = torch.zeros(len(rows), d)
+                for k0 in range(0, k_end, bk):
+                    cols = torch.arange(k0, min(k0 + bk, sk))
+                    s = _mm(qt, k[bi, cols, kh].T, mode) * scale
+                    if causal:
+                        s = torch.where(cols[None] <= rows[:, None] + off, s,
+                                        NEG_INF)
+                    m_new = torch.maximum(m, s.max(1).values)
+                    alpha = torch.exp(m - m_new)
+                    base = torch.where(m_new == NEG_INF, 0.0, m_new)
+                    p = torch.exp(s - base[:, None])
+                    l = l * alpha + p.sum(1)
+                    acc = acc * alpha[:, None] + _mm(p, v[bi, cols, kh], mode)
+                    m = m_new
+                out[bi, rows, hi] = acc / l.clamp(min=1e-30)[:, None]
+                lse[bi, hi, rows] = m + torch.log(l.clamp(min=1e-30))
+    return out, lse
+
+
+def _f32_inputs(b, s, h, kvh, d):
+    rng = np.random.RandomState(6)
+    q = rng.randn(b, s, h, d).astype(np.float32)
+    k, v = (rng.randn(b, s, kvh, d).astype(np.float32) for _ in range(2))
+    return tuple(torch.from_numpy(a) for a in (q, k, v))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_fwd_f32(case):
+    """JAX's f32 out and lse for ``case`` (the Pallas forward,
+    interpreted)."""
+    b, s, h, kvh, d, causal = CASES[case]
+    q, k, v = (_bhsd(t) for t in _f32_inputs(b, s, h, kvh, d))
+    out, lse = jax_fa._fwd(q, k, v, causal, 1.0 / math.sqrt(d))
+    return _back(out), torch.from_numpy(np.asarray(lse)[..., 0].copy())
+
+
+def _f32_misses(got, want):
+    """Elements of ``got`` beyond the f32 gate around ``want``."""
+    return int(((got - want).abs() > F32_ATOL + F32_RTOL * want.abs()).sum())
+
+
+def _emulate_f32(case, mode):
+    b, s, h, kvh, d, causal = CASES[case]
+    q, k, v = _f32_inputs(b, s, h, kvh, d)
+    return emulate_fwd_f32(q, k, v, causal, mode)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_f32_forward_3xtf32_fits_the_f32_gate(case):
+    got_o, got_lse = _emulate_f32(case, "3x")
+    want_o, want_lse = _reference_fwd_f32(case)
+    assert got_o.dtype == want_o.dtype == torch.float32
+    assert _f32_misses(got_o, want_o) == 0
+    assert _f32_misses(got_lse, want_lse) == 0
+
+
+def test_f32_forward_1xtf32_misses_the_f32_gate():
+    """One TF32 product (11 bits) for Q K^T and P V, as ``allow_tf32``
+    would give a matmul, misses the f32 gate: the kernel takes three."""
+    for case in sorted(CASES):
+        got_o, _ = _emulate_f32(case, "1x")
+        assert _f32_misses(got_o, _reference_fwd_f32(case)[0]) > 0

@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Time the f32 flash-attention forward and the bf16 RMSNorm backward of one
+tree of the port, so that two trees can be compared in one call.
+
+    python3 tools/torch_kernel_ab.py [--root DIR]
+
+Imports ``paddle_tpu_torch`` from DIR (default: this checkout), builds its
+kernel library, and times each case with this checkout's chip_smoke.py
+(``graph_ms``: a CUDA graph of calls replayed between CUDA events, warm
+L2): the f32 flash forward (``flash_attention_fwd``, causal, TF32 off) at
+(4, 1536, 12, 128), (8, 128, 12, 128), (8, 128, 32, 96) and (2, 2048, 16,
+256) on 2 kv heads, and the bf16 RMSNorm backward (``rms_norm_bwd``) at
+(6144, 1536) and (6144, 3072), its launches also timed apart
+(``launch_split``, torch.profiler). Inputs are standard normal from
+seeded generators on the card. Prints one JSON object with the card's
+name and power limit. To compare a parent with a change, unpack the
+parent under a directory that .gitignore lists and run parent, change,
+change, parent in one call.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FLASH_CASES = [("training shape", 4, 1536, 12, 12, 128),
+               ("e2 prefill bucket", 8, 128, 12, 12, 128),
+               ("phi3 prefill bucket", 8, 128, 32, 32, 96),
+               ("qwen3-next full attention", 2, 2048, 16, 2, 256)]
+RMS_WIDTHS, RMS_ROWS = (1536, 3072), 6144
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=ROOT)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    # this checkout's timing helpers, the package of the tree at --root
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    sys.path.insert(0, str(args.root.resolve()))
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = cs.smi_line()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    out = {"root": str(args.root), "card": smi, "flash_attention[f32]": {},
+           "rms_norm_bwd": {}}
+    for case, b, s, h, kvh, d in FLASH_CASES:
+        q, k, v = randn(b, s, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
+        out["flash_attention[f32]"][case] = cs.graph_ms(
+            lambda: fa.flash_attention_fwd(q, k, v, True),
+            calls=20 if s <= 128 else 3, replays=3)
+    for hidden in RMS_WIDTHS:
+        x = randn(RMS_ROWS, hidden).bfloat16()
+        g = randn(RMS_ROWS, hidden).bfloat16()
+        w = (1.0 + 0.1 * randn(hidden)).bfloat16()
+        _, r = rn.rms_norm_rows(x, w, epsilon=1e-6)
+        out["rms_norm_bwd"][f"({RMS_ROWS}, {hidden})"] = dict(
+            ms=cs.graph_ms(lambda: rn.rms_norm_bwd(x, w, r, g), calls=10),
+            launches_ms=cs.launch_split(lambda: rn.rms_norm_bwd(x, w, r,
+                                                                g)))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,8 +23,8 @@ profiled steps, device time per step grouped into the port's kernels,
 GEMMs, CE/softmax, LayerNorm, the optimizer (every kernel launched inside
 ``optimizer.step``), elementwise and the rest, and the path's kernels'
 launches per step (the wrappers' counts, ``[f32]`` launches under the
-kernel's name: the RMSNorm backward is two device kernels, the strips'
-partial sums and their reduction).
+kernel's name: the RMSNorm backward is two device kernels, the blocks'
+partial column sums and their sum).
 """
 from __future__ import annotations
 
