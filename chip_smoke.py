@@ -2787,9 +2787,12 @@ def f32_bwd_rows(fa, peaks, gen, case, b, s, h, kvh, d, causal, seg=None):
     """f32 dK/dV and dQ at one shape (sq == sk) against their plain
     version from the f32 forward kernel's out and lse, within the f32
     gate (the forward's out and lse too, against its plain version); each
-    timed (a CUDA graph of 3 calls) beside its bound (bytes, or
-    flops at the f32 FMA rate over the visible pairs, counted from the ids
-    with segments), the plain backward and ``autograd.grad`` through
+    timed (a CUDA graph of 3 calls) beside its bound (the kernels take
+    their products in 3xTF32: the larger of the bytes over the memory
+    rate and three TF32 products a flop over the TF32 tensor-core peak,
+    the flops over the visible pairs, counted from the ids with segments;
+    ``fma_bound_ms`` keeps the flops over the f32 FMA rate, the first
+    design's bound), the plain backward and ``autograd.grad`` through
     ``F.scaled_dot_product_attention`` in f32 (with a dense boolean mask
     for segments). ``seg`` is one (b, s) id array shared by both sides.
     Returns {kernel name: row}."""
@@ -2854,12 +2857,14 @@ def f32_bwd_rows(fa, peaks, gen, case, b, s, h, kvh, d, causal, seg=None):
     rows = {}
     for kname, (fn, flops, nb) in kernels.items():
         name = kname + ("" if seg is None else "[seg]") + "[f32]"
-        bms, by = bound_ms(nb, flops, peaks, flop_rate=peaks[2])
+        bms, by = bound_ms(nb, 3 * flops, peaks, flop_rate=peaks[3])
         rec = dict(case=case, shape=[b, s, h, d], kv_heads=kvh,
                    causal=causal, route=route, pairs=pairs,
                    max_abs_err=errs[kname], fwd_max_abs_err=fwd_err,
                    ms=graph_ms(fn, calls=3, replays=3), plain_ms=plain,
-                   library_ms=lib, bound_ms=bms, bound_by=by)
+                   library_ms=lib, bound_ms=bms, bound_by=by,
+                   fma_bound_ms=bound_ms(nb, flops, peaks,
+                                         flop_rate=peaks[2])[0])
         rec.update(rates(flops, rec["ms"], bms))
         emit("f32-train-kernel", name=name, **rec)
         rows[name] = rec
@@ -3166,7 +3171,7 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
      "paddle_tpu_torch/csrc/flash_attention_bwd_f32.cu",
      "paddle_tpu/ops/pallas/flash_attention.py:181", "f32-train"),
     ("flash_attention_bwd_dq[f32]",
-     "paddle_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+     "paddle_tpu_torch/csrc/flash_attention_bwd_dq_f32.cu",
      "paddle_tpu/ops/pallas/flash_attention.py:245", "f32-train"),
 ]
 

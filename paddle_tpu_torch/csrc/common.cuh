@@ -271,15 +271,17 @@ struct SegIds {  // q == nullptr: no segment mask
 };
 
 // [min, max] of the ids at positions [row0, row0 + T) of one batch row,
-// from its n-entry range table; row0 is a multiple of kSegChunk and
-// entries past the table (positions past the end) add nothing.
+// from its n-entry range table; row0 is a multiple of T and entries past
+// the table (positions past the end) add nothing. A tile within one chunk
+// (T < kSegChunk) takes its chunk's range, which holds the tile's.
 template <int T>
 __device__ __forceinline__ int2 seg_range(const int* lo, const int* hi, int n,
                                           int row0) {
-  static_assert(T % kSegChunk == 0, "tiles of whole chunks");
+  static_assert(T % kSegChunk == 0 || kSegChunk % T == 0,
+                "tiles of whole chunks, or within one");
   int mn = 0x7fffffff, mx = -0x7fffffff - 1;
 #pragma unroll
-  for (int i = 0; i < T / kSegChunk; ++i) {
+  for (int i = 0; i < (T + kSegChunk - 1) / kSegChunk; ++i) {
     const int c = row0 / kSegChunk + i;
     if (c < n) {
       mn = min(mn, __ldg(lo + c));

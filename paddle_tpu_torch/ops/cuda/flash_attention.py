@@ -31,11 +31,12 @@ unpadded function's; such launches count as ``<kernel>[pad]``.
 
 Dtypes: every kernel takes bf16 (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_bwd.cu``, tensor cores) and f32 (the forward
-``csrc/flash_attention_f32.cu`` on the tensor cores in 3xTF32, dK/dV and
-dQ ``csrc/flash_attention_bwd_f32.cu`` in f32 FMAs: JAX's f32 kernels round
-nothing, and one TF32 product would), q, k, v, out and dO all of one
-dtype; an f32 launch counts with ``[f32]`` appended, after ``[seg]`` and
-``[pad]`` (``flash_attention_bwd_dq[seg][f32]``).
+``csrc/flash_attention_f32.cu``, dK/dV ``csrc/flash_attention_bwd_f32.cu``
+and dQ ``csrc/flash_attention_bwd_dq_f32.cu``, all on the tensor cores in
+3xTF32: JAX's f32 kernels round nothing, and one TF32 product would miss
+the f32 gate), q, k, v, out and dO all of one dtype; an f32 launch counts
+with ``[f32]`` appended, after ``[seg]`` and ``[pad]``
+(``flash_attention_bwd_dq[seg][f32]``).
 """
 from __future__ import annotations
 

@@ -20,8 +20,10 @@ On the card (the ``cuda`` marker; skipped without one): the f32 RMSNorm
 backward and flash dK/dV and dQ against their plain versions at the edge
 shapes of tests/test_torch_cuda.py and tests/test_torch_head_dims.py
 (head dims 32-256 and 80 padded, GQA, sq < sk and sq > sk causal, sq =
-1, seq_lens, packed ids, a segment missing from the keys), within 1e-4 +
-1e-4 |want| with TF32 off, each launch counted under ``<kernel>[f32]``;
+1, seq_lens, packed ids, a segment missing from the keys, the training
+length, GQA on 32-key tiles, a group of 8 over 2048 queries), within
+1e-4 + 1e-4 |want| with TF32 off, each launch counted under
+``<kernel>[f32]``, and two calls bit for bit;
 and a small f32 LLaMA trained 3 steps through ``TrainStep`` on the card,
 launching only the seven ``[f32]`` training kernels. These import neither JAX nor
 ``paddle_tpu``; run them without the repository's conftest where JAX is
@@ -241,6 +243,9 @@ FLASH_BWD_CASES = [  # (b, sq, sk, h, kvh, d, causal, segments)
     (2, 96, 160, 8, 2, 128, True, "pair"),    # cross: a segment w/o keys
     (1, 70, 70, 4, 2, 256, True, "packed"),
     (1, 50, 50, 8, 2, 80, True, "seq_lens"),
+    (1, 1536, 1536, 12, 12, 128, True, None),  # the training length
+    (2, 512, 512, 12, 4, 128, True, None),     # GQA: 32-key dK/dV tiles
+    (1, 2048, 2048, 16, 2, 256, True, None),   # 8 x 2048 queries a dK row
 ]
 
 
@@ -269,6 +274,23 @@ def test_f32_flash_attention_bwd_kernels(gen, b, sq, sk, h, kvh, d, causal,
                                         k_seg)
     for a, w in zip(got, want):
         _close(a, w)
+
+
+@pytest.mark.cuda
+def test_f32_flash_attention_bwd_kernels_repeat_bit_for_bit(gen):
+    """Two calls on the same inputs give dQ, dK and dV equal bit for bit:
+    the GQA group sums inside one block, in a fixed order, no atomics."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, s, h, kvh, d = 2, 512, 12, 4, 128
+    q, do = _randn(gen, b, s, h, d), _randn(gen, b, s, h, d)
+    k, v = _randn(gen, b, s, kvh, d), _randn(gen, b, s, kvh, d)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    for a, z in zip(first, second):
+        assert torch.equal(a, z)
 
 
 F32_TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope",

@@ -32,6 +32,17 @@ hi lo + lo hi. Its tile loop
 way on f32 inputs and held against JAX's ``_fwd`` in f32 at
 ``chip_smoke.py``'s f32 gate, |got - want| <= 1e-4 + 1e-4 |want| (out and
 lse); one TF32 product (1xTF32) misses it.
+
+The f32 backward (``csrc/flash_attention_bwd_f32.cu``, dK/dV, and
+``csrc/flash_attention_bwd_dq_f32.cu``) takes all five of
+its products in 3xTF32 the same way. Its tile loops (dK/dV: BK key rows of
+one kv head over the group's query heads and the causal range of 64-row
+query tiles, BK = 64, or 32 where 64-row tiles would leave the H100's
+132 SMs idle, as at both cases here; dQ: 64 query rows over the causal
+range of key tiles, 64 keys up to D = 64, 32 up to 128, 16 past it) are
+emulated on f32 inputs from JAX's f32 forward residuals and held against
+JAX's ``_bwd`` in f32 at the f32 gate (dQ, dK and dV); one TF32 product
+misses it.
 """
 import functools
 import math
@@ -366,3 +377,126 @@ def test_f32_forward_1xtf32_misses_the_f32_gate():
     for case in sorted(CASES):
         got_o, _ = _emulate_f32(case, "1x")
         assert _f32_misses(got_o, _reference_fwd_f32(case)[0]) > 0
+
+
+SMS = 132  # the H100's SMs: the dK/dV kernel's choice of key tile
+BQ_F32 = 64  # the f32 backward's query tile (dK/dV) and query rows (dQ)
+
+
+def _f32_dout(b, s, h, d):
+    rng = np.random.RandomState(7)
+    return torch.from_numpy(rng.randn(b, s, h, d).astype(np.float32))
+
+
+def emulate_dkdv_f32(q, k, v, do, lse, delta, causal, mode):
+    """The f32 dK/dV kernel's loop with its products in ``mode``: one key
+    tile of one (b, kv head), over its group's query heads and the causal
+    range of query tiles; S^T = K Q^T and dP^T = V dO^T, then
+    dV += P^T dO and dK += dS^T Q."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale, off = 1.0 / math.sqrt(d), sk - sq
+    bk = 64 if d <= 128 and -(-sk // 64) * kvh * b >= SMS else 32
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for bi in range(b):
+        for kh in range(kvh):
+            for k0 in range(0, sk, bk):
+                cols = torch.arange(k0, min(k0 + bk, sk))
+                kt, vt = k[bi, cols, kh], v[bi, cols, kh]
+                dk_t, dv_t = torch.zeros(len(cols), d), torch.zeros(len(cols), d)
+                q_first = (max(k0 - off, 0) // BQ_F32 * BQ_F32 if causal
+                           else 0)
+                for hi in range(kh * group, (kh + 1) * group):
+                    for q0 in range(q_first, sq, BQ_F32):
+                        rows = torch.arange(q0, min(q0 + BQ_F32, sq))
+                        qt, dot = q[bi, rows, hi], do[bi, rows, hi]
+                        pt = torch.exp(_mm(kt, qt.T, mode) * scale
+                                       - lse[bi, hi, rows][None])
+                        if causal:
+                            pt = torch.where(
+                                cols[:, None] <= rows[None] + off, pt, 0.0)
+                        dst = pt * (_mm(vt, dot.T, mode)
+                                    - delta[bi, hi, rows][None]) * scale
+                        dv_t += _mm(pt, dot, mode)
+                        dk_t += _mm(dst, qt, mode)
+                dk[bi, cols, kh] = dk_t
+                dv[bi, cols, kh] = dv_t
+    return dk, dv
+
+
+def emulate_dq_f32(q, k, v, do, lse, delta, causal, mode):
+    """The f32 dQ kernel's loop with its products in ``mode``: 64 query
+    rows of one (b, h) over the causal range of key tiles; S = Q K^T and
+    dP = dO V^T, then dQ += dS K."""
+    b, sq, h, d = q.shape
+    sk, group = k.shape[1], h // k.shape[2]
+    scale, off = 1.0 / math.sqrt(d), sk - sq
+    bk = 64 if d <= 64 else 32 if d <= 128 else 16
+    dq = torch.zeros_like(q)
+    for bi in range(b):
+        for hi in range(h):
+            kh = hi // group
+            for q0 in range(0, sq, BQ_F32):
+                rows = torch.arange(q0, min(q0 + BQ_F32, sq))
+                qt, dot = q[bi, rows, hi], do[bi, rows, hi]
+                k_end = (max(min(sk, int(rows[-1]) + 1 + off), 0) if causal
+                         else sk)
+                acc = torch.zeros(len(rows), d)
+                for k0 in range(0, k_end, bk):
+                    cols = torch.arange(k0, min(k0 + bk, sk))
+                    kt = k[bi, cols, kh]
+                    p = torch.exp(_mm(qt, kt.T, mode) * scale
+                                  - lse[bi, hi, rows][:, None])
+                    if causal:
+                        p = torch.where(cols[None] <= rows[:, None] + off,
+                                        p, 0.0)
+                    ds = p * (_mm(dot, v[bi, cols, kh].T, mode)
+                              - delta[bi, hi, rows][:, None]) * scale
+                    acc += _mm(ds, kt, mode)
+                dq[bi, rows, hi] = acc
+    return dq
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_bwd_f32(case):
+    """JAX's f32 dQ, dK and dV for ``case``: ``_bwd`` (the Pallas backward
+    kernels, interpreted) with ``_reference_fwd_f32``'s out and lse as its
+    residuals."""
+    b, s, h, kvh, d, causal = CASES[case]
+    q, k, v = (_bhsd(t) for t in _f32_inputs(b, s, h, kvh, d))
+    out, lse = _reference_fwd_f32(case)
+    res = (q, k, v, None, None, _bhsd(out),
+           jnp.asarray(lse.numpy())[..., None])
+    dq, dk, dv, _, _ = jax_fa._bwd(causal, 1.0 / math.sqrt(d), res,
+                                   _bhsd(_f32_dout(b, s, h, d)))
+    return _back(dq), _back(dk), _back(dv)
+
+
+def _emulate_bwd_f32(case, mode):
+    """dQ, dK and dV through the f32 backward kernels' loops from JAX's
+    f32 forward residuals."""
+    b, s, h, kvh, d, causal = CASES[case]
+    q, k, v = _f32_inputs(b, s, h, kvh, d)
+    do = _f32_dout(b, s, h, d)
+    out, lse = _reference_fwd_f32(case)
+    delta = (do * out).sum(-1).transpose(1, 2)
+    dk, dv = emulate_dkdv_f32(q, k, v, do, lse, delta, causal, mode)
+    return emulate_dq_f32(q, k, v, do, lse, delta, causal, mode), dk, dv
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_f32_backward_3xtf32_fits_the_f32_gate(case):
+    got = _emulate_bwd_f32(case, "3x")
+    for g, w in zip(got, _reference_bwd_f32(case)):
+        assert g.dtype == w.dtype == torch.float32
+        assert _f32_misses(g, w) == 0
+
+
+def test_f32_backward_1xtf32_misses_the_f32_gate():
+    """One TF32 product for each of the backward's five products misses
+    the f32 gate in dQ, dK and dV at both cases: the kernels take three."""
+    for case in sorted(CASES):
+        got = _emulate_bwd_f32(case, "1x")
+        for g, w in zip(got, _reference_bwd_f32(case)):
+            assert _f32_misses(g, w) > 0

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the f32 flash-attention forward and the bf16 RMSNorm backward of one
-tree of the port, so that two trees can be compared in one call.
+"""Time the f32 flash-attention forward and backward and the bf16 RMSNorm
+backward of one tree of the port, so that two trees can be compared in one
+call.
 
     python3 tools/torch_kernel_ab.py [--root DIR]
 
@@ -9,7 +10,10 @@ kernel library, and times each case with this checkout's chip_smoke.py
 (``graph_ms``: a CUDA graph of calls replayed between CUDA events, warm
 L2): the f32 flash forward (``flash_attention_fwd``, causal, TF32 off) at
 (4, 1536, 12, 128), (8, 128, 12, 128), (8, 128, 32, 96) and (2, 2048, 16,
-256) on 2 kv heads, and the bf16 RMSNorm backward (``rms_norm_bwd``) at
+256) on 2 kv heads, the f32 dK/dV and dQ kernels
+(``flash_attention_bwd_dkdv``, ``flash_attention_bwd_dq``) at
+chip_smoke.py's ``F32_BWD_CASES`` from the tree's own forward, and the
+bf16 RMSNorm backward (``rms_norm_bwd``) at
 (6144, 1536) and (6144, 3072), its launches also timed apart
 (``launch_split``, torch.profiler). Inputs are standard normal from
 seeded generators on the card. Prints one JSON object with the card's
@@ -59,12 +63,26 @@ def main():
         return torch.randn(shape, generator=gen, device="cuda")
 
     out = {"root": str(args.root), "card": smi, "flash_attention[f32]": {},
-           "rms_norm_bwd": {}}
+           "flash_attention_bwd_dkdv[f32]": {},
+           "flash_attention_bwd_dq[f32]": {}, "rms_norm_bwd": {}}
     for case, b, s, h, kvh, d in FLASH_CASES:
         q, k, v = randn(b, s, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
         out["flash_attention[f32]"][case] = cs.graph_ms(
             lambda: fa.flash_attention_fwd(q, k, v, True),
             calls=20 if s <= 128 else 3, replays=3)
+    for case, b, s, h, kvh, d, causal in cs.F32_BWD_CASES:
+        q, do = randn(b, s, h, d), randn(b, s, h, d)
+        k, v = randn(b, s, kvh, d), randn(b, s, kvh, d)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        delta = fa._delta(o, do)
+        out["flash_attention_bwd_dkdv[f32]"][case] = cs.graph_ms(
+            lambda: fa.flash_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                                causal), calls=3, replays=3)
+        out["flash_attention_bwd_dq[f32]"][case] = cs.graph_ms(
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                              causal), calls=3, replays=3)
+        del q, do, k, v, o, lse, delta
+        torch.cuda.empty_cache()
     for hidden in RMS_WIDTHS:
         x = randn(RMS_ROWS, hidden).bfloat16()
         g = randn(RMS_ROWS, hidden).bfloat16()
