@@ -37,16 +37,20 @@ so that a fault surfaces in the phase that caused it:
             tests/test_torch_cuda.py's flash tests (bucket 32, ragged
             lengths, GQA groups 2-8, a causal offset, sq > sk non-causal,
             three tiles with the last ragged) and at 1025 and 383 rows,
-            forward, dK/dV and dQ, within the same gate. The second decode
-            megakernel (csrc/decode_megakernel_any.cuh) at the e2 decode
-            shape: the 438M layer in f32 (the f32 gate below), and in bf16
-            Phi-3-mini's widths (32 heads of 96), Phi-2's (32 of 80),
-            16 heads of 256 on 2 kv heads and a group of 16 (32 heads of
-            128 on 2 kv heads). Paged decode past 8 query heads per kv
-            head (chunks of at most 8 heads, a block each): groups 12
-            (q (8, 96, D) on 8 kv heads, Mistral-Large-2), 16 (128 on 8)
-            and 32 (32 on 1), at D = 128 and 64, bf16 and f32, in e2's
-            pool layout and lengths.
+            forward, dK/dV and dQ, within the same gate. The decode
+            megakernel (csrc/decode_megakernel.cuh) at the e2 decode shape
+            at MK_CASES' seven widths: the 438M layer on 12 and on 4 kv
+            heads (bf16 h_mid at the one-rounding gate), in f32 (the f32
+            gate below), and in bf16 Phi-3-mini's widths (32 heads of 96),
+            Phi-2's (32 of 80), 16 heads of 256 on 2 kv heads and a group
+            of 16 (32 heads of 128 on 2 kv heads), h_mid by
+            ``h_mid_gate``; each timed warm (one layer, graph) and
+            rotating over layers whose weights exceed 4x the L2, the
+            bound set against the rotating time. Paged decode past 8
+            query heads per kv head (chunks of at most 8 heads, a block
+            each): groups 12 (q (8, 96, D) on 8 kv heads,
+            Mistral-Large-2), 16 (128 on 8) and 32 (32 on 1), at D = 128
+            and 64, bf16 and f32, in e2's pool layout and lengths.
 4. flash-segments  the segment-masked flash kernels (``kSegments``)
             against their plain versions on the same ids, within the
             kernel gate on rows with a visible key, rows with none exactly
@@ -131,8 +135,8 @@ so that a fault surfaces in the phase that caused it:
 14. phi3-serve  a LLaMA at Phi-3-mini's widths (CFG_PHI3: 32 layers,
             hidden 3072, 32 heads of 96) behind the engine on e2's
             traffic in two arms, the default decode_megakernel=1 (fused:
-            the second megakernel at head dim 96, once a layer a decode
-            step) and decode_megakernel=0 (unfused: the four serving
+            the megakernel at head dim 96, once a layer a decode step)
+            and decode_megakernel=0 (unfused: the four serving
             kernels): all 24 requests finished, tokens/s, launches per
             decode step; gated first on a 2-layer model's logits (prefill
             and 4 decode steps) against f32 on the CPU within
@@ -267,6 +271,17 @@ VARLEN_REL_L2 = 5e-2
 CFG_438M = dict(vocab_size=32000, hidden_size=1536, intermediate_size=4096,
                 num_hidden_layers=12, num_attention_heads=12,
                 max_position_embeddings=1536)
+# Phi-3-mini-4k-instruct's published config.json
+# (huggingface.co/microsoft/Phi-3-mini-4k-instruct): LLaMA's architecture,
+# 32 heads of 96 on 32 kv heads, untied embeddings, silu, no biases; bf16
+# with random N(0, 0.02) weights from a seed (no checkpoint is loaded).
+# Departures: Phi-3 stores q/k/v and gate/up fused, here they are separate
+# projections (the same function); its sliding_window of 2047 never binds,
+# as every sequence here is at most 1536 tokens.
+CFG_PHI3 = dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+                num_hidden_layers=32, num_attention_heads=32,
+                num_key_value_heads=32, max_position_embeddings=4096,
+                rms_norm_eps=1e-5, rope_theta=10000.0)
 
 
 def emit(phase, **kv):
@@ -527,6 +542,9 @@ def kernel_phase(peaks):
 # pre-append depths of the megakernel cases: a fresh page (1), page
 # boundaries (127, 128, 255, 256) and near-full (510 of 512)
 MK_LENGTHS = [1, 17, 127, 128, 200, 255, 256, 510]
+# depths spread over the serving runs' range (prompts of 8-119 tokens plus
+# up to 64 new ones), for timing the megakernel where the engine runs it
+MK_SERVING_LENGTHS = [20, 42, 64, 86, 108, 130, 152, 175]
 
 
 def megakernel_layer(cfg, gen, dtype=torch.bfloat16):
@@ -540,7 +558,7 @@ def megakernel_layer(cfg, gen, dtype=torch.bfloat16):
 
 
 def h_mid_gate(name, got, want, x, o):
-    """The second decode megakernel's bf16 h_mid = bf16(x + bf16(o))
+    """The decode megakernel's bf16 h_mid = bf16(x + bf16(o))
     against the plain version's, o (B, hidden) being the plain version's
     bf16(o). It rounds twice: where kernel and plain version sum o in
     other orders and land on the two sides of a rounding boundary of o,
@@ -569,67 +587,20 @@ def h_mid_gate(name, got, want, x, o):
     return err.max().item(), int((near & ~one).sum())
 
 
-def second_kernel(run, check, kp, vp):
-    """csrc/decode_megakernel_any.cuh's kernel at a case of
-    csrc/decode_megakernel.cu's (``run(k_pages, v_pages)`` launches the
-    wrapper, which picks the first kernel there; for these calls the
-    dispatch's table of first-kernel head dims is emptied), gated by
-    ``check(got, k_pages, v_pages)`` and timed in turns with the first:
-    first, second, second, first. The measured ground for keeping both
-    kernels."""
-    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
-
-    def timed():
-        k, v = kp.clone(), vp.clone()
-        return graph_ms(lambda: run(k, v))
-
-    first_dims = mk._FIRST_HEAD_DIMS
-    try:
-        mk._FIRST_HEAD_DIMS = ()
-        k, v = kp.clone(), vp.clone()
-        with torch.no_grad():
-            err, nb = check(run(k, v), k, v)
-        mk._FIRST_HEAD_DIMS = first_dims
-        ms = [timed()]
-        mk._FIRST_HEAD_DIMS = ()
-        ms += [timed(), timed()]
-    finally:
-        mk._FIRST_HEAD_DIMS = first_dims
-    ms.append(timed())
-    return dict(max_abs_err=err, h_mid_elements_by_neighbour_rule=nb,
-                first_ms=[ms[0], ms[3]], second_ms=[ms[1], ms[2]])
-
-
-def megakernel_case(peaks, cfg, gen, randn, dtype=torch.bfloat16, case=None):
-    """The decode megakernel against its plain version at the e2 decode
-    shape, in a layer at ``cfg``'s widths in ``dtype``: 8 rows over the
-    engine's pool layout (max_len 512, page 128: 32 real pages and the
-    dump page; tables of 4 visible columns and a trailing scratch column,
-    tails on the dump page), depths MK_LENGTHS. x is layer 0's input, an
-    embedding row (N(0, 0.02)); weights N(0, 0.02); norm scales random
-    powers of two (0.5, 1, 2), exact in bf16, so that a scale adds no
-    rounding of its own.
-
-    h_mid and both pools (the dump page left out) are held against the
-    plain version; y2 against the plain norm of the kernel's own h_mid.
-    y2 renormalises h_mid, so held against the plain y2 a difference of
-    h_mid would count again; the plain y2's difference is reported. In
-    f32 nothing is rounded, and h_mid and y2 are held against the plain
-    version's at the f32 gate. In bf16 csrc/decode_megakernel.cu's cases
-    (head dim 64 or 128, groups up to 8) hold h_mid at the one-rounding
-    gate; the second kernel's at ``h_mid_gate``. Times the kernel, its
-    plain version and the port's own unfused layer half (rms_norm kernel,
-    GEMMs, RoPE kernel, cache write, paged decode kernel, o_proj,
-    residual, rms_norm kernel) on the same inputs. At the first kernel's
-    cases the second kernel runs too, gated and timed beside the first
-    (``second_kernel``)."""
-    from paddle_tpu_torch.models.generation import _make_paged_cache
-    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
-
+def megakernel_setup(cfg, gen, randn, dtype=torch.bfloat16,
+                     lengths=MK_LENGTHS):
+    """The inputs of the decode megakernel at the e2 decode shape, in a
+    layer at ``cfg``'s widths in ``dtype``: 8 rows over the engine's pool
+    layout (max_len 512, page 128: 32 real pages and the dump page; tables
+    of 4 visible columns and a trailing scratch column, tails on the dump
+    page), pre-append depths ``lengths``. x is layer 0's input, an embedding row (N(0,
+    0.02)); weights N(0, 0.02); norm scales random powers of two (0.5, 1,
+    2), exact in bf16, so that a scale adds no rounding of its own.
+    Returns (layer, x, k_pages, v_pages, args), args the wrapper's keyword
+    arguments but the pools."""
     layer = megakernel_layer(cfg, gen, dtype)
     attn = layer.self_attn
     lcfg = attn.config
-    f32 = dtype == torch.float32
     with torch.no_grad():
         for ln in (layer.input_layernorm, layer.post_attention_layernorm):
             ln.weight.copy_(2.0 ** torch.randint(
@@ -642,12 +613,12 @@ def megakernel_case(peaks, cfg, gen, randn, dtype=torch.bfloat16, case=None):
     perm = np.random.RandomState(0).permutation(b * per_seq)
     tables = np.full((b, per_seq + 1), dump, np.int32)
     used = 0
-    for i, n in enumerate(MK_LENGTHS):
+    for i, n in enumerate(lengths):
         np_ = -(-(n + 1) // page)  # the pages after the append
         tables[i, :np_] = perm[used:used + np_]
         used += np_
     tab = torch.tensor(tables, device="cuda")
-    lens = torch.tensor(MK_LENGTHS, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     x = randn(b, 1, hidden, std=0.02).to(dtype)
     kp = randn(n_pages, page, kvh, hd).to(dtype)
     vp = randn(n_pages, page, kvh, hd).to(dtype)
@@ -659,35 +630,93 @@ def megakernel_case(peaks, cfg, gen, randn, dtype=torch.bfloat16, case=None):
                 ln2_weight=layer.post_attention_layernorm.weight,
                 ln2_eps=eps, tables=tab, lengths=lens, heads=heads,
                 attn_pages=per_seq, dump_page=dump)
+    return layer, x, kp, vp, args
+
+
+MK_WEIGHTS = ("ln1_weight", "wq", "wk", "wv", "wo", "ln2_weight")
+
+
+def megakernel_times(mk, x, kp, vp, args, replays=5):
+    """The megakernel's device time a call: warm (``graph_ms`` on one
+    layer, whose weights stay in L2 where they fit) and rotating: one
+    step's walk over n distinct layers in turn, each with its own weights
+    and pools, n = max(4, ceil(4 x L2 / the layer's q/k/v/o bytes)), so
+    that every call finds its weights out of L2, as the engine's decode
+    step does. Returns (warm ms, rotating ms, n)."""
+    kk, kv_ = kp.clone(), vp.clone()
+    warm = graph_ms(lambda: mk.fused_decode_layer(x, k_pages=kk, v_pages=kv_,
+                                                  **args))
+    w_bytes = sum(args[k].numel() * args[k].element_size()
+                  for k in ("wq", "wk", "wv", "wo"))
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
+    n = max(4, -(-4 * l2 // w_bytes))
+    layers = [(dict(args, **{k: args[k].clone() for k in MK_WEIGHTS}),
+               kp.clone(), vp.clone()) for _ in range(n)]
+    turn = itertools.count()
+
+    def step():
+        a, k, v = layers[next(turn) % n]
+        return mk.fused_decode_layer(x, k_pages=k, v_pages=v, **a)
+
+    rotating = graph_ms(step, calls=n, replays=replays)
+    del layers
+    torch.cuda.empty_cache()
+    return warm, rotating, n
+
+
+def megakernel_case(peaks, cfg, gen, randn, dtype=torch.bfloat16, case=None,
+                    one_rounding=False):
+    """The decode megakernel against its plain version at
+    ``megakernel_setup``'s inputs. h_mid and both pools (the dump page
+    left out) are held against the plain version; y2 against the plain
+    norm of the kernel's own h_mid. y2 renormalises h_mid, so held against
+    the plain y2 a difference of h_mid would count again; the plain y2's
+    difference is reported. In f32 nothing is rounded, and h_mid and y2
+    are held against the plain version's at the f32 gate. In bf16 h_mid
+    takes ``h_mid_gate``, and with ``one_rounding`` (the 438M cases) the
+    one-rounding gate alone: no element by the neighbour rule. Times the
+    kernel warm and rotating over layers (``megakernel_times``; the bound
+    is set against the rotating time), its plain version and the port's
+    own unfused layer half (rms_norm kernel, GEMMs, RoPE kernel, cache
+    write, paged decode kernel, o_proj, residual, rms_norm kernel) on the
+    same inputs."""
+    from paddle_tpu_torch.models.generation import _make_paged_cache
+    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
+
+    layer, x, kp, vp, args = megakernel_setup(cfg, gen, randn, dtype)
+    attn = layer.self_attn
+    f32 = dtype == torch.float32
+    b, hidden = x.shape[0], x.shape[2]
+    n_pages, page, kvh, hd = kp.shape
+    heads, per_seq, dump = args["heads"], args["attn_pages"], \
+        args["dump_page"]
+    tab, lens = args["tables"], args["lengths"]
+    eps = args["ln1_eps"]
     kk, kv_ = kp.clone(), vp.clone()
     pk, pv = kp.clone(), vp.clone()
     with torch.no_grad():
         got = mk.fused_decode_layer(x, k_pages=kk, v_pages=kv_, **args)
         want = mk.fused_decode_layer_plain(x, k_pages=pk, v_pages=pv, **args)
     tag = f"fused_decode_layer({case or f'kvh={kvh}'})"
-    first = not f32 and (hd in mk._FIRST_HEAD_DIMS
-                         and heads // kvh <= mk._FIRST_MAX_GROUP)
     o_args = {k: v for k, v in args.items()
               if k not in ("ln2_weight", "ln2_eps", "dump_page")}
-
-    def check(tag, got, kk, kv_, second):
-        """The gates of one kernel's outputs; returns (max abs err, the
-        h_mid elements that only h_mid_gate's neighbour rule takes)."""
+    with torch.no_grad():
         y2_own = mk.decode_norm_plain(got[0], args["ln2_weight"], eps)
         gate = f32_compare if f32 else compare
         nb = 0
-        if f32 or not second:
+        if f32:
             h = gate(f"{tag} h_mid", got[0], want[0])
         else:
             o = mk.decode_attention_o_plain(x, k_pages=kp.clone(),
                                             v_pages=vp.clone(), **o_args)
             h, nb = h_mid_gate(f"{tag} h_mid", got[0], want[0], x, o)
-        return max(h, gate(f"{tag} y2", got[1], want[1] if f32 else y2_own),
-                   gate(f"{tag} k_pages", kk[:dump], pk[:dump]),
-                   gate(f"{tag} v_pages", kv_[:dump], pv[:dump])), nb
-
-    with torch.no_grad():
-        err, h_neighbours = check(tag, got, kk, kv_, not first)
+            if one_rounding and nb:
+                raise PhaseFailed(f"{tag} h_mid: {nb} elements beyond the "
+                                  f"one-rounding gate")
+        err = max(h, gate(f"{tag} y2", got[1], want[1] if f32 else y2_own),
+                  gate(f"{tag} k_pages", kk[:dump], pk[:dump]),
+                  gate(f"{tag} v_pages", kv_[:dump], pv[:dump]))
     torch.cuda.synchronize()
 
     def unfused():
@@ -698,59 +727,77 @@ def megakernel_case(peaks, cfg, gen, randn, dtype=torch.bfloat16, case=None):
     with torch.no_grad():
         uh, uy = unfused()
     size = x.element_size()
-    w_bytes = sum(w.numel() * size for w in (attn.q_proj.weight,
-                                             attn.k_proj.weight,
-                                             attn.v_proj.weight,
-                                             attn.o_proj.weight))
+    w_bytes = sum(args[k].numel() * size for k in ("wq", "wk", "wv", "wo"))
     toks = sum(min(n, per_seq * page) for n in MK_LENGTHS)  # pool rows read
-    nb = (w_bytes + 2 * hidden * size + 3 * b * hidden * size
-          + 2 * (toks + b) * kvh * hd * size + 2 * b * hd * 4
-          + tab.numel() * 4 + b * 4)
+    nbytes = (w_bytes + 2 * hidden * size + 3 * b * hidden * size
+              + 2 * (toks + b) * kvh * hd * size + 2 * b * hd * 4
+              + tab.numel() * 4 + b * 4)
     flops = (2 * b * hidden * (heads + 2 * kvh) * hd
              + 2 * b * heads * hd * hidden
              + 4 * (toks + b) * heads * hd)
-    bms, by = bound_ms(nb, flops, peaks, flop_rate=peaks[2] if f32 else None)
+    bms, by = bound_ms(nbytes, flops, peaks,
+                       flop_rate=peaks[2] if f32 else None)
     with torch.no_grad():
+        warm, rotating, n_layers = megakernel_times(mk, x, kp, vp, args)
         rec = dict(
             case=f"e2 decode, {case or f'kv heads {kvh}'}",
             dtype=str(dtype), shape=[b, hidden], heads=heads, kv_heads=kvh,
             head_dim=hd, lengths=MK_LENGTHS, max_abs_err=err,
+            h_mid_gate="f32" if f32 else (
+                "one rounding" if one_rounding else "h_mid_gate"),
             y2_vs_plain_max_abs=float((got[1].float()
                                        - want[1].float()).abs().max()),
             h_mid_elements_differing=int((got[0] != want[0]).sum()),
-            h_mid_elements_by_neighbour_rule=h_neighbours,
+            h_mid_elements_by_neighbour_rule=nb,
             unfused_vs_fused_h_mid_max_abs=float(
                 (uh.float() - got[0].float()).abs().max()),
-            ms=graph_ms(lambda: mk.fused_decode_layer(
-                x, k_pages=kk, v_pages=kv_, **args)),
+            ms=rotating, warm_ms=warm, rotating_layers=n_layers,
             plain_ms=graph_ms(lambda: mk.fused_decode_layer_plain(
                 x, k_pages=pk, v_pages=pv, **args), calls=5),
             library_ms=None, unfused_ms=graph_ms(unfused),
             eager_ms=eager_ms(lambda: mk.fused_decode_layer(
                 x, k_pages=kk, v_pages=kv_, **args)),
             eager_unfused_ms=eager_ms(unfused),
-            bound_ms=bms, bound_by=by, bound_bytes=nb, bound_flops=flops)
-        if first:
-            rec["second_kernel"] = second_kernel(
-                lambda k, v: mk.fused_decode_layer(x, k_pages=k, v_pages=v,
-                                                   **args),
-                lambda got, k, v: check(f"{tag} second kernel", got, k, v,
-                                        True), kp, vp)
+            bound_ms=bms, bound_by=by, bound_share=bms / rotating,
+            bound_bytes=nbytes, bound_flops=flops)
     emit("kernel", name="fused_decode_layer" + ("[f32]" if f32 else ""),
          **rec)
+    del layer, kk, kv_, pk, pv
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return rec
 
 
+# The megakernel phase's cases: (case, widths over CFG_438M, dtype, the
+# one-rounding gate for the bf16 h_mid). Widths are a LLaMA's, head dim
+# hidden / heads.
+MK_CASES = [
+    ("438M, kv heads 12", {}, torch.bfloat16, True),
+    ("438M, kv heads 4", {"num_key_value_heads": 4}, torch.bfloat16, True),
+    ("438M f32", {}, torch.float32, False),
+    ("phi3-mini widths, d 96", CFG_PHI3, torch.bfloat16, False),
+    ("phi2 widths, d 80", dict(num_key_value_heads=None, hidden_size=2560,
+                               num_attention_heads=32), torch.bfloat16,
+     False),
+    ("d 256 on 2 kv heads", dict(hidden_size=4096, num_attention_heads=16,
+                                 num_key_value_heads=2), torch.bfloat16,
+     False),
+    ("group 16", dict(hidden_size=4096, num_attention_heads=32,
+                      num_key_value_heads=2), torch.bfloat16, False),
+]
+
+
+def mk_cfg(widths):
+    return widths if widths is CFG_PHI3 else {**CFG_438M, **widths}
+
+
 def megakernel_phase(peaks):
-    """The decode megakernel at the 438M serving decode (12 kv heads) and
-    on a GQA case (4 kv heads, 3 query heads each), which the 438M model
-    does not exercise; then the cases of csrc/decode_megakernel_any.cuh
-    (all but bf16 at head dims 64 and 128 with groups up to 8): the 438M
-    layer in f32, Phi-3-mini's widths (32 heads of 96), Phi-2's (32 heads
-    of 80), head dim 256 (16 heads on 2 kv heads) and a group of 16 (32
-    heads of 128 on 2 kv heads). Widths are a LLaMA's, head dim hidden /
-    heads. Returns the rows of the kernels line."""
+    """The decode megakernel at MK_CASES: the 438M serving decode (12 kv
+    heads) and a GQA case (4 kv heads, 3 query heads each), which the 438M
+    model does not exercise, both at the one-rounding gate; the 438M layer
+    in f32; Phi-3-mini's widths (32 heads of 96), Phi-2's (32 heads of
+    80), head dim 256 (16 heads on 2 kv heads) and a group of 16 (32 heads
+    of 128 on 2 kv heads). Returns the rows of the kernels line."""
     from paddle_tpu_torch import seed
 
     gen = seed(4, "cuda")
@@ -758,24 +805,12 @@ def megakernel_phase(peaks):
     def randn(*shape, std=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * std
 
-    rec = megakernel_case(peaks, CFG_438M, gen, randn)
-    megakernel_case(peaks, {**CFG_438M, "num_key_value_heads": 4}, gen, randn)
-    results = {"fused_decode_layer": rec}
-    results["fused_decode_layer[f32]"] = megakernel_case(
-        peaks, CFG_438M, gen, randn, torch.float32, "438M f32")
-    results["fused_decode_layer[d=96]"] = megakernel_case(
-        peaks, CFG_PHI3, gen, randn, case="phi3-mini widths, d 96")
-    for case, widths in (
-            ("phi2 widths, d 80", dict(hidden_size=2560,
-                                       num_attention_heads=32)),
-            ("d 256 on 2 kv heads", dict(hidden_size=4096,
-                                         num_attention_heads=16,
-                                         num_key_value_heads=2)),
-            ("group 16", dict(hidden_size=4096, num_attention_heads=32,
-                              num_key_value_heads=2))):
-        megakernel_case(peaks, {**CFG_438M, "num_key_value_heads": None,
-                                **widths}, gen, randn, case=case)
-    return results
+    recs = {case: megakernel_case(peaks, mk_cfg(widths), gen, randn, dtype,
+                                  case, one_rounding)
+            for case, widths, dtype, one_rounding in MK_CASES}
+    return {"fused_decode_layer": recs["438M, kv heads 12"],
+            "fused_decode_layer[f32]": recs["438M f32"],
+            "fused_decode_layer[d=96]": recs["phi3-mini widths, d 96"]}
 
 
 def card_and_cpu(cfg, seed_, dtype=torch.bfloat16):
@@ -2340,17 +2375,6 @@ def bert_train_phase(name, smi, peaks):
 
 # ---- head dims off 64 and 128, and a LLaMA at Phi-3-mini's widths
 
-# Phi-3-mini-4k-instruct's published config.json
-# (huggingface.co/microsoft/Phi-3-mini-4k-instruct): LLaMA's architecture,
-# 32 heads of 96 on 32 kv heads, untied embeddings, silu, no biases; bf16
-# with random N(0, 0.02) weights from a seed (no checkpoint is loaded).
-# Departures: Phi-3 stores q/k/v and gate/up fused, here they are separate
-# projections (the same function); its sliding_window of 2047 never binds,
-# as every sequence here is at most 1536 tokens.
-CFG_PHI3 = dict(vocab_size=32064, hidden_size=3072, intermediate_size=8192,
-                num_hidden_layers=32, num_attention_heads=32,
-                num_key_value_heads=32, max_position_embeddings=4096,
-                rms_norm_eps=1e-5, rope_theta=10000.0)
 # phi3-train's depth cut: 4 of the 32 layers (about 0.65 B parameters,
 # ~10.4 GB with f32 masters and moments)
 PHI3_TRAIN_LAYERS = 4
@@ -2536,8 +2560,8 @@ def llama_serve_phase(phase, cfg, gate_layers, seeds, name, smi, arms):
 def phi3_serve_phase(name, smi):
     """The 32-layer model at Phi-3-mini's widths (head dim 96) through
     ``llama_serve_phase`` (2-layer gate), in two arms: the engine's
-    default decode_megakernel=1, which now fuses (the second megakernel
-    takes head dim 96; JAX's probe declines this model, whose q/k/v/o
+    default decode_megakernel=1, which fuses (the megakernel takes head
+    dim 96; JAX's probe declines this model, whose q/k/v/o
     weights pass its VMEM budget), then decode_megakernel=0, which keeps
     paged decode at 96 on the path. Returns (unfused, fused) counts."""
     recs = llama_serve_phase("phi3-serve", CFG_PHI3, 2, (0, 20), name,
@@ -3102,7 +3126,7 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
      "paddle_tpu/ops/pallas/flash_attention.py:181", "train"),
     ("flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
      "paddle_tpu/ops/pallas/flash_attention.py:245", "train"),
-    ("fused_decode_layer", "paddle_tpu_torch/csrc/decode_megakernel.cu",
+    ("fused_decode_layer", "paddle_tpu_torch/csrc/decode_megakernel.cuh",
      "paddle_tpu/ops/pallas/decode_megakernel.py:189", "serving_fused"),
     ("bias_dropout_residual_ln",
      "paddle_tpu_torch/csrc/bias_dropout_residual_ln.cu",
@@ -3150,16 +3174,16 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
      "paddle_tpu/ops/pallas/flash_attention.py:86", "f32-serve"),
     ("paged_attention[f32]", "paddle_tpu_torch/csrc/decode_attention.cu",
      "paddle_tpu/ops/pallas/decode_attention.py:58", "f32-serve"),
-    # paged decode past 8 query heads per kv head, and the second decode
+    # paged decode past 8 query heads per kv head, and the decode
     # megakernel's f32 and head dim 96 on their paths
     ("paged_attention[g=12]", "paddle_tpu_torch/csrc/decode_attention.cu",
      "paddle_tpu/ops/pallas/decode_attention.py:58", "mistral-large-serve",
      "paged_attention"),
     ("fused_decode_layer[f32]",
-     "paddle_tpu_torch/csrc/decode_megakernel_f32.cu",
+     "paddle_tpu_torch/csrc/decode_megakernel.cuh",
      "paddle_tpu/ops/pallas/decode_megakernel.py:189", "f32-serve-fused"),
     ("fused_decode_layer[d=96]",
-     "paddle_tpu_torch/csrc/decode_megakernel_any.cu",
+     "paddle_tpu_torch/csrc/decode_megakernel.cuh",
      "paddle_tpu/ops/pallas/decode_megakernel.py:189", "phi3-serve-fused",
      "fused_decode_layer"),
     # the f32 backward kernels and the RoPE adjoint in f32 (f32-train)

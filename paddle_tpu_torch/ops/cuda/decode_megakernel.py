@@ -1,6 +1,6 @@
 """The decode megakernel: the whole attention half of one decoder layer's
 decode step in one launch. The hand-written kernel
-(``csrc/decode_megakernel.cu``), its plain PyTorch version, the wrapper
+(``csrc/decode_megakernel.cuh``), its plain PyTorch version, the wrapper
 that picks between them by device, and the probes that decide whether a
 layer and a cache can take it.
 
@@ -27,21 +27,23 @@ the JAX function:
   not its byte budget. ``MEGAKERNEL_VMEM_BUDGET`` (:69-71) caps the q/k/v/o
   weights at 12 MiB because the Pallas kernel stages them whole in the
   TPU's VMEM (:354, :394-397); the 438M model's 18.9 MB decline there.
-  The CUDA kernels stream the weights from device memory through L2 and
-  hold only one row of activations in shared memory, so their limits are
-  their own, checked when the weights live on a CUDA device: one float
-  type throughout, bf16 or f32; a head dim up to ``MAX_HEAD_DIM``; a
-  hidden size that is a multiple of 8 up to ``MAX_HIDDEN``. Any GQA group
-  is taken. The 438M model takes the fused path on the card in both
-  types, and so do Phi-3-mini's widths (head dim 96).
+  The CUDA kernel streams the weights from device memory once a step
+  for the whole batch and holds at most a window of the batch's
+  activations in shared memory, so its limits are its own, checked when
+  the weights live on a CUDA device: one float type throughout, bf16 or
+  f32; a head dim up to ``MAX_HEAD_DIM``; a hidden size that is a
+  multiple of 8 up to ``MAX_HIDDEN``. Any GQA group is taken, and any
+  batch up to ``MAX_BATCH``. The 438M model takes the fused path on the
+  card in both types, and so do Phi-3-mini's widths (head dim 96).
 
-Two kernels: ``csrc/decode_megakernel.cu`` for bf16 at head dims 64 and
-128 with at most 8 query heads per kv head, and
-``csrc/decode_megakernel_any.cuh`` for every other case (f32, any even
-head dim up to 256, any group; a group past 8 attended in chunks of at
-most 8), entered through ``csrc/decode_megakernel_any.cu`` (bf16) and
-``csrc/decode_megakernel_f32.cu``. An f32 launch counts as
-``fused_decode_layer[f32]``.
+One kernel, ``csrc/decode_megakernel.cuh``, for every case (bf16 and
+f32, any even head dim up to 256, any group), entered through
+``csrc/decode_megakernel_bf16.cu`` and ``csrc/decode_megakernel_f32.cu``:
+a persistent cooperative launch on every SM that splits the q/k/v and
+o_proj GEMVs across the SMs, each weight read once a step for all rows,
+with grid barriers between its stages (see the source). Its scratch and
+barrier state are allocated once per (device, stream) and kept across
+calls. An f32 launch counts as ``fused_decode_layer[f32]``.
 
 Outside ``megakernel_scope(True)`` (which the serving engine enters for
 its decode steps when it decided at construction to take the fused path)
@@ -71,16 +73,14 @@ __all__ = ["fused_decode_layer", "fused_decode_layer_plain",
            "decode_attention_o_plain", "decode_norm_plain",
            "megakernel_layer_supported", "megakernel_model_supported",
            "megakernel_supported", "megakernel_scope", "megakernel_enabled",
-           "MAX_HEAD_DIM", "MAX_HIDDEN"]
+           "MAX_HEAD_DIM", "MAX_HIDDEN", "MAX_BATCH"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 NEG_INF = -1e30
-# the CUDA kernels' limits (csrc/decode_megakernel*.cu)
-MAX_HEAD_DIM = 256  # ceil(head_dim / 32) values per lane, at most 8
-MAX_HIDDEN = 4096  # the shared-memory row buffer of one hidden state
-# the cases of csrc/decode_megakernel.cu's kernel; the rest take
-# csrc/decode_megakernel_any.cuh's
-_FIRST_HEAD_DIMS, _FIRST_MAX_GROUP = (64, 128), 8
+# the CUDA kernel's limits (csrc/decode_megakernel.cuh)
+MAX_HEAD_DIM = 256  # the attention slot's q, k and v rows (kMaxD)
+MAX_HIDDEN = 4096  # the shared-memory window of the batch's xn
+MAX_BATCH = 4096  # the attention stage's row tables in shared memory
 
 # per-thread stack of scopes: the engine pins dispatch around its calls
 _scope = threading.local()
@@ -108,7 +108,7 @@ def megakernel_enabled():
 
 
 def _kernel_takes(attn, norms, d, hidden):
-    """The CUDA kernels' own limits, for weights on a CUDA device: q/k/v/o
+    """The CUDA kernel's own limits, for weights on a CUDA device: q/k/v/o
     and the norm scales contiguous and of one type, bf16 or f32; ``d`` up
     to ``MAX_HEAD_DIM``; ``hidden`` a multiple of 8 up to ``MAX_HIDDEN``.
     Every GQA group is taken."""
@@ -264,6 +264,44 @@ def _aligned(*tensors):
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+# (dtype, b, hidden, heads, kv heads, d, page, walk) -> (work bytes, state
+# int32s), from the library's own plan
+_sizes: dict = {}
+# (device index, stream handle) -> [work, state, retired buffers]: the
+# kernel's scratch and barrier state, kept across calls. A buffer that is
+# outgrown stays referenced, so that a CUDA graph captured with it keeps
+# valid memory.
+_scratch: dict = {}
+
+
+def _scratch_for(x, dt, b, hidden, heads, kvh, d, page, walk):
+    key = (dt, b, hidden, heads, kvh, d, page, walk)
+    sizes = _sizes.get(key)
+    if sizes is None:
+        out = (ctypes.c_longlong * 2)()
+        fn = _build.function("ptt_fused_decode_layer_scratch",
+                             [_I] * 8 + [ctypes.POINTER(ctypes.c_longlong)])
+        _build.check(fn(x.element_size(), b, hidden, heads, kvh, d, page,
+                        walk, out), "fused_decode_layer")
+        sizes = _sizes[key] = (int(out[0]), int(out[1]))
+    slot_key = (x.device.index, _build.stream_of(x))
+    slot = _scratch.get(slot_key)
+    if (slot is None or slot[0].numel() < sizes[0]
+            or slot[1].numel() < sizes[1]):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "fused_decode_layer: no scratch of this size on the "
+                "capturing stream; run the layer once on it before capture")
+        work = max(sizes[0], slot[0].numel() if slot else 0)
+        state = max(sizes[1], slot[1].numel() if slot else 0)
+        retired = (slot[2] + [slot[0], slot[1]]) if slot else []
+        # zeroed once: the kernel leaves its barrier at rest
+        slot = _scratch[slot_key] = [
+            torch.empty(work, dtype=torch.uint8, device=x.device),
+            torch.zeros(state, dtype=torch.int32, device=x.device), retired]
+    return slot[0], slot[1]
+
+
 def fused_decode_layer(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo, rope_cos,
                        rope_sin, ln2_weight, ln2_eps, k_pages, v_pages,
                        tables, lengths, heads, attn_pages=None,
@@ -279,11 +317,12 @@ def fused_decode_layer(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo, rope_cos,
     and writes the new k/v rows into the pools; the caller advances the
     cache's length by one.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches a kernel
-    (activations, norm scales, weights and pools all bf16 or all f32, f32
-    RoPE tables, int32 tables and lengths, all contiguous and 16-byte
-    aligned; an even D up to ``MAX_HEAD_DIM``, any number of query heads
-    per kv head, hidden a multiple of 8 up to ``MAX_HIDDEN``) or raises.
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (activations, norm scales, weights and pools all bf16 or all
+    f32, f32 RoPE tables, int32 tables and lengths, all contiguous and
+    16-byte aligned; an even D up to ``MAX_HEAD_DIM``, any number of query
+    heads per kv head, hidden a multiple of 8 up to ``MAX_HIDDEN``, up to
+    ``MAX_BATCH`` rows) or raises, a refused cooperative launch included.
     An f32 launch counts as ``fused_decode_layer[f32]``."""
     kw = dict(ln1_weight=ln1_weight, ln1_eps=ln1_eps, wq=wq, wk=wk, wv=wv,
               wo=wo, rope_cos=rope_cos, rope_sin=rope_sin,
@@ -308,7 +347,7 @@ def fused_decode_layer(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo, rope_cos,
     b, s, hidden = x.shape
     n_pages, page, kvh, d = k_pages.shape
     cols = tables.shape[1]
-    if (s != 1 or v_pages.shape != k_pages.shape or d % 2
+    if (s != 1 or b > MAX_BATCH or v_pages.shape != k_pages.shape or d % 2
             or d > MAX_HEAD_DIM or heads % kvh
             or hidden % 8 or hidden > MAX_HIDDEN
             or wq.shape != (hidden, heads * d)
@@ -324,33 +363,25 @@ def fused_decode_layer(x, *, ln1_weight, ln1_eps, wq, wk, wv, wo, rope_cos,
             f"{tuple(k_pages.shape)}, tables {tuple(tables.shape)}, lengths "
             f"{tuple(lengths.shape)}; head_dim must be even and at most "
             f"{MAX_HEAD_DIM}, the query heads a multiple of the kv heads, "
-            f"and hidden a multiple of 8 up to {MAX_HIDDEN}")
+            f"hidden a multiple of 8 up to {MAX_HIDDEN}, and at most "
+            f"{MAX_BATCH} rows")
     if not _aligned(x, wq, wk, wv, wo, k_pages, v_pages):
         raise ValueError(f"{name}: x, weights and pools must be 16-byte "
                          f"aligned")
     walk = cols if attn_pages is None else min(attn_pages, cols)
     h_mid = torch.empty_like(x)
     y2 = torch.empty_like(x)
-    # f32 partial o_proj of each kv head's query heads, summed by the last
-    # block of the row to finish; that block finds out it is last through
-    # the row's counter (zeroed here, and zeroed again by that block)
-    partial = torch.empty((b, kvh, hidden), dtype=torch.float32,
-                          device=x.device)
-    counters = torch.zeros((b,), dtype=torch.int32, device=x.device)
-    if dt == torch.float32:
-        entry = "ptt_fused_decode_layer_f32"
-    elif d in _FIRST_HEAD_DIMS and heads // kvh <= _FIRST_MAX_GROUP:
-        entry = "ptt_fused_decode_layer"
-    else:
-        entry = "ptt_fused_decode_layer_any"
+    work, state = _scratch_for(x, dt, b, hidden, heads, kvh, d, page, walk)
+    entry = ("ptt_fused_decode_layer_f32" if dt == torch.float32
+             else "ptt_fused_decode_layer")
     fn = _build.function(entry, [_P] * 17 + [_I] * 10 + [_F] * 3 + [_P])
     _build.check(fn(x.data_ptr(), ln1_weight.data_ptr(),
                     ln2_weight.data_ptr(), wq.data_ptr(), wk.data_ptr(),
                     wv.data_ptr(), wo.data_ptr(), rope_cos.data_ptr(),
                     rope_sin.data_ptr(), k_pages.data_ptr(),
                     v_pages.data_ptr(), tables.data_ptr(), lengths.data_ptr(),
-                    h_mid.data_ptr(), y2.data_ptr(), partial.data_ptr(),
-                    counters.data_ptr(), b, hidden, heads, kvh, d,
+                    h_mid.data_ptr(), y2.data_ptr(), work.data_ptr(),
+                    state.data_ptr(), b, hidden, heads, kvh, d,
                     rope_cos.shape[0], page, n_pages, cols, walk,
                     float(ln1_eps), float(ln2_eps), 1.0 / math.sqrt(d),
                     _build.stream_of(x)), name)

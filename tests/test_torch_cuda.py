@@ -2,8 +2,9 @@
 shapes off the serving and training paths' (ragged lengths, head dims 32
 to 256 and the padded route's 80, GQA groups up to 8, causal offsets, empty rows, clamped positions, row
 counts off the RMSNorm backward's strip; paged decode at groups past 8;
-the decode megakernels at a small size, at the 438M serving decode, on
-GQA, at head dims 12, 80, 96 and 256 and at groups 12 and 16; the
+the decode megakernel at a small size, at the 438M serving decode, on
+GQA, at head dims 12, 80, 96 and 256, at groups 12 and 16, at B = 1 and
+B = 20, replayed from a CUDA graph, back to back and on two streams; the
 bias-dropout-residual-
 LayerNorm kernel at BERT-base's shape, in f32, at odd widths and off
 alignment; the segment-masked flash kernels with seq_lens, packed ids and
@@ -426,8 +427,8 @@ MEGAKERNEL_CASES = [  # b, hidden, heads, kvh, d, page, cols, lens
      [1, 17, 127, 128, 200, 255, 256, 510]),
     (4, 1536, 12, 4, 128, 128, 4, [5, 128, 300, 511]),  # GQA, group 3
     (2, 1024, 16, 2, 64, 32, 3, [31, 95]),            # group 8, D = 64
-    # csrc/decode_megakernel_any.cuh: head dims off 64 and 128, groups
-    # past 8, D off the 16-byte grid (value-by-value weight reads)
+    # head dims off 64 and 128, groups past 8, D off the 16-byte grid
+    # (4-byte copies of the weights and pools)
     (8, 3072, 32, 32, 96, 128, 4, [1, 17, 127, 128, 200, 255, 256, 510]),
     (3, 640, 8, 8, 80, 16, 4, [0, 16, 63]),
     (2, 2048, 16, 2, 256, 16, 3, [5, 40]),
@@ -435,6 +436,13 @@ MEGAKERNEL_CASES = [  # b, hidden, heads, kvh, d, page, cols, lens
     (3, 1536, 12, 1, 128, 16, 4, [0, 17, 63]),          # group 12
     (2, 1024, 16, 1, 64, 32, 3, [31, 95]),              # group 16, D = 64
     (2, 48, 4, 2, 12, 16, 2, [3, 20]),                  # D = 12
+    # one row; 20 rows, three row groups of the kernel's 8
+    (1, 1536, 12, 4, 128, 128, 4, [300]),
+    (20, 512, 8, 2, 64, 16, 4, [0, 1, 5, 15, 16, 17, 31, 32, 33, 47, 48, 49,
+                                63, 2, 3, 7, 8, 9, 40, 62]),
+    # the engine's pool layout (page 128, 4 visible columns) with every
+    # depth of chip_smoke.py's MK_LENGTHS at D = 256 on 2 kv heads
+    (8, 2048, 8, 2, 256, 128, 4, [1, 17, 127, 128, 200, 255, 256, 510]),
 ]
 
 
@@ -451,14 +459,46 @@ def test_decode_megakernel(gen, b, hidden, heads, kvh, d, page, cols, lens):
     assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
+def _h_mid_close(mk, args, got, want):
+    """The kernel's bf16 h_mid = bf16(x + bf16(o)) against the plain
+    version's (chip_smoke.py's h_mid_gate): it rounds twice, so where the
+    kernel and the plain version sum o in other orders and land on the two
+    sides of a rounding boundary of o, the kernel's bf16(o) is a bf16
+    neighbour of the plain one and h_mid moves by up to an ulp of o. An
+    element passes the one-rounding gate or equals bf16(x + o') for o' one
+    of the two bf16 neighbours of the plain bf16(o); nothing else."""
+    torch.cuda.synchronize()
+    got, want = got[:, 0], want[:, 0]
+    assert torch.isfinite(got.float()).all()
+    one = ((got.float() - want.float()).abs()
+           <= ATOL + RTOL * want.float().abs())
+    o = mk.decode_attention_o_plain(**{
+        k: v.clone() if k in ("k_pages", "v_pages") else v
+        for k, v in args.items()
+        if k not in ("ln2_weight", "ln2_eps", "dump_page")})
+    bits = o.contiguous().view(torch.int16)
+    near = torch.zeros_like(one)
+    for step in (-1, 1):
+        o_ = (bits + step).view(torch.bfloat16).float()
+        near |= got == (args["x"][:, 0].float() + o_).to(torch.bfloat16)
+    assert bool((one | near).all()), (
+        f"{int((~(one | near)).sum())} h_mid elements beyond the gate")
+
+
 def _fused_matches_plain(mk, args):
     """One launch against the plain version on copies of the pools;
-    returns the kernel's (h_mid, y2)."""
+    returns the kernel's (h_mid, y2). h_mid in bf16 by the rule of
+    _h_mid_close."""
     plain = dict(args, k_pages=args["k_pages"].clone(),
                  v_pages=args["v_pages"].clone())
+    o_args = dict(plain, k_pages=args["k_pages"].clone(),
+                  v_pages=args["v_pages"].clone())
     got = mk.fused_decode_layer(**args)
     want = mk.fused_decode_layer_plain(**plain)
-    _close(got[0], want[0])
+    if got[0].dtype == torch.bfloat16:
+        _h_mid_close(mk, o_args, got[0], want[0])
+    else:
+        _close(got[0], want[0])
     # y2 against the plain norm of the kernel's own h_mid: h_mid may
     # differ by the one bf16 ulp the tolerance admits, and y2 would carry
     # it again
@@ -467,6 +507,92 @@ def _fused_matches_plain(mk, args):
     _close(args["k_pages"][:dump], plain["k_pages"][:dump])
     _close(args["v_pages"][:dump], plain["v_pages"][:dump])
     return got
+
+
+def _pools_copy(args, **over):
+    return dict(args, k_pages=args["k_pages"].clone(),
+                v_pages=args["v_pages"].clone(), **over)
+
+
+def _as_f32(args):
+    return {k: v.float() if isinstance(v, torch.Tensor)
+            and v.dtype == torch.bfloat16 else v for k, v in args.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_megakernel_graph_replay_matches_eager(gen, dtype):
+    """The cooperative launch records into a CUDA graph (captured on a
+    stream that ran the layer once, as the wrapper asks), and each replay
+    gives the eager launch's bits: h_mid, y2 and the appended pools."""
+    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
+
+    args = _megakernel_args(gen, 8, 1536, 12, 4, 128, 128, 4,
+                            [1, 17, 127, 128, 200, 255, 256, 510])
+    if dtype == torch.float32:
+        args = _as_f32(args)
+    kp, vp = args["k_pages"], args["v_pages"]
+    eager_args = _pools_copy(args)
+    eager = mk.fused_decode_layer(**eager_args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph_args = _pools_copy(args)
+    with torch.cuda.stream(side):
+        mk.fused_decode_layer(**graph_args)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        out = mk.fused_decode_layer(**graph_args)
+    for _ in range(2):
+        graph_args["k_pages"].copy_(kp)
+        graph_args["v_pages"].copy_(vp)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+        assert torch.equal(graph_args["k_pages"], eager_args["k_pages"])
+        assert torch.equal(graph_args["v_pages"], eager_args["v_pages"])
+
+
+def test_decode_megakernel_back_to_back_and_on_two_streams(gen):
+    """Launches in a row on one stream share the kernel's kept barrier
+    and counters (no synchronisation between them), at other shapes and
+    types in turn, and launches on two streams each have their own; every
+    launch matches the plain version, and the repeat of a launch gives its
+    bits."""
+    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
+
+    cases = [
+        _megakernel_args(gen, 8, 1536, 12, 12, 128, 128, 4,
+                         [1, 17, 127, 128, 200, 255, 256, 510]),
+        _megakernel_args(gen, 3, 640, 8, 8, 80, 16, 4, [0, 16, 63]),
+        _as_f32(_megakernel_args(gen, 4, 1536, 12, 4, 128, 128, 4,
+                                 [5, 128, 300, 511])),
+    ]
+    want = [mk.fused_decode_layer_plain(**_pools_copy(a)) for a in cases]
+    runs = [_pools_copy(a) for a in cases + cases]
+    got = [mk.fused_decode_layer(**r) for r in runs]
+    for i, (g_, r) in enumerate(zip(got, runs)):
+        a, w = cases[i % 3], want[i % 3]
+        if a["x"].dtype == torch.bfloat16:
+            _h_mid_close(mk, a, g_[0], w[0])
+        else:
+            torch.testing.assert_close(g_[0], w[0], rtol=1e-4, atol=1e-4)
+        assert torch.isfinite(r["k_pages"].float()).all()
+    for i in range(3):
+        assert torch.equal(got[i][0], got[i + 3][0])
+        assert torch.equal(got[i][1], got[i + 3][1])
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    runs = [_pools_copy(cases[0]), _pools_copy(cases[1])]
+    outs = []
+    for s, r in zip(streams, runs):
+        with torch.cuda.stream(s):
+            outs.append(mk.fused_decode_layer(**r))
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    for i in range(2):
+        assert torch.equal(outs[i][0], got[i][0])
+        assert torch.equal(outs[i][1], got[i][1])
 
 
 def test_decode_megakernel_refuses_what_it_does_not_take(gen):

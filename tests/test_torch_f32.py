@@ -325,6 +325,9 @@ def test_f32_paged_attention_kernel(gen, h, kvh, d, page, pps):
     (2, 2048, 16, 2, 256, 16, 3, [5, 40]),
     (4, 4096, 32, 2, 128, 128, 4, [5, 128, 300, 511]),  # group 16
     (2, 40, 4, 2, 10, 16, 2, [3, 20]),                  # D off 4 floats
+    (1, 1536, 12, 12, 128, 128, 4, [300]),              # one row
+    (20, 512, 8, 2, 64, 16, 4, [0, 1, 5, 15, 16, 17, 31, 32, 33, 47, 48,
+                                49, 63, 2, 3, 7, 8, 9, 40, 62]),  # 20 rows
 ])
 def test_f32_decode_megakernel(gen, b, hidden, heads, kvh, d, page, cols,
                                lens):

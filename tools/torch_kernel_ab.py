@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the f32 flash-attention forward and backward and the bf16 RMSNorm
-backward of one tree of the port, so that two trees can be compared in one
-call.
+"""Time the decode megakernel, the f32 flash-attention forward and
+backward and the bf16 RMSNorm backward of one tree of the port, so that two
+trees can be compared in one call.
 
-    python3 tools/torch_kernel_ab.py [--root DIR]
+    python3 tools/torch_kernel_ab.py [--root DIR] [--only megakernel]
 
 Imports ``paddle_tpu_torch`` from DIR (default: this checkout), builds its
 kernel library, and times each case with this checkout's chip_smoke.py
@@ -16,7 +16,13 @@ chip_smoke.py's ``F32_BWD_CASES`` from the tree's own forward, and the
 bf16 RMSNorm backward (``rms_norm_bwd``) at
 (6144, 1536) and (6144, 3072), its launches also timed apart
 (``launch_split``, torch.profiler). Inputs are standard normal from
-seeded generators on the card. Prints one JSON object with the card's
+seeded generators on the card. The decode megakernel
+(``fused_decode_layer``) at chip_smoke.py's ``MK_CASES`` (the 438M on 12
+and 4 kv heads, in f32, Phi-3-mini, Phi-2, D = 256 on 2 kv heads, group
+16) on ``megakernel_setup``'s inputs (the e2 decode shape, each case from
+its own seed), warm and rotating over layers (``megakernel_times``), at
+``MK_LENGTHS`` or, with ``--lengths serving``, at ``MK_SERVING_LENGTHS``
+(the serving runs' depths); ``--only megakernel`` times these alone. Prints one JSON object with the card's
 name and power limit. To compare a parent with a change, unpack the
 parent under a directory that .gitignore lists and run parent, change,
 change, parent in one call.
@@ -42,6 +48,9 @@ RMS_WIDTHS, RMS_ROWS = (1536, 3072), 6144
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=ROOT)
+    ap.add_argument("--only", choices=("megakernel",))
+    ap.add_argument("--lengths", choices=("chip_smoke", "serving"),
+                    default="chip_smoke")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -52,6 +61,8 @@ def main():
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     sys.path.insert(0, str(args.root.resolve()))
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
@@ -62,9 +73,31 @@ def main():
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    out = {"root": str(args.root), "card": smi, "flash_attention[f32]": {},
-           "flash_attention_bwd_dkdv[f32]": {},
-           "flash_attention_bwd_dq[f32]": {}, "rms_norm_bwd": {}}
+    out = {"root": str(args.root), "card": smi, "lengths": args.lengths,
+           "fused_decode_layer": {}}
+    for i, (case, widths, dtype, _) in enumerate(cs.MK_CASES):
+        mgen = seed(40 + i, "cuda")
+
+        def mrandn(*shape, std=1.0):
+            return torch.randn(shape, generator=mgen, device="cuda") * std
+
+        with torch.no_grad():
+            layer, x, kp, vp, margs = cs.megakernel_setup(
+                cs.mk_cfg(widths), mgen, mrandn, dtype,
+                cs.MK_SERVING_LENGTHS if args.lengths == "serving"
+                else cs.MK_LENGTHS)
+            warm, rotating, n = cs.megakernel_times(mk, x, kp, vp, margs)
+        out["fused_decode_layer"][case] = dict(warm_ms=warm,
+                                               rotating_ms=rotating,
+                                               rotating_layers=n)
+        del layer, x, kp, vp, margs
+        torch.cuda.empty_cache()
+    if args.only == "megakernel":
+        print(json.dumps(out), flush=True)
+        return 0
+    out.update({"flash_attention[f32]": {},
+                "flash_attention_bwd_dkdv[f32]": {},
+                "flash_attention_bwd_dq[f32]": {}, "rms_norm_bwd": {}})
     for case, b, s, h, kvh, d in FLASH_CASES:
         q, k, v = randn(b, s, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
         out["flash_attention[f32]"][case] = cs.graph_ms(

@@ -17,8 +17,8 @@ decode step (prefill included, spread over the decode steps), the
 device's idle share of the profiled run, device time grouped into the
 port's kernels, GEMMs and the rest, and kernel launches per decode step.
 ``--model phi3`` runs chip_smoke.py's phi3-serve model instead (32 layers
-at Phi-3-mini's widths, ``CFG_PHI3``), whose fused arm takes the second
-decode megakernel (head dim 96).
+at Phi-3-mini's widths, ``CFG_PHI3``), whose fused arm takes the decode
+megakernel at head dim 96.
 """
 from __future__ import annotations
 
