@@ -12,7 +12,9 @@ so that a fault surfaces in the phase that caused it:
             bf16: the serving kernels at the serving path's shapes (the
             decode megakernel at the engine's pool layout, plus a GQA
             case; the RMSNorm forward with weight, weight and bias, bias
-            alone and neither, also at widths 100 and 4096), the training
+            alone and neither, also at widths 100 and 4096; RoPE both
+            ways on the prefill's q, k (8, 128, 12, 128) and a decode
+            step's (8, 1, 12, 128), the decode step timed apart), the training
             path's backward kernels and the forward kernels at the
             training shape, (4, 1536) tokens of the 438M model (the
             RMSNorm forward also timed with a bias; the backward's two
@@ -46,11 +48,19 @@ so that a fault surfaces in the phase that caused it:
             of 16 (32 heads of 128 on 2 kv heads), h_mid by
             ``h_mid_gate``; each timed warm (one layer, graph) and
             rotating over layers whose weights exceed 4x the L2, the
-            bound set against the rotating time. Paged decode past 8
-            query heads per kv head (chunks of at most 8 heads, a block
-            each): groups 12 (q (8, 96, D) on 8 kv heads,
+            bound set against the rotating time. Paged decode (one
+            kernel, each row's tokens split across blocks by
+            ``split_plan``) at groups 12 (q (8, 96, D) on 8 kv heads,
             Mistral-Large-2), 16 (128 on 8) and 32 (32 on 1), at D = 128
-            and 64, bf16 and f32, in e2's pool layout and lengths.
+            and 64, bf16 and f32, in e2's pool layout and lengths. Every
+            paged row also holds the kernel to its own bits: two calls,
+            and a CUDA graph replay against an eager call, bit for bit.
+            Then paged-edge: paged decode at lengths 0, 1, every multiple
+            of 32 +-1 up to the walk's cap of 512 (each split boundary of
+            any plan), the cap and past it (clamped), with dump-page
+            tails, at e2's heads, group 12, D = 96, D = 256 on 2 kv
+            heads and D = 100 (the element path) in bf16 and e2's heads
+            and D = 36 in f32, gated and bit for bit the same way.
 4. flash-segments  the segment-masked flash kernels (``kSegments``)
             against their plain versions on the same ids, within the
             kernel gate on rows with a visible key, rows with none exactly
@@ -130,8 +140,8 @@ so that a fault surfaces in the phase that caused it:
             decode at q (8, 32, 96) and q (8, 16, 256) on 2 kv heads in
             e2's pool layout; RMSNorm at width 3072 (the backward's two
             launches timed apart) and RoPE at head dim 96 (with k=None
-            too). Then the flash-edge cases again at head dims 96 and
-            256.
+            too; the decode step's (8, 1, 32, 96) timed apart). Then the
+            flash-edge cases again at head dims 96 and 256.
 14. phi3-serve  a LLaMA at Phi-3-mini's widths (CFG_PHI3: 32 layers,
             hidden 3072, 32 heads of 96) behind the engine on e2's
             traffic in two arms, the default decode_megakernel=1 (fused:
@@ -162,7 +172,8 @@ so that a fault surfaces in the phase that caused it:
             TFLOP/s; the flash forward, in 3xTF32, three TF32 products a
             flop at 495 TFLOP/s), the plain version and a library call:
             RMSNorm at (8, 1536) and (1024, 1536), RoPE on (8, 128, 12,
-            128) both ways and at decode positions, the flash forward at
+            128) both ways and at decode positions (the decode step's (8,
+            1, 12, 128) timed apart), the flash forward at
             e2's prefill (8, 128, 12, 128) causal, at (4, 1536, 12, 128), at
             Phi-3's (8, 128, 32, 96) and at (2, 2048, 16, 256) on 2 kv
             heads (F.scaled_dot_product_attention in f32 beside it), with
@@ -427,6 +438,21 @@ def rms_norm_variants(rn, x, w, bias, tag):
     return err
 
 
+def rope_decode_row(fo, peaks, q, k, cos, sin, pos, f32=False):
+    """RoPE at a decode step's (8, 1, H, D) q and k, per-slot positions:
+    timed beside its bound (bytes; the flops at the f32 FMA rate for
+    f32) and the plain version. The gate is the caller's."""
+    bms, by = bound_ms(2 * 2 * q.numel() * q.element_size()
+                       + pos.numel() * 4 + 2 * pos.numel() * q.shape[-1] * 4,
+                       6 * q.numel(), peaks,
+                       flop_rate=peaks[2] if f32 else None)
+    return dict(shape=list(q.shape),
+                ms=graph_ms(lambda: fo.fused_rope_at(q, k, cos, sin, pos)),
+                plain_ms=graph_ms(lambda: fo.fused_rope_plain(q, k, cos, sin,
+                                                              pos)),
+                library_ms=None, bound_ms=bms, bound_by=by)
+
+
 def kernel_phase(peaks):
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
@@ -481,15 +507,17 @@ def kernel_phase(peaks):
     k = randn(g_, s_, heads, hd)
     pos = torch.arange(s_, device=dev, dtype=torch.int32).expand(
         g_, s_).contiguous()
-    qo, ko = fo.fused_rope_at(q, k, cos, sin, pos)
-    pq, pk = fo.fused_rope_plain(q, k, cos, sin, pos)
-    err = max(compare("rope", qo, pq), compare("rope", ko, pk))
     dpos = torch.randint(0, 183, (8, 1), generator=gen, device=dev,
                          dtype=torch.int32)
     dq, dk = randn(8, 1, heads, hd), randn(8, 1, heads, hd)
-    for got, want in zip(fo.fused_rope_at(dq, dk, cos, sin, dpos),
-                         fo.fused_rope_plain(dq, dk, cos, sin, dpos)):
-        err = max(err, compare("rope(decode)", got, want))
+    err = 0.0
+    for inverse in (False, True):  # both directions, prefill and decode
+        for a, b, p_, tag in ((q, k, pos, "rope"), (dq, dk, dpos,
+                                                     "rope(decode)")):
+            for got, want in zip(
+                    fo.fused_rope_at(a, b, cos, sin, p_, inverse),
+                    fo.fused_rope_plain(a, b, cos, sin, p_, inverse)):
+                err = max(err, compare(tag, got, want))
     pairs = g_ * s_ * 2 * heads * hd // 2
     nb = 2 * 2 * q.numel() * 2 + pos.numel() * 4 + 2 * s_ * hd * 4
     bms, by = bound_ms(nb, 6 * pairs, peaks)
@@ -501,6 +529,8 @@ def kernel_phase(peaks):
         eager_ms=eager_ms(lambda: fo.fused_rope_at(q, k, cos, sin, pos)),
         bound_ms=bms, bound_by=by)
     emit("kernel", name="fused_rope", **rec)
+    emit("kernel", name="fused_rope", case="decode",
+         **rope_decode_row(fo, peaks, dq, dk, cos, sin, dpos))
     torch.cuda.synchronize()
 
     # flash forward: the bucket-128 prefill of a full admission group
@@ -1051,6 +1081,30 @@ def e2_pool(randn, heads, kvh, hd, seed=0):
             torch.tensor(lens, device="cuda"), lens, per_seq)
 
 
+def paged_bits(da, args, per_seq, tag):
+    """Paged decode gives the same bits twice and from a CUDA graph: two
+    eager calls, then a graph of the call captured on a side stream (its
+    split scratch made there by a call before capture), replayed twice;
+    raises unless all three outputs are equal. Returns True."""
+    first = da.paged_attention(*args, pages_per_seq=per_seq)
+    again = da.paged_attention(*args, pages_per_seq=per_seq)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        da.paged_attention(*args, pages_per_seq=per_seq)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        replayed = da.paged_attention(*args, pages_per_seq=per_seq)
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    if not (torch.equal(first, again) and torch.equal(first, replayed)):
+        raise PhaseFailed(f"{tag}: two calls, or a graph replay and an "
+                          f"eager call, differ")
+    return True
+
+
 def paged_row(da, peaks, pool, f32=False):
     """The paged decode kernel against its plain version on ``pool``
     (``e2_pool``'s tuple), timed; the bound counts the K/V rows the
@@ -1064,6 +1118,7 @@ def paged_row(da, peaks, pool, f32=False):
     want = da.paged_attention_plain(*args, pages_per_seq=per_seq)
     err = (f32_compare if f32 else compare)(f"paged_attention(d={hd})", got,
                                             want)
+    bits = paged_bits(da, args, per_seq, f"paged_attention(d={hd})")
     toks = int(np.minimum(lens, per_seq * page).sum())
     size = q.element_size()
     nb = (2 * q.numel() * size + 2 * toks * kvh * hd * size
@@ -1072,7 +1127,7 @@ def paged_row(da, peaks, pool, f32=False):
                        flop_rate=peaks[2] if f32 else None)
     return dict(
         shape=[b, heads, hd], kv_heads=kvh, lengths=lens.tolist(),
-        max_abs_err=err,
+        max_abs_err=err, bit_identical=bits,
         ms=graph_ms(lambda: da.paged_attention(*args,
                                                pages_per_seq=per_seq)),
         plain_ms=graph_ms(lambda: da.paged_attention_plain(
@@ -1116,6 +1171,66 @@ def paged_group_phase(peaks):
                     results["paged_attention[g=12]"] = rec
     torch.cuda.synchronize()
     return results
+
+
+# lengths of the paged-edge case: 0, 1, every multiple of the kernel's
+# 32-token tile +-1 up to the walk's cap (512: 4 columns of 128), so every
+# split boundary of any plan, and one past the cap (clamped)
+PAGED_EDGE_LENGTHS = ([0, 1] + [32 * k + o for k in range(1, 17)
+                                for o in (-1, 0, 1)] + [600])
+# (heads, kv heads, D, dtype): e2's, Mistral-Large-2's group 12, Phi-3's
+# 96, 256 on 2 kv heads and 100 (rows off 16 bytes: the element path) in
+# bf16; e2's and 36 in f32
+PAGED_EDGE_CASES = [(12, 12, 128, torch.bfloat16), (96, 8, 128, torch.bfloat16),
+                    (32, 32, 96, torch.bfloat16), (16, 2, 256, torch.bfloat16),
+                    (8, 2, 100, torch.bfloat16), (12, 12, 128, torch.float32),
+                    (8, 2, 36, torch.float32)]
+
+
+def paged_edge_phase():
+    """Paged decode at PAGED_EDGE_LENGTHS in e2's pool layout (page 128,
+    4 columns + a scratch column, scattered pages, dump-page tails), at
+    PAGED_EDGE_CASES: each against its plain version within its dtype's
+    gate, the row of length 0 exactly 0, and ``paged_bits``. Prints the
+    split plan of each case."""
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    page, per_seq = 128, 4
+    lens = np.asarray(PAGED_EDGE_LENGTHS, np.int32)
+    b = len(lens)
+    n_pages = b * per_seq + 1
+    rng = np.random.RandomState(14)
+    tables = np.full((b, per_seq + 1), n_pages - 1, np.int32)
+    perm, used = rng.permutation(n_pages - 1), 0
+    for i, n in enumerate(lens):
+        k = min(-(-int(n) // page), per_seq)
+        tables[i, :k] = perm[used:used + k]
+        used += k
+    tab = torch.tensor(tables, device="cuda")
+    ln = torch.tensor(lens, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for heads, kvh, hd, dtype in PAGED_EDGE_CASES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        f32 = dtype == torch.float32
+        q = randn(b, heads, hd)
+        kp, vp = randn(n_pages, page, kvh, hd), randn(n_pages, page, kvh, hd)
+        args = (q, kp, vp, tab, ln)
+        tag = f"paged_attention{'[f32]' if f32 else ''}(edge, {heads} on " \
+              f"{kvh}, d={hd})"
+        got = da.paged_attention(*args, pages_per_seq=per_seq)
+        err = (f32_compare if f32 else compare)(
+            tag, got, da.paged_attention_plain(*args, pages_per_seq=per_seq))
+        if not bool((got[0] == 0).all()):
+            raise PhaseFailed(f"{tag}: the row of length 0 is not 0")
+        emit("paged-edge", name="paged_attention" + ("[f32]" if f32 else ""),
+             shape=[b, heads, hd], kv_heads=kvh, max_abs_err=err,
+             plan=dict(zip(("chunks", "per", "ts", "nsplit"), da.split_plan(
+                 b, kvh, heads // kvh, per_seq * page, sms))),
+             bit_identical=paged_bits(da, args, per_seq, tag))
+    torch.cuda.synchronize()
 
 
 def flash_rows(peaks, gen, case, b, s, h, kvh, d, causal):
@@ -2498,6 +2613,17 @@ def head_dims_phase(peaks):
                               calls=10),
             library_ms=None, bound_ms=bms, bound_by=by)
         emit("kernel", name=rname, case="phi3", **rec)
+    # the decode step's q, k (8, 1, 32, 96) at per-slot positions
+    q, k = randn(8, 1, 32, 96), randn(8, 1, 32, 96)
+    pos = torch.randint(0, 183, (8, 1), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    err = max(compare("fused_rope(d=96, decode)", got, want)
+              for inverse in (False, True)
+              for got, want in zip(
+                  fo.fused_rope_at(q, k, cos, sin, pos, inverse),
+                  fo.fused_rope_plain(q, k, cos, sin, pos, inverse)))
+    emit("kernel", name="fused_rope", case="phi3 decode", max_abs_err=err,
+         **rope_decode_row(fo, peaks, q, k, cos, sin, pos))
     torch.cuda.synchronize()
     return results
 
@@ -2749,9 +2875,14 @@ def f32_kernel_phase(peaks):
     dpos = torch.randint(0, 183, (8, 1), generator=gen, device="cuda",
                          dtype=torch.int32)
     dq, dk = randn(8, 1, heads, hd), randn(8, 1, heads, hd)
-    for got, want in zip(fo.fused_rope_at(dq, dk, cos, sin, dpos),
-                         fo.fused_rope_plain(dq, dk, cos, sin, dpos)):
-        err = max(err, f32_compare("fused_rope[f32](decode)", got, want))
+    for inverse in (False, True):
+        for got, want in zip(
+                fo.fused_rope_at(dq, dk, cos, sin, dpos, inverse),
+                fo.fused_rope_plain(dq, dk, cos, sin, dpos, inverse)):
+            err = max(err, f32_compare("fused_rope[f32](decode)", got,
+                                       want))
+    emit("f32-kernel", name="fused_rope[f32]", case="decode",
+         **rope_decode_row(fo, peaks, dq, dk, cos, sin, dpos, f32=True))
     bms, by = bound_ms(2 * 2 * q.numel() * 4 + pos.numel() * 4
                        + 2 * s_ * hd * 4, 6 * q.numel(), peaks,
                        flop_rate=peaks[2])
@@ -3233,6 +3364,7 @@ def main():
     results = kernel_phase(peaks)
     results.update(megakernel_phase(peaks))
     results.update(paged_group_phase(peaks))
+    paged_edge_phase()
     results.update(train_kernel_phase(peaks))
     results.update(bdrln_phase(peaks))
     bert_flash_phase(peaks)

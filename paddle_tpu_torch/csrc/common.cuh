@@ -61,6 +61,18 @@ __device__ __forceinline__ void load_f32(const float* p, float* out) {
   }
 }
 
+// 8 bf16 held as the 16 bytes of u, as floats: a bf16 is the top half of
+// its f32, so each is a shift or a mask, and u stays in registers (taking
+// its address to reinterpret it would put it on the stack)
+__device__ __forceinline__ void unpack_bf16x8(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 // Kernels that are templates on the element type T (bf16 or f32) compute
 // in f32 and convert at each load and store through these.
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -140,6 +152,21 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
         "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
         : "r"(smem_addr(p)) : "memory");
+  }
+}
+
+// Two 8 x 8 b16 matrices, as ldmatrix_x4: lanes 8i..8i+7 (i < 2) give
+// the row addresses of matrix i.
+template <bool kTrans>
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  if (kTrans) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+        : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)) : "memory");
   }
 }
 

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes off the serving and training paths' (ragged lengths, head dims 32
 to 256 and the padded route's 80, GQA groups up to 8, causal offsets, empty rows, clamped positions, row
-counts off the RMSNorm backward's strip; paged decode at groups past 8;
+counts off the RMSNorm backward's strip; paged decode at split-boundary
+lengths, head dims off 16-byte rows and groups past 16, two calls bit for bit;
+RoPE at the decode shape and head dims 20 to 256;
 the decode megakernel at a small size, at the 438M serving decode, on
 GQA, at head dims 12, 80, 96 and 256, at groups 12 and 16, at B = 1 and
 B = 20, replayed from a CUDA graph, back to back and on two streams; the
@@ -68,9 +70,15 @@ def test_rms_norm_kernel(gen, n, d, aligned, affine):
     torch.testing.assert_close(r, pr, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("b,s,h,kvh,d", [(2, 7, 4, 2, 64), (3, 1, 16, 2, 128),
-                                         (1, 33, 12, 12, 128),
-                                         (2, 9, 32, 32, 96)])
+# the 438M's and Phi-3's decode step (8, 1, H, D), its prefill, and head
+# dims 32, 80, 256 and 20 (half not a multiple of 8: the element path)
+ROPE_SHAPES = [(2, 7, 4, 2, 64), (3, 1, 16, 2, 128), (1, 33, 12, 12, 128),
+               (2, 9, 32, 32, 96), (8, 1, 12, 12, 128), (8, 1, 32, 32, 96),
+               (2, 5, 4, 2, 32), (2, 5, 32, 8, 80), (1, 6, 16, 2, 256),
+               (3, 4, 6, 2, 20)]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d", ROPE_SHAPES)
 def test_rope_kernel(gen, b, s, h, kvh, d):
     from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.cuda import fused_ops as fo
@@ -119,23 +127,33 @@ def test_flash_attention_kernel(gen, b, sq, sk, h, kvh, d, causal):
                                               (16, 2, 256, 16, 3),
                                               (8, 4, 80, 16, None),
                                               (4, 2, 32, 128, 2),
-                                              # groups past 8: chunks
+                                              (8, 2, 72, 64, None),
+                                              (4, 2, 36, 16, 3),
+                                              (6, 6, 100, 128, None),
+                                              # groups past 16: chunks
                                               (96, 8, 128, 128, None),
                                               (128, 8, 64, 16, 3),
                                               (32, 1, 128, 16, None),
                                               (18, 1, 80, 16, 3),
-                                              (24, 2, 256, 128, 2)])
+                                              (24, 2, 256, 128, 2),
+                                              (40, 1, 72, 64, None)])
 def test_paged_attention_kernel(gen, h, kvh, d, page, pps):
+    """Lengths 0, 1, the split boundaries (multiples of 32) +-1, page
+    boundaries, the full table and past it (clamped to the walk), with
+    dump-page tails; D = 72 and 36 (16-byte rows and not), 100 (the
+    element path); a second call gives the same bits."""
     from paddle_tpu_torch.ops.cuda import decode_attention as da
 
-    cols, b = 4, 5
+    cols = 4
+    lengths = np.array([0, 1, 31, 32, 33, 63, 64, 65, page, 3 * page + 5,
+                        4 * page, 4 * page + 9], np.int32)
+    b = len(lengths)
     n_pages = b * cols + 1
     rng = np.random.RandomState(0)
-    lengths = np.array([0, 1, page, 3 * page + 5, 4 * page], np.int32)
     tables = np.full((b, cols + 1), n_pages - 1, np.int32)  # dump tails
     perm, used = rng.permutation(n_pages - 1), 0
     for i, n in enumerate(lengths):
-        k_ = -(-int(n) // page)
+        k_ = min(-(-int(n) // page), cols)
         tables[i, :k_] = perm[used:used + k_]
         used += k_
     q = _randn(gen, b, h, d)
@@ -146,6 +164,7 @@ def test_paged_attention_kernel(gen, h, kvh, d, page, pps):
     got = da.paged_attention(*args, pages_per_seq=pps)
     _close(got, da.paged_attention_plain(*args, pages_per_seq=pps))
     assert torch.all(got[0] == 0)
+    assert torch.equal(got, da.paged_attention(*args, pages_per_seq=pps))
 
 
 @pytest.mark.parametrize("n,d,offset", [
@@ -177,8 +196,7 @@ def test_rms_norm_bwd_kernel(gen, n, d, offset):
         assert torch.equal(a, again)
 
 
-@pytest.mark.parametrize("b,s,h,kvh,d", [(2, 7, 4, 2, 64), (1, 33, 12, 12, 128),
-                                         (2, 9, 32, 32, 96)])
+@pytest.mark.parametrize("b,s,h,kvh,d", ROPE_SHAPES)
 def test_rope_adjoint_kernel(gen, b, s, h, kvh, d):
     from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.cuda import fused_ops as fo
@@ -192,6 +210,9 @@ def test_rope_adjoint_kernel(gen, b, s, h, kvh, d):
             fo.fused_rope_at(dq, dk, cos, sin, pos, inverse=True),
             fo.fused_rope_plain(dq, dk, cos, sin, pos, inverse=True)):
         _close(got, want)
+    got, none = fo.fused_rope_at(dq, None, cos, sin, pos, inverse=True)
+    assert none is None
+    _close(got, fo.fused_rope_plain(dq, None, cos, sin, pos, inverse=True)[0])
 
 
 @pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal", [

@@ -249,10 +249,15 @@ def test_f32_rms_norm_kernel(gen, n, d, aligned, affine):
 @pytest.mark.parametrize("b,s,h,kvh,d", [(2, 7, 4, 2, 64), (3, 1, 16, 2, 128),
                                          (8, 128, 12, 12, 128),
                                          (2, 9, 32, 32, 96),
-                                         (1, 5, 4, 2, 256), (2, 3, 4, 4, 32)])
+                                         (1, 5, 4, 2, 256), (2, 3, 4, 4, 32),
+                                         (8, 1, 12, 12, 128),
+                                         (8, 1, 32, 32, 96),
+                                         (2, 5, 32, 8, 80),
+                                         (3, 4, 6, 2, 20), (2, 3, 4, 2, 6)])
 def test_f32_rope_kernel(gen, b, s, h, kvh, d):
     """Both directions, positions outside the table (clamped), and k =
-    None."""
+    None; the decode shape (8, 1, H, D) at the 438M's and Phi-3's widths;
+    D = 20 and 6 (half not a multiple of 4: the element path)."""
     from paddle_tpu_torch.models.llama import _rope_tables
     from paddle_tpu_torch.ops.cuda import fused_ops as fo
     from paddle_tpu_torch.ops.cuda import launch_counts
@@ -282,25 +287,31 @@ def test_f32_rope_kernel(gen, b, s, h, kvh, d):
                                               (16, 2, 256, 16, 3),
                                               (8, 4, 80, 16, None),
                                               (4, 2, 32, 128, 2),
+                                              (8, 2, 36, 64, None),
+                                              (4, 2, 18, 16, 3),
                                               (96, 8, 128, 128, None),
                                               (128, 8, 64, 16, 3),
                                               (32, 1, 128, 16, None),
-                                              (24, 2, 256, 128, 2)])
+                                              (24, 2, 256, 128, 2),
+                                              (40, 1, 36, 64, None)])
 def test_f32_paged_attention_kernel(gen, h, kvh, d, page, pps):
-    """Lengths 0, 1, one page, across a page and the full table, dump-page
-    tails; D = 64 and 128 at groups up to 8 take the vector kernel, the
-    rest the other, a group past 8 in chunks of at most 8 heads."""
+    """Lengths 0, 1, the split boundaries (multiples of 32) +-1, page
+    boundaries, the full table and past it (clamped), dump-page tails; D
+    = 36 (16-byte rows) and 18 (the element path); groups past 16 in
+    chunks; a second call gives the same bits."""
     from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import launch_counts
 
-    cols, b = 4, 5
+    cols = 4
+    lengths = np.array([0, 1, 31, 32, 33, 63, 64, 65, page, 3 * page + 5,
+                        4 * page, 4 * page + 9], np.int32)
+    b = len(lengths)
     n_pages = b * cols + 1
     rng = np.random.RandomState(0)
-    lengths = np.array([0, 1, page, 3 * page + 5, 4 * page], np.int32)
     tables = np.full((b, cols + 1), n_pages - 1, np.int32)
     perm, used = rng.permutation(n_pages - 1), 0
     for i, n in enumerate(lengths):
-        k_ = -(-int(n) // page)
+        k_ = min(-(-int(n) // page), cols)
         tables[i, :k_] = perm[used:used + k_]
         used += k_
     q = _randn(gen, b, h, d)
@@ -313,6 +324,7 @@ def test_f32_paged_attention_kernel(gen, h, kvh, d, page, pps):
     assert _launched("paged_attention[f32]") == 1
     _close(got, da.paged_attention_plain(*args, pages_per_seq=pps))
     assert torch.all(got[0] == 0)
+    assert torch.equal(got, da.paged_attention(*args, pages_per_seq=pps))
 
 
 @pytest.mark.cuda

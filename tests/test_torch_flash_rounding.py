@@ -65,6 +65,19 @@ CASES = {  # b, s, heads, kv heads, d, causal
 }
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Each test's torch work on one intra-op thread: the emulations' loops
+    of small ops give the same bits on one thread as on several (checked
+    at 1, 3 and 8), and run several times faster where pytest-xdist's
+    workers share the cores, as each worker's thread pool otherwise
+    spin-waits against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bf16(x):
     """``x`` rounded to bf16, kept in f32."""
     return x.to(torch.bfloat16).to(torch.float32)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the decode megakernel, the f32 flash-attention forward and
-backward and the bf16 RMSNorm backward of one tree of the port, so that two
-trees can be compared in one call.
+"""Time the decode megakernel, paged decode, RoPE, the f32 flash-attention
+forward and backward and the bf16 RMSNorm backward of one tree of the
+port, so that two trees can be compared in one call.
 
-    python3 tools/torch_kernel_ab.py [--root DIR] [--only megakernel]
+    python3 tools/torch_kernel_ab.py [--root DIR]
+        [--only megakernel|paged|rope] [--lengths chip_smoke|serving]
 
 Imports ``paddle_tpu_torch`` from DIR (default: this checkout), builds its
 kernel library, and times each case with this checkout's chip_smoke.py
@@ -22,10 +23,19 @@ and 4 kv heads, in f32, Phi-3-mini, Phi-2, D = 256 on 2 kv heads, group
 16) on ``megakernel_setup``'s inputs (the e2 decode shape, each case from
 its own seed), warm and rotating over layers (``megakernel_times``), at
 ``MK_LENGTHS`` or, with ``--lengths serving``, at ``MK_SERVING_LENGTHS``
-(the serving runs' depths); ``--only megakernel`` times these alone. Prints one JSON object with the card's
-name and power limit. To compare a parent with a change, unpack the
-parent under a directory that .gitignore lists and run parent, change,
-change, parent in one call.
+(the serving runs' depths). Paged decode (``paged_attention``) at
+``PAGED_CASES`` on chip_smoke.py's ``e2_pool`` (8 slots of the serving
+pool, lengths 9-183): e2's 12 heads at D = 128 in bf16 and f32, Phi-3's
+32 heads of 96, Mistral-Large-2's 96 heads on 8 kv heads, 16 heads of 256
+on 2 kv heads, 128 heads on 8 and 32 on 1. RoPE (``fused_rope_at``, both
+directions, bf16 and f32) on q and k at ``ROPE_CASES``: the decode step
+(8, 1, H, D) at per-slot positions, the prefill bucket (8, 128, H, D) and
+the training step (4, 1536, H, D) at arange positions, for the 438M's
+12 heads of 128 and Phi-3's 32 of 96. ``--only`` times one of these
+three groups alone. Prints one JSON object with the card's name and power
+limit. To compare a parent with a change, unpack the parent under a
+directory that .gitignore lists and run parent, change, change, parent in
+one call.
 """
 from __future__ import annotations
 
@@ -43,12 +53,67 @@ FLASH_CASES = [("training shape", 4, 1536, 12, 12, 128),
                ("phi3 prefill bucket", 8, 128, 32, 32, 96),
                ("qwen3-next full attention", 2, 2048, 16, 2, 256)]
 RMS_WIDTHS, RMS_ROWS = (1536, 3072), 6144
+# paged decode: (case, heads, kv heads, D, dtype)
+PAGED_CASES = [("e2 d128", 12, 12, 128, torch.bfloat16),
+               ("phi3 d96", 32, 32, 96, torch.bfloat16),
+               ("mistral-large group 12", 96, 8, 128, torch.bfloat16),
+               ("e2 f32", 12, 12, 128, torch.float32),
+               ("d256 on 2 kv heads", 16, 2, 256, torch.bfloat16),
+               ("group 16", 128, 8, 128, torch.bfloat16),
+               ("group 32", 32, 1, 128, torch.bfloat16)]
+# RoPE: (case, b, s, heads, D), q and k of the same heads
+ROPE_CASES = [("438m decode", 8, 1, 12, 128), ("phi3 decode", 8, 1, 32, 96),
+              ("438m prefill", 8, 128, 12, 128),
+              ("phi3 prefill", 8, 128, 32, 96),
+              ("438m train", 4, 1536, 12, 128),
+              ("phi3 train", 4, 1536, 32, 96)]
+
+
+def paged_times(cs, da):
+    """{case: ms} of paged decode at PAGED_CASES on ``e2_pool``."""
+    out = {}
+    for i, (case, heads, kvh, hd, dtype) in enumerate(PAGED_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(60 + i)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+        q, kp, vp, tab, ln, _, per_seq = cs.e2_pool(randn, heads, kvh, hd)
+        out[case] = cs.graph_ms(lambda: da.paged_attention(
+            q, kp, vp, tab, ln, pages_per_seq=per_seq))
+    return out
+
+
+def rope_times(cs, fo, rope_tables):
+    """{dtype: {direction: {case: ms}}} of RoPE at ROPE_CASES."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        out[tag] = {"forward": {}, "inverse": {}}
+        gen = torch.Generator(device="cuda").manual_seed(70)
+        for case, b, s, h, d in ROPE_CASES:
+            cos, sin = rope_tables(d, 4096, 10000.0, "cuda")
+            q = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+            if s == 1:  # per-slot decode depths
+                pos = torch.randint(0, 183, (b, 1), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+            else:
+                pos = torch.arange(s, device="cuda", dtype=torch.int32
+                                   ).expand(b, s).contiguous()
+            for inverse in (False, True):
+                out[tag]["inverse" if inverse else "forward"][case] = (
+                    cs.graph_ms(lambda: fo.fused_rope_at(q, k, cos, sin, pos,
+                                                         inverse),
+                                calls=20 if s <= 128 else 10))
+            del q, k
+    return out
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=ROOT)
-    ap.add_argument("--only", choices=("megakernel",))
+    ap.add_argument("--only", choices=("megakernel", "paged", "rope"))
     ap.add_argument("--lengths", choices=("chip_smoke", "serving"),
                     default="chip_smoke")
     args = ap.parse_args()
@@ -62,8 +127,11 @@ def main():
     spec.loader.exec_module(cs)
     sys.path.insert(0, str(args.root.resolve()))
     from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
     from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -73,8 +141,15 @@ def main():
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
-    out = {"root": str(args.root), "card": smi, "lengths": args.lengths,
-           "fused_decode_layer": {}}
+    out = {"root": str(args.root), "card": smi, "lengths": args.lengths}
+    if args.only in (None, "paged"):
+        out["paged_attention"] = paged_times(cs, da)
+    if args.only in (None, "rope"):
+        out["fused_rope"] = rope_times(cs, fo, _rope_tables)
+    if args.only in ("paged", "rope"):
+        print(json.dumps(out), flush=True)
+        return 0
+    out["fused_decode_layer"] = {}
     for i, (case, widths, dtype, _) in enumerate(cs.MK_CASES):
         mgen = seed(40 + i, "cuda")
 

@@ -2,7 +2,9 @@
 """Where the PyTorch port's serving time goes, on one GPU, fused and
 unfused.
 
-    python3 tools/torch_serving_profile.py [--model llama-438m|phi3]
+    python3 tools/torch_serving_profile.py
+        [--model llama-438m|phi3|mistral-large] [--arms unfused,fused]
+        [--root DIR]
 
 Runs chip_smoke.py's serving workload (``serving_workload``: the 438M
 LLaMA in bf16, random weights from a seed; 8 slots, max_len 512, page 128,
@@ -18,11 +20,20 @@ device's idle share of the profiled run, device time grouped into the
 port's kernels, GEMMs and the rest, and kernel launches per decode step.
 ``--model phi3`` runs chip_smoke.py's phi3-serve model instead (32 layers
 at Phi-3-mini's widths, ``CFG_PHI3``), whose fused arm takes the decode
-megakernel at head dim 96.
+megakernel at head dim 96; ``--model mistral-large`` its
+mistral-large-serve model (``CFG_MISTRAL_LARGE``, 96 heads of 128 on 8 kv
+heads, cut to ``MISTRAL_LARGE_LAYERS`` = 4 of 88 layers), which decodes
+unfused in both arms (the probe declines hidden 12288), so it runs the
+unfused arm alone unless ``--arms`` says otherwise. ``--arms`` picks the
+arms (comma-separated). ``--root DIR`` imports ``paddle_tpu_torch`` from
+DIR (a parent tree unpacked under a directory that .gitignore lists),
+with this checkout's chip_smoke.py driving it, so that two trees can be
+profiled in one call.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import sys
 import time
@@ -30,9 +41,9 @@ from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
 
-OURS = {"rms_norm_fwd_kernel": "rms_norm", "rope_kernel": "fused_rope",
+OURS = {"rms_norm_fwd": "rms_norm", "rope_kernel": "fused_rope",
         "flash_fwd_kernel": "flash_attention",
         "paged_decode": "paged_attention",
         "decode_layer_": "fused_decode_layer"}
@@ -57,11 +68,9 @@ def group_of(name):
     return "other"
 
 
-def profile_arm(model, fused):
-    from chip_smoke import SERVE_NEW_TOKENS, SERVE_SEGMENT, serving_workload
-
-    eng, prompts = serving_workload(model, decode_megakernel=int(fused))
-    run = dict(max_new_tokens=SERVE_NEW_TOKENS, segment=SERVE_SEGMENT)
+def profile_arm(cs, model, fused):
+    eng, prompts = cs.serving_workload(model, decode_megakernel=int(fused))
+    run = dict(max_new_tokens=cs.SERVE_NEW_TOKENS, segment=cs.SERVE_SEGMENT)
     torch.cuda.synchronize()
     _, stats = eng.run(prompts, **run)
     torch.cuda.synchronize()
@@ -84,8 +93,8 @@ def profile_arm(model, fused):
             if g != "memcpy/memset":
                 launches += e.count
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    steps = stats["segments"] * SERVE_SEGMENT
-    psteps = pstats["segments"] * SERVE_SEGMENT
+    steps = stats["segments"] * cs.SERVE_SEGMENT
+    psteps = pstats["segments"] * cs.SERVE_SEGMENT
     return {
         "megakernel": stats["megakernel"],
         "tokens_per_sec": stats["tokens_per_sec"], "wall_s": stats["wall_s"],
@@ -109,24 +118,38 @@ def profile_arm(model, fused):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("llama-438m", "phi3"),
+    parser.add_argument("--model", choices=("llama-438m", "phi3",
+                                            "mistral-large"),
                         default="llama-438m")
+    parser.add_argument("--arms", default=None,
+                        help="comma-separated, of unfused and fused")
+    parser.add_argument("--root", type=Path, default=ROOT)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import CFG_438M, CFG_PHI3, smi_line
+    # this checkout's workload, the package of the tree at --root
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    sys.path.insert(0, str(args.root.resolve()))
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    cfg = CFG_PHI3 if args.model == "phi3" else CFG_438M
+    cfg = {"llama-438m": cs.CFG_438M, "phi3": cs.CFG_PHI3,
+           "mistral-large": {**cs.CFG_MISTRAL_LARGE,
+                             "num_hidden_layers": cs.MISTRAL_LARGE_LAYERS},
+           }[args.model]
+    arms = (args.arms.split(",") if args.arms else
+            ["unfused"] if args.model == "mistral-large"
+            else ["unfused", "fused"])
     model = LlamaForCausalLM(LlamaConfig(**cfg), dtype=torch.bfloat16,
                              generator=seed(0, "cuda"))
-    arms = {"unfused": profile_arm(model, False),
-            "fused": profile_arm(model, True)}
+    out = {arm: profile_arm(cs, model, arm == "fused") for arm in arms}
     print(json.dumps({"card": torch.cuda.get_device_name(0),
-                      "nvidia_smi": smi_line(), "model": args.model,
-                      "arms": arms}), flush=True)
+                      "nvidia_smi": cs.smi_line(), "model": args.model,
+                      "root": str(args.root), "arms": out}), flush=True)
     return 0
 
 
