@@ -12,7 +12,10 @@ so that a fault surfaces in the phase that caused it:
             bf16: the serving kernels at the serving path's shapes (the
             decode megakernel at the engine's pool layout, plus a GQA
             case; the RMSNorm forward with weight, weight and bias, bias
-            alone and neither, also at widths 100 and 4096; RoPE both
+            alone and neither, also at widths 100 and 4096, and the wide
+            kernel (a block a row) at Mistral-Large-2's hidden 12288 on a
+            decode step's 8 rows and a prefill's 1024 (also with its
+            inputs out of L2); RoPE both
             ways on the prefill's q, k (8, 128, 12, 128) and a decode
             step's (8, 1, 12, 128), the decode step timed apart), the training
             path's backward kernels and the forward kernels at the
@@ -164,14 +167,17 @@ so that a fault surfaces in the phase that caused it:
             flash forward at group 12 in the prefills; all 24 requests
             finished, tokens/s, launches per decode step, peak memory;
             gated first on a 1-layer model's logits against f32 on the
-            CPU within MODEL_REL_L2.
+            CPU within MODEL_REL_L2; every forward (a decode step's, and
+            a prefill's: one flash launch a layer) launches the RMSNorm
+            kernel once a norm, 2 a layer and the final one.
 17. f32-kernel  the f32 instantiations of the four serving kernels (the
             JAX model's default dtype) against their f32 plain versions
             within 1e-4 + 1e-4 |plain| (lse too), TF32 off, each timed
             beside its bound (bytes, or flops at the f32 FMA rate of 67
             TFLOP/s; the flash forward, in 3xTF32, three TF32 products a
             flop at 495 TFLOP/s), the plain version and a library call:
-            RMSNorm at (8, 1536) and (1024, 1536), RoPE on (8, 128, 12,
+            RMSNorm at (8, 1536) and (1024, 1536) and the wide kernel at
+            (8, 3072) and (8, 12288), RoPE on (8, 128, 12,
             128) both ways and at decode positions (the decode step's (8,
             1, 12, 128) timed apart), the flash forward at
             e2's prefill (8, 128, 12, 128) causal, at (4, 1536, 12, 128), at
@@ -222,7 +228,8 @@ so that a fault surfaces in the phase that caused it:
             the varlen phase's for the three [seg] rows, the Phi-3
             paths' for the eight [d=96] / [h=3072] rows (phi3-serve's
             unfused arm) and fused_decode_layer[d=96] (its fused arm),
-            mistral-large-serve's for paged_attention[g=12], f32-serve's
+            mistral-large-serve's for paged_attention[g=12] and
+            rms_norm[h=12288] (the wide kernel), f32-serve's
             unfused f32 arm for the four [f32] serving rows and its fused
             arm for fused_decode_layer[f32], and f32-train's for the four
             [f32] backward rows; before it, the whole script's time.
@@ -496,6 +503,35 @@ def kernel_phase(peaks):
                                 f"rms_norm({n}, {d})")
         emit("kernel", name="rms_norm", case="width", shape=[n, d],
              max_abs_err=err)
+    # the wide kernel (a block a row) at Mistral-Large-2's hidden 12288:
+    # mistral-large-serve's decode step (8 rows) and a prefill's 1024,
+    # the latter also with its inputs out of L2
+    wide = CFG_MISTRAL_LARGE["hidden_size"]
+    ww = (1.0 + 0.1 * randn(wide, dtype=torch.float32)).to(bf16)
+    for n in (8, 1024):
+        x = randn(n, wide)
+        err = rms_norm_variants(rn, x, ww, 0.1 * randn(wide),
+                                f"rms_norm({n}, {wide})")
+        bms, by = bound_ms(2 * n * wide * 2 + wide * 2 + n * 4, 4 * n * wide,
+                           peaks)
+        rec = dict(
+            case="mistral-large", shape=[n, wide], max_abs_err=err,
+            ms=graph_ms(lambda: rn.rms_norm_rows(x, ww, epsilon=1e-5)),
+            plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, ww, epsilon=1e-5)),
+            library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
+                x, (wide,), ww, 1e-5)),
+            bound_ms=bms, bound_by=by)
+        if n > 8:
+            rec.update(
+                cold_ms=cold_ms(lambda xx: rn.rms_norm_rows(xx, ww,
+                                                            epsilon=1e-5),
+                                (x,)),
+                cold_library_ms=cold_ms(
+                    lambda xx: torch.nn.functional.rms_norm(xx, (wide,), ww,
+                                                            1e-5), (x,)))
+        emit("kernel", name="rms_norm", **rec)
+        if n == 8:  # mistral-large-serve's decode step
+            results["rms_norm[h=12288]"] = rec
     torch.cuda.synchronize()
 
     # RoPE on the prefill's q/k (g = 8, bucket 128) at arange positions,
@@ -2719,10 +2755,24 @@ def mistral_large_serve_phase(name, smi):
     rec = llama_serve_phase("mistral-large-serve", cfg, 1, (50, 51),
                             name, smi, ((1, False),))["unfused"]
     counts, steps = rec["launches"], rec["decode_steps"]
-    if counts.get("paged_attention", 0) != MISTRAL_LARGE_LAYERS * steps:
+    layers = MISTRAL_LARGE_LAYERS
+    if counts.get("paged_attention", 0) != layers * steps:
         raise PhaseFailed(f"mistral-large-serve: paged_attention launched "
                           f"{counts.get('paged_attention', 0)} times, want "
-                          f"{MISTRAL_LARGE_LAYERS} x {steps} decode steps")
+                          f"{layers} x {steps} decode steps")
+    # every forward, a decode step's or a prefill's (one flash launch a
+    # layer), launches the wide RMSNorm once a norm: 2 a layer and the
+    # final one
+    prefills, rest = divmod(counts.get("flash_attention", 0), layers)
+    norms = (2 * layers + 1) * (steps + prefills)
+    if rest or counts.get("rms_norm", 0) != norms:
+        raise PhaseFailed(f"mistral-large-serve: rms_norm launched "
+                          f"{counts.get('rms_norm', 0)} times, want "
+                          f"{2 * layers + 1} norms x ({steps} decode steps + "
+                          f"{prefills} prefills); flash_attention "
+                          f"{counts.get('flash_attention', 0)}")
+    emit("mistral-large-serve", rms_norm_per_decode_step=(
+        counts["rms_norm"] / (steps + prefills)), prefills=prefills)
     return counts
 
 
@@ -2859,6 +2909,28 @@ def f32_kernel_phase(peaks):
         emit("f32-kernel", name="rms_norm[f32]", **rec)
         if n == 8:
             results["rms_norm[f32]"] = rec
+    # the wide kernel in f32 (past 2048): a decode step's rows at Phi-3's
+    # and Mistral-Large-2's hidden (on no f32 path yet)
+    for d in (CFG_PHI3["hidden_size"], CFG_MISTRAL_LARGE["hidden_size"]):
+        x, wd, bd = randn(8, d), 1.0 + 0.1 * randn(d), 0.1 * randn(d)
+        err = 0.0
+        for wt, bt in ((wd, None), (wd, bd), (None, bd), (None, None)):
+            y, r = rn.rms_norm_rows(x, wt, bt, epsilon=1e-5)
+            py, pr = rn.rms_norm_plain(x, wt, bt, epsilon=1e-5)
+            err = max(err, f32_compare(f"rms_norm[f32](8, {d})", y, py))
+            if (r - pr).abs().max().item() > 1e-5 * pr.abs().max().item():
+                raise PhaseFailed(f"rms_norm[f32](8, {d}): per-row r "
+                                  "disagrees")
+        bms, by = bound_ms(2 * 8 * d * 4 + d * 4 + 8 * 4, 4 * 8 * d, peaks,
+                           flop_rate=peaks[2])
+        emit("f32-kernel", name="rms_norm[f32]", case="wide", shape=[8, d],
+             max_abs_err=err,
+             ms=graph_ms(lambda: rn.rms_norm_rows(x, wd, epsilon=1e-5)),
+             plain_ms=graph_ms(lambda: rn.rms_norm_plain(x, wd,
+                                                         epsilon=1e-5)),
+             library_ms=graph_ms(lambda: torch.nn.functional.rms_norm(
+                 x, (d,), wd, 1e-5)),
+             bound_ms=bms, bound_by=by)
 
     cos, sin = _rope_tables(hd, CFG_438M["max_position_embeddings"], 10000.0,
                             "cuda")
@@ -3310,6 +3382,10 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
     ("paged_attention[g=12]", "paddle_tpu_torch/csrc/decode_attention.cu",
      "paddle_tpu/ops/pallas/decode_attention.py:58", "mistral-large-serve",
      "paged_attention"),
+    # the RMSNorm forward past a warp's row: the wide kernel at hidden 12288
+    ("rms_norm[h=12288]", "paddle_tpu_torch/csrc/rms_norm_wide.cu",
+     "paddle_tpu/ops/pallas/rms_norm.py:59", "mistral-large-serve",
+     "rms_norm"),
     ("fused_decode_layer[f32]",
      "paddle_tpu_torch/csrc/decode_megakernel.cuh",
      "paddle_tpu/ops/pallas/decode_megakernel.py:189", "f32-serve-fused"),

@@ -21,17 +21,28 @@
 //   reduction, so that one memory latency stands before the output.
 // - A null weight scales by 1 and a null bias adds nothing, in the same
 //   pass (a branch uniform over the launch).
-// - Rows wider than 16 vectors a lane (D > 4096), a D that is not a
-//   multiple of 8, or a pointer that is not 16-byte aligned take a second
-//   kernel of the same shape that strides over the row one element a lane
-//   and reads it twice (the second time from L1).
+// - Rows wider than 16 vectors a lane (D > 4096) take the wide kernel
+//   (rms_norm_wide.cu): a block a row, up to D = 16384.
+// - A D that is not a multiple of 8, a pointer that is not 16-byte
+//   aligned, or D > 16384 take a kernel of the vector kernel's shape
+//   that strides over the row one element a lane and reads it twice (the
+//   second time from L1).
 // - float32 (the Pallas kernel is generic in its dtype, :59-66, and the JAX
 //   model's default is f32): x, weight, bias and y all f32 take a twin of
 //   the vector kernel (the bf16 one keeps its code, and so its SASS) and
-//   the strided kernel's f32 instantiation. A 16-byte vector then holds 4
-//   values: 12 vectors a lane at D = 1536, the row in registers up to D =
-//   2048, the strided kernel past it. The bound doubles with the bytes.
+//   the f32 instantiations of the wide and strided kernels. A 16-byte
+//   vector then holds 4 values: 12 vectors a lane at D = 1536, the row in
+//   a warp's registers up to D = 2048, in a block's past it. The bound
+//   doubles with the bytes.
 #include "common.cuh"
+
+// The forward for rows wider than a warp holds: a block a row (defined in
+// rms_norm_wide.cu, a source of its own: compiled beside it, the vector
+// kernel below came out as other SASS). Returns false, having launched
+// nothing, for a row it does not take (D past its width).
+template <typename T>
+bool launch_rms_fwd_wide(const T* x, const T* w, const T* b, T* y, float* r,
+                         int n, int d, float eps, cudaStream_t st);
 
 namespace {
 
@@ -428,10 +439,11 @@ rms_norm_bwd_kernel(const __nv_bfloat16* __restrict__ x,
 // dw[i] (column i of the 2 d) and db[i] (column d + i): the sum over
 // partials p of partial[p][col], in a fixed order: row group k of a block
 // adds partials k, k + 16, ..., then the 16 groups are added in order.
+// Both backwards, T their type.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rms_norm_bwd_sum_kernel(const float* __restrict__ partial, int parts, int d,
-                        __nv_bfloat16* __restrict__ dw,
-                        __nv_bfloat16* __restrict__ db) {
+                        T* __restrict__ dw, T* __restrict__ db) {
   constexpr int kGroups = kThreads / kSumCols;
   __shared__ float red[kGroups][kSumCols];
   const int cl = threadIdx.x % kSumCols, k = threadIdx.x / kSumCols;
@@ -450,47 +462,185 @@ rms_norm_bwd_sum_kernel(const float* __restrict__ partial, int parts, int d,
 #pragma unroll
     for (int i = 0; i < kGroups; ++i) t += red[i][cl];
     if (col < d) {
-      dw[col] = __float2bfloat16(t);
+      dw[col] = ptt::from_float<T>(t);
     } else {
-      db[col - d] = __float2bfloat16(t);
+      db[col - d] = ptt::from_float<T>(t);
     }
   }
 }
 
 // The backward in f32 (x, w, g, dx, dw, db all f32; the Pallas kernel is
-// generic in its dtype, :100-126, and the JAX model trains in f32): a twin
-// of the bf16 backward's first design, the strip kernel above and a
-// reduction of one thread a column over all strips. The same strips of
-// rows, f32 partials and reduction in strip order (deterministic, no
-// atomics).
-// kW = 4 moves 16-byte vectors (D % 4 == 0 and x, w, g, dx 16-byte
-// aligned), each thread owning whole vectors of columns in the strip's
-// sums; kW = 1 one value a thread, any D and alignment. Bound: bytes, now
-// 4 per element each way: at (6144, 1536) x and g in and dx out are
-// 113.2 MB, 33.8 us at 3.35 TB/s, plus the partials.
-template <int kW>
-__device__ __forceinline__ void load_w(const float* p, float (&v)[kW]) {
-  if constexpr (kW == 4) {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    v[0] = f.x;
-    v[1] = f.y;
-    v[2] = f.z;
-    v[3] = f.w;
-  } else {
-    v[0] = *p;
+// generic in its dtype, :100-126, and the JAX model trains in f32): the
+// bf16 vector backward's design with 4 values a 16-byte vector. Bound:
+// bytes, now 4 per element each way: at (6144, 1536) x and g in and dx
+// out are 113.2 MB, 33.8 us at 3.35 TB/s, plus the partials (2 * blocks
+// * D * 4 bytes each way, from L2).
+// - A row holds 4 times the vectors it holds in bf16: 384 at D = 1536, 12
+//   a lane of one warp. x and g alone would then take 96 registers a lane
+//   and the dw/db sums 96 more, so a row is spread over `split` warps of
+//   the block (a group; 2 at D = 1536, so 6 vectors a lane, as the bf16
+//   kernel holds at 1536): the group's warps' mean(g*w*x) parts meet in
+//   shared memory behind a barrier of the group's threads alone (named
+//   barrier 1 + group, two slots alternating by row, as in the strip
+//   kernel), and no other warp waits. On the H100 at (6144, 1536): 2
+//   warps a row 43.7 us, 4 44.2, 8 45.7; at most 128 registers (two
+//   blocks an SM) spilled and took 54.8 (tools/torch_rms_variants.py).
+// - x and g in 16-byte loads, held in registers between the row's sum
+//   and dx: x and g come from memory once. w's vectors in registers.
+// - Each lane sums its columns' dw and db across its group's rows: in
+//   registers up to kBwdF32RegVecs vectors a lane (D = 6144 at 8 warps a
+//   row), past it (D up to MAX_D: 16 vectors a lane, a block a row) in
+//   the lane's own float4s of shared memory, w then read at each use
+//   (from L1).
+// - As many blocks as fit on the card at once, at most `cap` (the
+//   partials' rows), each group walking the rows group, group + all
+//   groups, ...; at the end the block's groups' sums are added in group
+//   order into the block's partial, and rms_norm_bwd_sum_kernel<float>
+//   adds the partials in a fixed order: dw and db the same bits at every
+//   call, no atomics.
+// A D that is not a multiple of 4 or a pointer that is not 16-byte
+// aligned takes the first design: a block walks a strip of rows one row
+// at a time (a block barrier a row), one value a thread, its column sums
+// in shared memory; its partials go to the same sum.
+constexpr int kBwdF32RegVecs = 6;
+constexpr int kBwdF32MaxVecs = 16;
+
+// bytes of a block's dw and db sums: float4s [2][kVecs][kThreads]
+template <int kVecs>
+constexpr size_t kBwdF32Smem = static_cast<size_t>(2) * kVecs * kThreads * 16;
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// a barrier of `threads` threads (whole warps) under id (1-15)
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+template <int kVecs>
+__global__ void __launch_bounds__(kThreads)
+rms_norm_bwd_f32_rows_kernel(const float* __restrict__ x,
+                             const float* __restrict__ w,
+                             const float* __restrict__ r,
+                             const float* __restrict__ g,
+                             float* __restrict__ dx,
+                             float* __restrict__ partial, int n, int d,
+                             int split) {
+  constexpr bool kRegs = kVecs <= kBwdF32RegVecs;
+  // float4 [2][kVecs][kThreads]: dw or db, vector, thread
+  extern __shared__ __align__(16) float4 bwd_f32_sums[];
+  __shared__ float parts[2][kThreads / 32];  // a row's warp sums, by parity
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int groups = kThreads / 32 / split, group = warp / split;
+  const int span = split * 32;  // the group's lanes
+  const int glane = static_cast<int>(threadIdx.x) - group * span;
+  const int nvec = d / 4;  // the lane's vectors: i * span + glane
+  const auto* wv = reinterpret_cast<const float4*>(w);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 ws[kRegs ? kVecs : 1];
+#pragma unroll
+  for (int i = 0; i < (kRegs ? kVecs : 0); ++i) {
+    const int c = i * span + glane;
+    ws[i] = c < nvec ? wv[c] : zero;
+  }
+  auto w_at = [&](int i) {
+    const int c = i * span + glane;
+    return kRegs ? ws[kRegs ? i : 0] : c < nvec ? __ldg(wv + c) : zero;
+  };
+  float4 sw[kRegs ? kVecs : 1], sb[kRegs ? kVecs : 1];
+#pragma unroll
+  for (int i = 0; i < (kRegs ? kVecs : 1); ++i) sw[i] = sb[i] = zero;
+  if (!kRegs) {
+#pragma unroll
+    for (int i = 0; i < 2 * kVecs; ++i) {
+      bwd_f32_sums[i * kThreads + threadIdx.x] = zero;
+    }
+  }
+
+  int parity = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * groups;
+  for (long long row = static_cast<long long>(blockIdx.x) * groups + group;
+       row < n; row += stride, parity ^= 1) {
+    const auto* xr = reinterpret_cast<const float4*>(x + row * d);
+    const auto* gr = reinterpret_cast<const float4*>(g + row * d);
+    float4 xs[kVecs], gs[kVecs];
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int c = i * span + glane;
+      xs[i] = c < nvec ? xr[c] : zero;
+      gs[i] = c < nvec ? gr[c] : zero;
+    }
+    const float rs = r[row];
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const float4 wf = w_at(i);
+      part = fmaf(gs[i].x * wf.x, xs[i].x, part);
+      part = fmaf(gs[i].y * wf.y, xs[i].y, part);
+      part = fmaf(gs[i].z * wf.z, xs[i].z, part);
+      part = fmaf(gs[i].w * wf.w, xs[i].w, part);
+    }
+    float inner = ptt::warp_sum(part);
+    if (split > 1) {  // the group's warp sums, in warp order
+      if (lane == 0) parts[parity][warp] = inner;
+      group_sync(1 + group, span);
+      inner = 0.f;
+      for (int k = 0; k < split; ++k) inner += parts[parity][group * split + k];
+    }
+    const float c2 = rs * rs * (inner / static_cast<float>(d));
+    auto* dxr = reinterpret_cast<float4*>(dx + row * d);
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const int c = i * span + glane;
+      if (c < nvec) {
+        const float4 xf = xs[i], gf = gs[i], wf = w_at(i);
+        dxr[c] = make_float4(rs * fmaf(-xf.x, c2, gf.x * wf.x),
+                             rs * fmaf(-xf.y, c2, gf.y * wf.y),
+                             rs * fmaf(-xf.z, c2, gf.z * wf.z),
+                             rs * fmaf(-xf.w, c2, gf.w * wf.w));
+        const float4 gx = make_float4(gf.x * xf.x * rs, gf.y * xf.y * rs,
+                                      gf.z * xf.z * rs, gf.w * xf.w * rs);
+        if constexpr (kRegs) {
+          add4(sw[i], gx);
+          add4(sb[i], gf);
+        } else {
+          add4(bwd_f32_sums[i * kThreads + threadIdx.x], gx);
+          add4(bwd_f32_sums[(kVecs + i) * kThreads + threadIdx.x], gf);
+        }
+      }
+    }
+  }
+
+  if constexpr (kRegs) {  // the lane's sums into its own slots
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      bwd_f32_sums[i * kThreads + threadIdx.x] = sw[i];
+      bwd_f32_sums[(kVecs + i) * kThreads + threadIdx.x] = sb[i];
+    }
+  }
+  __syncthreads();
+  // the block's partial: each vector's sums over the groups, in group
+  // order; item (a, i, gl) is vector i * span + gl of dw (a = 0) or db
+  float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * d;
+  for (int item = threadIdx.x; item < 2 * kVecs * span; item += kThreads) {
+    const int gl = item % span, i = item / span % kVecs;
+    const int a = item / span / kVecs, c = i * span + gl;
+    if (c >= nvec) continue;
+    const float4* slot = bwd_f32_sums + (a * kVecs + i) * kThreads + gl;
+    float4 t = slot[0];
+    for (int k = 1; k < groups; ++k) add4(t, slot[k * span]);
+    *reinterpret_cast<float4*>(out + a * d + 4 * c) = t;
   }
 }
 
-template <int kW>
-__device__ __forceinline__ void store_w(float* p, const float (&v)[kW]) {
-  if constexpr (kW == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    *p = v[0];
-  }
-}
-
-template <int kW>
+// Any D and alignment (the first design): a block walks a strip of
+// strip_rows rows one row at a time, one value a thread, the strip's
+// column sums in shared memory (each column owned by one thread), a row's
+// mean(g*w*x) a warp-shuffle then shared-memory sum.
 __global__ void __launch_bounds__(kThreads)
 rms_norm_bwd_f32_kernel(const float* __restrict__ x,
                         const float* __restrict__ w,
@@ -504,11 +654,8 @@ rms_norm_bwd_f32_kernel(const float* __restrict__ x,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = blockIdx.x * strip_rows;
   const int rows = min(strip_rows, n - row0);
-  const int nv = d / kW;  // vectors a row, each owned by one thread
-  const float zero[kW] = {};
-  for (int i = threadIdx.x; i < nv; i += kThreads) {
-    store_w<kW>(bwd_f32_acc + i * kW, zero);
-    store_w<kW>(bwd_f32_acc + d + i * kW, zero);
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    bwd_f32_acc[i] = bwd_f32_acc[d + i] = 0.f;
   }
   for (int rr = 0; rr < rows; ++rr) {
     const size_t row = static_cast<size_t>(row0 + rr);
@@ -516,13 +663,8 @@ rms_norm_bwd_f32_kernel(const float* __restrict__ x,
     const float* gr = g + row * d;
     const float rs = r[row];
     float part = 0.f;
-    for (int i = threadIdx.x; i < nv; i += kThreads) {
-      float xv[kW], gv[kW], wv[kW];
-      load_w<kW>(xr + i * kW, xv);
-      load_w<kW>(gr + i * kW, gv);
-      load_w<kW>(w + i * kW, wv);
-#pragma unroll
-      for (int e = 0; e < kW; ++e) part += gv[e] * wv[e] * xv[e];
+    for (int i = threadIdx.x; i < d; i += kThreads) {
+      part += gr[i] * w[i] * xr[i];
     }
     part = ptt::warp_sum(part);
     // two slots, alternating by row, as in rms_norm_bwd_kernel
@@ -534,64 +676,49 @@ rms_norm_bwd_f32_kernel(const float* __restrict__ x,
     for (int i = 0; i < kThreads / 32; ++i) inner += slot[i];
     inner /= static_cast<float>(d);
     float* dxr = dx + row * d;
-    for (int i = threadIdx.x; i < nv; i += kThreads) {
-      float xv[kW], gv[kW], wv[kW], o[kW], sw[kW], sb[kW];
-      load_w<kW>(xr + i * kW, xv);
-      load_w<kW>(gr + i * kW, gv);
-      load_w<kW>(w + i * kW, wv);
-      load_w<kW>(bwd_f32_acc + i * kW, sw);
-      load_w<kW>(bwd_f32_acc + d + i * kW, sb);
-#pragma unroll
-      for (int e = 0; e < kW; ++e) {
-        o[e] = rs * (gv[e] * wv[e] - xv[e] * (rs * rs) * inner);
-        sw[e] += gv[e] * xv[e] * rs;
-        sb[e] += gv[e];
-      }
-      store_w<kW>(dxr + i * kW, o);
-      store_w<kW>(bwd_f32_acc + i * kW, sw);
-      store_w<kW>(bwd_f32_acc + d + i * kW, sb);
+    for (int i = threadIdx.x; i < d; i += kThreads) {
+      const float xv = xr[i], gv = gr[i];
+      dxr[i] = rs * (gv * w[i] - xv * (rs * rs) * inner);
+      bwd_f32_acc[i] += gv * xv * rs;
+      bwd_f32_acc[d + i] += gv;
     }
   }
-  // each thread writes the vectors it owns: no barrier needed
+  // each thread writes the columns it owns: no barrier needed
   float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * d;
-  for (int i = threadIdx.x; i < nv; i += kThreads) {
-    float sw[kW], sb[kW];
-    load_w<kW>(bwd_f32_acc + i * kW, sw);
-    load_w<kW>(bwd_f32_acc + d + i * kW, sb);
-    store_w<kW>(out + i * kW, sw);
-    store_w<kW>(out + d + i * kW, sb);
+  for (int i = threadIdx.x; i < d; i += kThreads) {
+    out[i] = bwd_f32_acc[i];
+    out[d + i] = bwd_f32_acc[d + i];
   }
 }
 
-// dw, db in f32 from the f32 kernel's partials, in strip order.
-__global__ void __launch_bounds__(kThreads)
-rms_norm_bwd_reduce_f32_kernel(const float* __restrict__ partial, int strips,
-                               int d, float* __restrict__ dw,
-                               float* __restrict__ db) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= d) return;
-  float sw = 0.f, sb = 0.f;
-  for (int s = 0; s < strips; ++s) {
-    const float* p = partial + static_cast<size_t>(s) * 2 * d;
-    sw += p[i];
-    sb += p[d + i];
-  }
-  dw[i] = sw;
-  db[i] = sb;
-}
-
-template <int kW>
-int launch_rms_bwd_f32(const float* x, const float* w, const float* r,
-                       const float* g, float* dx, float* partial, int n,
-                       int d, int strip_rows, int strips, cudaStream_t st) {
-  const size_t smem = 2 * static_cast<size_t>(d) * sizeof(float);
+// The f32 vector backward: `split` warps a row, as many blocks as fit on
+// the card at once, at most one a group of rows and at most `cap`;
+// `parts` gets the blocks launched.
+template <int kVecs>
+cudaError_t launch_rms_bwd_f32_rows(const float* x, const float* w,
+                                    const float* r, const float* g, float* dx,
+                                    float* partial, int n, int d, int split,
+                                    int sms, int cap, int& parts,
+                                    cudaStream_t st) {
+  constexpr size_t kSmem = kBwdF32Smem<kVecs>;
   cudaError_t err = cudaFuncSetAttribute(
-      rms_norm_bwd_f32_kernel<kW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rms_norm_bwd_f32_kernel<kW><<<strips, kThreads, smem, st>>>(
-      x, w, r, g, dx, partial, n, d, strip_rows);
-  return static_cast<int>(cudaGetLastError());
+      rms_norm_bwd_f32_rows_kernel<kVecs>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmem));
+  if (err != cudaSuccess) return err;
+  static int per_sm = 0;  // asked once, as in launch_rms_bwd_rows
+  if (per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rms_norm_bwd_f32_rows_kernel<kVecs>, kThreads, kSmem);
+    if (err != cudaSuccess) return err;
+  }
+  const int groups = kThreads / 32 / split;
+  const int rows = (n + groups - 1) / groups;
+  parts = sms * per_sm < rows ? sms * per_sm : rows;
+  parts = parts < cap ? parts : cap;
+  parts = parts > 1 ? parts : 1;
+  rms_norm_bwd_f32_rows_kernel<kVecs><<<parts, kThreads, kSmem, st>>>(
+      x, w, r, g, dx, partial, n, d, split);
+  return cudaGetLastError();
 }
 
 // The vector backward: as many blocks as fit on the card at once, at most
@@ -659,6 +786,10 @@ int launch_rms_fwd(const void* x, const void* w, const void* b, void* y,
     rms_norm_fwd_f32_kernel<V><<<blocks, threads, 0, st>>>(xp, wp, bp,   \
                                                            yp, rp, n, d, \
                                                            eps);         \
+  }
+  if (d % kPer == 0 && addr % 16 == 0 && vecs > kMaxVecs &&
+      launch_rms_fwd_wide<T>(xp, wp, bp, yp, rp, n, d, eps, st)) {
+    return static_cast<int>(cudaGetLastError());
   }
   if (d % kPer != 0 || addr % 16 != 0 || vecs > kMaxVecs) {
     rms_norm_fwd_strided_kernel<T><<<blocks, threads, 0, st>>>(
@@ -760,21 +891,24 @@ PTT_EXPORT int ptt_rms_norm_bwd(const void* x, const void* w, const void* r,
   }
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  rms_norm_bwd_sum_kernel<<<(2 * d + kSumCols - 1) / kSumCols, kThreads, 0,
-                            st>>>(pp, parts, d,
-                                  static_cast<__nv_bfloat16*>(dw),
-                                  static_cast<__nv_bfloat16*>(db));
+  rms_norm_bwd_sum_kernel<__nv_bfloat16>
+      <<<(2 * d + kSumCols - 1) / kSumCols, kThreads, 0, st>>>(
+          pp, parts, d, static_cast<__nv_bfloat16*>(dw),
+          static_cast<__nv_bfloat16*>(db));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same with x, w, g, dx, dw and db all f32 (any D up to the shared
-// memory's 2 * D floats, any alignment).
+// The same with x, w, g, dx, dw and db all f32; partial: (cap, 2, d) f32
+// scratch with cap >= ceil(n / strip_rows). The vector kernel (D a
+// multiple of 4 up to 16 vectors a thread of a block, 16-byte aligned)
+// takes at most cap blocks; the strip kernel (any D up to the shared
+// memory's 2 * D floats, any alignment) strips of strip_rows.
 PTT_EXPORT int ptt_rms_norm_bwd_f32(const void* x, const void* w,
                                     const void* r, const void* g, void* dx,
                                     void* dw, void* db, void* partial, int n,
-                                    int d, int strip_rows, void* stream) {
+                                    int d, int strip_rows, int cap,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int strips = (n + strip_rows - 1) / strip_rows;
   const auto* xp = static_cast<const float*>(x);
   const auto* wp = static_cast<const float*>(w);
   const auto* rp = static_cast<const float*>(r);
@@ -784,16 +918,51 @@ PTT_EXPORT int ptt_rms_norm_bwd_f32(const void* x, const void* w,
   const uintptr_t addr =
       reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
       reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dx);
-  const int err =
-      d % 4 == 0 && addr % 16 == 0
-          ? launch_rms_bwd_f32<4>(xp, wp, rp, gp, dxp, pp, n, d, strip_rows,
-                                  strips, st)
-          : launch_rms_bwd_f32<1>(xp, wp, rp, gp, dxp, pp, n, d, strip_rows,
-                                  strips, st);
-  if (err != 0) return err;
-  rms_norm_bwd_reduce_f32_kernel<<<(d + kThreads - 1) / kThreads, kThreads,
-                                   0, st>>>(pp, strips, d,
-                                            static_cast<float*>(dw),
-                                            static_cast<float*>(db));
+  const int nvec = d / 4;
+  int parts = (n + strip_rows - 1) / strip_rows;
+  cudaError_t err = cudaSuccess;
+  if (d % 4 != 0 || addr % 16 != 0 || nvec > kBwdF32MaxVecs * kThreads) {
+    const size_t smem = 2 * static_cast<size_t>(d) * sizeof(float);
+    err = cudaFuncSetAttribute(rms_norm_bwd_f32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rms_norm_bwd_f32_kernel<<<parts, kThreads, smem, st>>>(
+        xp, wp, rp, gp, dxp, pp, n, d, strip_rows);
+  } else {
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // the fewest warps a row (a power of 2) that hold it at kBwdF32RegVecs
+    // vectors a lane; past the block's 8 warps, 16 vectors a lane
+    int split = 1;
+    while (split < kThreads / 32 && nvec > kBwdF32RegVecs * 32 * split) {
+      split *= 2;
+    }
+    const int vecs = (nvec + 32 * split - 1) / (32 * split);
+#define PTT_RMS_BWD_F32(V)                                                  \
+  launch_rms_bwd_f32_rows<V>(xp, wp, rp, gp, dxp, pp, n, d, split, sms, cap, \
+                             parts, st)
+    if (vecs <= 1) {
+      err = PTT_RMS_BWD_F32(1);
+    } else if (vecs <= 2) {
+      err = PTT_RMS_BWD_F32(2);
+    } else if (vecs <= 4) {
+      err = PTT_RMS_BWD_F32(4);
+    } else if (vecs <= kBwdF32RegVecs) {  // the 438M model, D = 1536: 2 warps
+      err = PTT_RMS_BWD_F32(kBwdF32RegVecs);
+    } else {
+      err = PTT_RMS_BWD_F32(kBwdF32MaxVecs);
+    }
+#undef PTT_RMS_BWD_F32
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rms_norm_bwd_sum_kernel<float>
+      <<<(2 * d + kSumCols - 1) / kSumCols, kThreads, 0, st>>>(
+          pp, parts, d, static_cast<float*>(dw), static_cast<float*>(db));
   return static_cast<int>(cudaGetLastError());
 }

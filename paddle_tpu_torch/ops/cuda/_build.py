@@ -30,7 +30,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["launch_counts", "library", "function", "check", "expect",
-           "count", "FLOATS", "nvcc", "stream_of", "upcast", "build_seconds", "library_file",
+           "count", "FLOATS", "nvcc", "stream_of", "sm_count", "upcast",
+           "build_seconds", "library_file",
            "CSRC_DIR", "BUILD_DIR"]
 
 _PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -180,6 +181,18 @@ def stream_of(t: torch.Tensor) -> int:
         raise ValueError(f"tensor on {t.device} but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
     return torch.cuda.current_stream().cuda_stream
+
+
+_sms: dict = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of CUDA device ``dev``, asked once."""
+    n = _sms.get(dev.index)
+    if n is None:
+        n = _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
 
 
 def upcast(t: torch.Tensor) -> torch.Tensor:

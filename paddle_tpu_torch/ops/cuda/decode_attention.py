@@ -56,17 +56,8 @@ def split_plan(b, kv_heads, group, max_tokens, sm_count):
     return chunks, per, ts, -(-tiles * TILE // ts)
 
 
-_sms: dict = {}
 # (device, stream) -> [partials, counters, retired buffers]
 _scratch: dict = {}
-
-
-def _sm_count(dev):
-    n = _sms.get(dev.index)
-    if n is None:
-        n = _sms[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    return n
 
 
 def _scratch_for(q, n_part, n_count):
@@ -149,7 +140,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths,
     walk = cols if pages_per_seq is None else min(pages_per_seq, cols)
     max_tokens = walk * page
     chunks, per, ts, nsplit = split_plan(b, kvh, h // kvh, max_tokens,
-                                         _sm_count(q.device))
+                                         _build.sm_count(q.device))
     # a split's record: acc (per, d rounded up to 4), m (per), l (per),
     # rounded up to 4 floats
     rec = per * (-(-d // 4) * 4) + -(-2 * per // 4) * 4

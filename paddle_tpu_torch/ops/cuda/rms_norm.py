@@ -22,11 +22,13 @@ __all__ = ["rms_norm", "rms_norm_rows", "rms_norm_plain", "rms_norm_bwd",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The backward's blocks each write f32 column sums to a partial of their
-# own: the f32 kernel's blocks walk strips of STRIP_ROWS rows; the bf16
-# vector kernel takes at most one block per BF16_PART_ROWS rows (its
-# strided kernel strips of that many)
+# own: the bf16 vector kernel takes at most one block per BF16_PART_ROWS
+# rows (its strided kernel strips of that many); the f32 strip kernel's
+# blocks walk strips of STRIP_ROWS rows, and the f32 vector kernel takes
+# as many blocks as fit on the card, at most F32_PARTS_PER_SM an SM
 STRIP_ROWS = 16
 BF16_PART_ROWS = 8
+F32_PARTS_PER_SM = 2
 MAX_D = 16384  # the strip kernels keep a strip's 2 * D column sums in smem
 
 
@@ -114,8 +116,9 @@ def rms_norm_bwd(x, weight, r, g):
     """``(dx, dw, db)`` as :func:`rms_norm_bwd_plain`. A CPU tensor takes
     the plain version; a CUDA tensor launches the backward kernel (x, w
     and g all bf16 or all f32, f32 r, all contiguous, D <= 16384; f32 in
-    any alignment) or raises. An f32 launch counts as
-    ``rms_norm_bwd[f32]``."""
+    any alignment) or raises; its dw and db are the blocks' partial sums
+    added in a fixed order, the same bits at every call. An f32 launch
+    counts as ``rms_norm_bwd[f32]``."""
     if x.device.type == "cpu":
         return rms_norm_bwd_plain(x, weight, r, g)
     name = "rms_norm_bwd"
@@ -131,16 +134,22 @@ def rms_norm_bwd(x, weight, r, g):
                          f"{tuple(g.shape)}; D at most {MAX_D}")
     dx = torch.empty_like(x)
     dw, db = torch.empty_like(weight), torch.empty_like(weight)
-    f32 = "_f32" if x.dtype == torch.float32 else ""
-    rows = STRIP_ROWS if f32 else BF16_PART_ROWS
-    partial = torch.empty((-(-n // rows), 2, d), dtype=torch.float32,
-                          device=x.device)
-    fn = _build.function("ptt_rms_norm_bwd" + f32,
-                         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
-    _build.check(fn(x.data_ptr(), weight.data_ptr(), r.data_ptr(),
-                    g.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                    partial.data_ptr(), n, d, rows,
-                    _build.stream_of(x)), name)
+    args = [x.data_ptr(), weight.data_ptr(), r.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), db.data_ptr()]
+    if x.dtype == torch.float32:
+        parts = max(-(-n // STRIP_ROWS),
+                    min(n, F32_PARTS_PER_SM * _build.sm_count(x.device)))
+        partial = torch.empty((parts, 2, d), dtype=torch.float32,
+                              device=x.device)
+        fn = _build.function("ptt_rms_norm_bwd_f32",
+                             [_P] * 8 + [_I, _I, _I, _I, _P])
+        args += [partial.data_ptr(), n, d, STRIP_ROWS, parts]
+    else:
+        partial = torch.empty((-(-n // BF16_PART_ROWS), 2, d),
+                              dtype=torch.float32, device=x.device)
+        fn = _build.function("ptt_rms_norm_bwd", [_P] * 8 + [_I, _I, _I, _P])
+        args += [partial.data_ptr(), n, d, BF16_PART_ROWS]
+    _build.check(fn(*args, _build.stream_of(x)), name)
     _build.count(name, x.dtype)
     return dx, dw, db
 

@@ -50,21 +50,32 @@ def _close(got, want):
                                atol=ATOL)
 
 
+# the wide kernel's widths (past 4096 up to 16384) at a decode step's
+# rows, a ragged count and a prefill's; 16392 is past its limit
+RMS_WIDE = [(n, d) for d in (4104, 8192, 12288, 16384)
+            for n in (1, 8, 37, 1024)] + [(3, 16392)]
+
+
 @pytest.mark.parametrize("affine", ["weight", "weight+bias", "bias", "none"])
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("n,d", [(1, 64), (3, 1536), (37, 100), (5, 4096),
-                                 (2, 8192)])
+                                 (2, 8192)] + RMS_WIDE)
 def test_rms_norm_kernel(gen, n, d, aligned, affine):
-    """The vector kernel (D a multiple of 8 up to 4096, 16-byte aligned) and
-    the strided one (D = 100, D = 8192, or x one element off alignment),
-    with and without weight and bias."""
+    """The vector kernel (D a multiple of 8 up to 4096, 16-byte aligned),
+    the wide one (D a multiple of 8 past 4096 up to 16384, aligned: a
+    block a row) and the strided one (D = 100, D = 16392, or x one
+    element off alignment), with and without weight and bias; one launch
+    each."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
     x = _randn(gen, n * d + 1)[1:].view(n, d) if not aligned else _randn(
         gen, n, d)
     w = _randn(gen, d) if "weight" in affine else None
     b = _randn(gen, d) if "bias" in affine else None
+    launch_counts.clear()
     y, r = rn.rms_norm_rows(x, w, b, epsilon=1e-5)
+    assert dict(launch_counts) == {"rms_norm": 1}
     py, pr = rn.rms_norm_plain(x, w, b, epsilon=1e-5)
     _close(y, py)
     torch.testing.assert_close(r, pr, rtol=1e-5, atol=0)

@@ -226,10 +226,15 @@ def _launched(name):
 @pytest.mark.parametrize("affine", ["weight", "weight+bias", "bias", "none"])
 @pytest.mark.parametrize("n,d,aligned", [(1, 64, True), (8, 1536, True),
                                          (37, 100, True), (5, 2048, True),
-                                         (3, 3072, True), (3, 1536, False)])
+                                         (3, 3072, True), (3, 1536, False)]
+                         + [(n, d, aligned) for d in (2052, 3072, 12288)
+                            for n in (1, 8, 37, 1024)
+                            for aligned in (True, False)]
+                         + [(2, 16388, True)])
 def test_f32_rms_norm_kernel(gen, n, d, aligned, affine):
-    """The vector kernel (D a multiple of 4 up to 2048, aligned) and the
-    strided one (D = 100, D = 3072, x off 16-byte alignment)."""
+    """The vector kernel (D a multiple of 4 up to 2048, aligned), the wide
+    one (D a multiple of 4 past 2048 up to 16384, aligned: a block a row)
+    and the strided one (D = 100, D = 16388, x off 16-byte alignment)."""
     from paddle_tpu_torch.ops.cuda import launch_counts
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 

@@ -172,15 +172,23 @@ def _close(got, want):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
+RMS_BWD_CASES = [(1, 64, True), (8, 1536, True), (6144, 1536, True),
+                 (37, 1000, False), (4, 16384, True)]
+# the vector kernel's splits (a warp a row at D = 4, 2 warps at 1536, 4
+# at 3072, a block a row with its sums in shared memory at 16384) at one
+# row, rows off a group, a prefill's, the training step's and one more
+RMS_BWD_CASES += [(n, d, True) for d in (4, 1536, 3072, 16384)
+                  for n in (1, 7, 8, 1024, 6144, 6145)
+                  if (n, d, True) not in RMS_BWD_CASES]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,aligned", [(1, 64, True), (8, 1536, True),
-                                         (6144, 1536, True),
-                                         (37, 1000, False),
-                                         (4, 16384, True)])
+@pytest.mark.parametrize("n,d,aligned", RMS_BWD_CASES)
 def test_f32_rms_norm_bwd_kernel(gen, n, d, aligned):
     """dx, dw and db: the vector kernel (D a multiple of 4, aligned; D up
     to 16384) and the one-value kernel (x, g and dx off 16-byte
-    alignment)."""
+    alignment); dw and db the same bits at a second call and at a replay
+    of the call captured in a CUDA graph."""
     from paddle_tpu_torch.ops.cuda import launch_counts
     from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
@@ -196,6 +204,17 @@ def test_f32_rms_norm_bwd_kernel(gen, n, d, aligned):
     assert dict(launch_counts) == {"rms_norm_bwd[f32]": 1}
     for a, want in zip(got, rn.rms_norm_bwd_plain(x, w, r, g)):
         _close(a, want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = rn.rms_norm_bwd(x, w, r, g)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            replayed = rn.rms_norm_bwd(x, w, r, g)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(got[1:], again[1:], replayed[1:]):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def _segment_ids(kind, b, sq, sk):

@@ -43,6 +43,35 @@ CFG = dict(vocab_size=128, hidden_size=128, intermediate_size=256,
 GRAD_TOL = dict(rtol=1e-4, atol=1e-7)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_pallas_jitted():
+    """JAX's Pallas flash, RMSNorm and RoPE functions each wrapped once in
+    ``jax.jit`` for this module's tests: its eager autograd otherwise
+    lowers an interpret-mode Pallas call anew at every call. The flash
+    custom_vjp is rebuilt from JAX's own forward rule and ``_bwd``, as
+    tests/test_torch_f32_train.py does; the functions computed are the JAX
+    package's own."""
+    import functools
+
+    import jax
+
+    from paddle_tpu.ops.pallas import flash_attention as jfa
+    from paddle_tpu.ops.pallas import fused_ops as jfo
+    from paddle_tpu.ops.pallas import rms_norm as jrn
+
+    @functools.partial(jax.custom_vjp, nondiff_argnums=(5, 6))
+    def flash(q, k, v, q_seg, k_seg, causal, scale):
+        return jfa._flash_fwd_rule(q, k, v, q_seg, k_seg, causal, scale)[0]
+
+    flash.defvjp(jfa._flash_fwd_rule, jfa._bwd)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jfa, "_flash_bhsd", jax.jit(flash, static_argnums=(5, 6)))
+        mp.setattr(jrn, "rms_norm", jax.jit(jrn.rms_norm,
+                                            static_argnums=(3, 4)))
+        mp.setattr(jfo, "_rope_one", jax.jit(jfo._rope_one))
+        yield
+
+
 def _pair(**over):
     paddle.seed(0)
     jm = JaxLlamaForCausalLM(JaxLlamaConfig(**CFG, **over))

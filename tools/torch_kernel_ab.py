@@ -4,7 +4,7 @@ forward and backward and the bf16 RMSNorm backward of one tree of the
 port, so that two trees can be compared in one call.
 
     python3 tools/torch_kernel_ab.py [--root DIR]
-        [--only megakernel|paged|rope] [--lengths chip_smoke|serving]
+        [--only megakernel|paged|rope|rms] [--lengths chip_smoke|serving]
 
 Imports ``paddle_tpu_torch`` from DIR (default: this checkout), builds its
 kernel library, and times each case with this checkout's chip_smoke.py
@@ -31,9 +31,15 @@ on 2 kv heads, 128 heads on 8 and 32 on 1. RoPE (``fused_rope_at``, both
 directions, bf16 and f32) on q and k at ``ROPE_CASES``: the decode step
 (8, 1, H, D) at per-slot positions, the prefill bucket (8, 128, H, D) and
 the training step (4, 1536, H, D) at arange positions, for the 438M's
-12 heads of 128 and Phi-3's 32 of 96. ``--only`` times one of these
-three groups alone. Prints one JSON object with the card's name and power
-limit. To compare a parent with a change, unpack the parent under a
+12 heads of 128 and Phi-3's 32 of 96. RMSNorm (``--only rms``, also
+part of the full run) at ``RMS_FWD_CASES``: the forward
+(``rms_norm_rows``, weight, no bias) beside ``F.rms_norm`` on the same
+inputs, warm and, at prefill and training rows, cold (``cold_ms``:
+inputs and outputs out of L2); the f32 backward (``rms_norm_bwd``) at
+``RMS_F32_BWD_ROWS`` beside ``autograd.grad`` through ``F.rms_norm`` in
+f32, and the bf16 backward at ``RMS_WIDTHS``, each backward's two
+launches also timed apart. ``--only`` times one of these four groups
+alone. Prints one JSON object with the card's name and power limit. To compare a parent with a change, unpack the parent under a
 directory that .gitignore lists and run parent, change, change, parent in
 one call.
 """
@@ -53,6 +59,16 @@ FLASH_CASES = [("training shape", 4, 1536, 12, 12, 128),
                ("phi3 prefill bucket", 8, 128, 32, 32, 96),
                ("qwen3-next full attention", 2, 2048, 16, 2, 256)]
 RMS_WIDTHS, RMS_ROWS = (1536, 3072), 6144
+# the RMSNorm forward: (rows, D, dtype); Mistral-Large-2's hidden 12288 at
+# the decode step and a prefill, Phi-3's 3072 and 12288 in f32, and the
+# vector kernel's widths (the 438M's 1536, Phi-3's 3072)
+RMS_FWD_CASES = [(8, 12288, torch.bfloat16), (1024, 12288, torch.bfloat16),
+                 (8, 3072, torch.float32), (8, 12288, torch.float32),
+                 (8, 1536, torch.bfloat16), (1024, 1536, torch.bfloat16),
+                 (6144, 1536, torch.bfloat16), (8, 3072, torch.bfloat16),
+                 (8, 1536, torch.float32), (1024, 1536, torch.float32)]
+# the f32 backward at the 438M's width: f32-train's rows and a smaller step
+RMS_F32_BWD_ROWS, RMS_F32_BWD_WIDTH = (6144, 1024), 1536
 # paged decode: (case, heads, kv heads, D, dtype)
 PAGED_CASES = [("e2 d128", 12, 12, 128, torch.bfloat16),
                ("phi3 d96", 32, 32, 96, torch.bfloat16),
@@ -110,10 +126,65 @@ def rope_times(cs, fo, rope_tables):
     return out
 
 
+def rms_times(cs, rn):
+    """{"rms_norm": {case: {...}}, "rms_norm_bwd[f32]": ...,
+    "rms_norm_bwd": ...} of RMSNorm at RMS_FWD_CASES, RMS_F32_BWD_ROWS
+    and RMS_WIDTHS (ms a call, warm L2; ``cold_ms`` where the rows are
+    many; the library call beside each)."""
+    fnn = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(80)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    out = {"rms_norm": {}, "rms_norm_bwd[f32]": {}, "rms_norm_bwd": {}}
+    for n, d, dtype in RMS_FWD_CASES:
+        x = randn(n, d, dtype=dtype)
+        w = (1.0 + 0.1 * randn(d)).to(dtype)
+        rec = dict(
+            ms=cs.graph_ms(lambda: rn.rms_norm_rows(x, w, epsilon=1e-5)),
+            library_ms=cs.graph_ms(lambda: fnn.rms_norm(x, (d,), w, 1e-5)))
+        if n >= 1024:
+            rec.update(
+                cold_ms=cs.cold_ms(lambda xx: rn.rms_norm_rows(
+                    xx, w, epsilon=1e-5), (x,)),
+                cold_library_ms=cs.cold_ms(lambda xx: fnn.rms_norm(
+                    xx, (d,), w, 1e-5), (x,)))
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        out["rms_norm"][f"({n}, {d}) {tag}"] = rec
+        del x
+    d = RMS_F32_BWD_WIDTH
+    w = 1.0 + 0.1 * randn(d)
+    for n in RMS_F32_BWD_ROWS:
+        x, g = randn(n, d), randn(n, d)
+        _, r = rn.rms_norm_rows(x, w, epsilon=1e-6)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            xl, wl = x.detach().requires_grad_(), w.detach().requires_grad_()
+            yl = fnn.rms_norm(xl, (d,), wl, 1e-6)
+        out["rms_norm_bwd[f32]"][f"({n}, {d})"] = dict(
+            ms=cs.graph_ms(lambda: rn.rms_norm_bwd(x, w, r, g), calls=10),
+            library_ms=cs.graph_ms(lambda: torch.autograd.grad(
+                yl, (xl, wl), g, retain_graph=True), calls=10, stream=side),
+            launches_ms=cs.launch_split(lambda: rn.rms_norm_bwd(x, w, r, g)))
+        del x, g, xl, wl, yl
+    for hidden in RMS_WIDTHS:
+        x = randn(RMS_ROWS, hidden, dtype=torch.bfloat16)
+        g = randn(RMS_ROWS, hidden, dtype=torch.bfloat16)
+        w = (1.0 + 0.1 * randn(hidden)).bfloat16()
+        _, r = rn.rms_norm_rows(x, w, epsilon=1e-6)
+        out["rms_norm_bwd"][f"({RMS_ROWS}, {hidden})"] = dict(
+            ms=cs.graph_ms(lambda: rn.rms_norm_bwd(x, w, r, g), calls=10),
+            launches_ms=cs.launch_split(lambda: rn.rms_norm_bwd(x, w, r,
+                                                                g)))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=ROOT)
-    ap.add_argument("--only", choices=("megakernel", "paged", "rope"))
+    ap.add_argument("--only", choices=("megakernel", "paged", "rope", "rms"))
     ap.add_argument("--lengths", choices=("chip_smoke", "serving"),
                     default="chip_smoke")
     args = ap.parse_args()
@@ -146,7 +217,9 @@ def main():
         out["paged_attention"] = paged_times(cs, da)
     if args.only in (None, "rope"):
         out["fused_rope"] = rope_times(cs, fo, _rope_tables)
-    if args.only in ("paged", "rope"):
+    if args.only in (None, "rms"):
+        out.update(rms_times(cs, rn))
+    if args.only in ("paged", "rope", "rms"):
         print(json.dumps(out), flush=True)
         return 0
     out["fused_decode_layer"] = {}
@@ -172,7 +245,7 @@ def main():
         return 0
     out.update({"flash_attention[f32]": {},
                 "flash_attention_bwd_dkdv[f32]": {},
-                "flash_attention_bwd_dq[f32]": {}, "rms_norm_bwd": {}})
+                "flash_attention_bwd_dq[f32]": {}})
     for case, b, s, h, kvh, d in FLASH_CASES:
         q, k, v = randn(b, s, h, d), randn(b, s, kvh, d), randn(b, s, kvh, d)
         out["flash_attention[f32]"][case] = cs.graph_ms(
@@ -191,15 +264,6 @@ def main():
                                               causal), calls=3, replays=3)
         del q, do, k, v, o, lse, delta
         torch.cuda.empty_cache()
-    for hidden in RMS_WIDTHS:
-        x = randn(RMS_ROWS, hidden).bfloat16()
-        g = randn(RMS_ROWS, hidden).bfloat16()
-        w = (1.0 + 0.1 * randn(hidden)).bfloat16()
-        _, r = rn.rms_norm_rows(x, w, epsilon=1e-6)
-        out["rms_norm_bwd"][f"({RMS_ROWS}, {hidden})"] = dict(
-            ms=cs.graph_ms(lambda: rn.rms_norm_bwd(x, w, r, g), calls=10),
-            launches_ms=cs.launch_split(lambda: rn.rms_norm_bwd(x, w, r,
-                                                                g)))
     print(json.dumps(out), flush=True)
     return 0
 

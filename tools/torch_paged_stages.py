@@ -174,7 +174,7 @@ def main():
                    plan=dict(zip(("chunks", "per", "ts", "nsplit"),
                                  da.split_plan(q.shape[0], kvh, heads // kvh,
                                                per_seq * kp.shape[1],
-                                               da._sm_count(q.device)))),
+                                               da._build.sm_count(q.device)))),
                    span_us=med(r["span"] for r in runs),
                    blocks=runs[0]["blocks"],
                    work_blocks=runs[0]["work_blocks"],
