@@ -103,6 +103,41 @@ so that a fault surfaces in the phase that caused it:
             forward kernels, the fused arm the megakernel 12 times per
             decode step and paged decode never. Both arms' tokens/s and
             how far their greedy streams agree are printed, not gated.
+7a. kv-e9   bench.py section (e9) and the admission path on the 438M:
+            (a) the gate: a 2-layer model at the 438M's widths behind an
+            engine, a 300-token prompt in chunks of 128 at bases 0 and
+            128 and a padded final chunk at 256, then a prompt sharing its
+            first 200 tokens resumed at base 200 after a copy-on-write
+            page copy; each dispatch's logits against a cache-free f32
+            CPU forward within MODEL_REL_L2 (bf16) and F32_MODEL_REL_L2
+            (f32, TF32 off). (b) e9's dynamic pool: 48 prompts of 6, 10,
+            18 or 40 tokens from np.random.RandomState(31), 16 new each,
+            max_len 512, page 128, buckets (16, 64), segments of 4, on 4
+            slots owning 16 pages statically and on 16 slots sharing them;
+            gated: every request ok, peak concurrency at least 2x the
+            static arm's (bench's kv_admit_gain), every page back in the
+            pool or the prefix cache, pools finite. (c) e9's prefix sweep:
+            24 prompts of a 384-token system prompt and 12 tokens of their
+            own, 4 slots, max_len 1024, a seeding request, then the batch
+            timed with the cache off (chunked prefill) and on (resumes);
+            gated as bench: hit rate > 0, tokens saved >= 23 x 384,
+            speedup >= 1. (d) 16 long, shared and short prompts
+            (kv_long_traffic) with 128 new tokens on 8 slots of 1536 tokens
+            over 32 pages, segments of 32, fused: every request ok at full
+            length; preemptions, copy-on-write copies, prefix tokens saved
+            and chunk dispatches all > 0; the RMSNorm, RoPE, flash and
+            megakernel launched, paged decode not; the same traffic
+            unfused (paged decode launched, the megakernel not, the same
+            counters and dispatches); every stream of both arms equal to
+            a roomy fused engine's without the prefix cache up to where
+            they part, and there both picks within 2 x MODEL_REL_L2 x the
+            logits' std of a cache-free forward's best (a bf16 tie); then the wall ms of a chunk, a resume, a prefill and a page
+            copy at the 438M, and the chunk's gathered dense-mask
+            attention beside the flash forward on the same keys. (e) RoPE
+            over a chunk at per-row positions to 1535, paged decode at
+            lengths to 1536 and the megakernel at depths to 1535 (12 table
+            columns and a scratch column), each against its plain version
+            and timed.
 8. grad     a 2-layer model at the 438M widths, bf16 on the card against
             f32 on the CPU, batch 1 x seq 256 through
             LlamaPretrainingCriterion: the loss and every parameter's
@@ -231,8 +266,11 @@ so that a fault surfaces in the phase that caused it:
             mistral-large-serve's for paged_attention[g=12] and
             rms_norm[h=12288] (the wide kernel), f32-serve's
             unfused f32 arm for the four [f32] serving rows and its fused
-            arm for fused_decode_layer[f32], and f32-train's for the four
-            [f32] backward rows; before it, the whole script's time.
+            arm for fused_decode_layer[f32], f32-train's for the four
+            [f32] backward rows, and kv-e9's long-prompt run for
+            fused_rope[pos=1535] and fused_decode_layer[len=1535] (its
+            unfused arm's for paged_attention[len=1536]); before it,
+            the whole script's time.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
@@ -654,14 +692,15 @@ def h_mid_gate(name, got, want, x, o):
 
 
 def megakernel_setup(cfg, gen, randn, dtype=torch.bfloat16,
-                     lengths=MK_LENGTHS):
+                     lengths=MK_LENGTHS, per_seq=4):
     """The inputs of the decode megakernel at the e2 decode shape, in a
     layer at ``cfg``'s widths in ``dtype``: 8 rows over the engine's pool
     layout (max_len 512, page 128: 32 real pages and the dump page; tables
     of 4 visible columns and a trailing scratch column, tails on the dump
-    page), pre-append depths ``lengths``. x is layer 0's input, an embedding row (N(0,
-    0.02)); weights N(0, 0.02); norm scales random powers of two (0.5, 1,
-    2), exact in bf16, so that a scale adds no rounding of its own.
+    page; or ``per_seq`` visible columns), pre-append depths ``lengths``.
+    x is layer 0's input, an embedding row (N(0, 0.02)); weights N(0,
+    0.02); norm scales random powers of two (0.5, 1, 2), exact in bf16,
+    so that a scale adds no rounding of its own.
     Returns (layer, x, k_pages, v_pages, args), args the wrapper's keyword
     arguments but the pools."""
     layer = megakernel_layer(cfg, gen, dtype)
@@ -671,7 +710,7 @@ def megakernel_setup(cfg, gen, randn, dtype=torch.bfloat16,
         for ln in (layer.input_layernorm, layer.post_attention_layernorm):
             ln.weight.copy_(2.0 ** torch.randint(
                 -1, 2, ln.weight.shape, generator=gen, device="cuda"))
-    b, page, per_seq = 8, 128, 4
+    b, page = 8, 128
     hidden, heads = lcfg.hidden_size, lcfg.num_attention_heads
     hd, kvh = lcfg.head_dim, lcfg.num_key_value_heads
     n_pages = b * per_seq + 1
@@ -732,7 +771,7 @@ def megakernel_times(mk, x, kp, vp, args, replays=5):
 
 
 def megakernel_case(peaks, cfg, gen, randn, dtype=torch.bfloat16, case=None,
-                    one_rounding=False):
+                    one_rounding=False, lengths=MK_LENGTHS, per_seq=4):
     """The decode megakernel against its plain version at
     ``megakernel_setup``'s inputs. h_mid and both pools (the dump page
     left out) are held against the plain version; y2 against the plain
@@ -746,11 +785,12 @@ def megakernel_case(peaks, cfg, gen, randn, dtype=torch.bfloat16, case=None,
     is set against the rotating time), its plain version and the port's
     own unfused layer half (rms_norm kernel, GEMMs, RoPE kernel, cache
     write, paged decode kernel, o_proj, residual, rms_norm kernel) on the
-    same inputs."""
+    same inputs. ``lengths`` and ``per_seq`` as ``megakernel_setup``'s."""
     from paddle_tpu_torch.models.generation import _make_paged_cache
     from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
 
-    layer, x, kp, vp, args = megakernel_setup(cfg, gen, randn, dtype)
+    layer, x, kp, vp, args = megakernel_setup(cfg, gen, randn, dtype,
+                                              lengths, per_seq)
     attn = layer.self_attn
     f32 = dtype == torch.float32
     b, hidden = x.shape[0], x.shape[2]
@@ -794,7 +834,7 @@ def megakernel_case(peaks, cfg, gen, randn, dtype=torch.bfloat16, case=None,
         uh, uy = unfused()
     size = x.element_size()
     w_bytes = sum(args[k].numel() * size for k in ("wq", "wk", "wv", "wo"))
-    toks = sum(min(n, per_seq * page) for n in MK_LENGTHS)  # pool rows read
+    toks = sum(min(n, per_seq * page) for n in lengths)  # pool rows read
     nbytes = (w_bytes + 2 * hidden * size + 3 * b * hidden * size
               + 2 * (toks + b) * kvh * hd * size + 2 * b * hd * 4
               + tab.numel() * 4 + b * 4)
@@ -808,7 +848,7 @@ def megakernel_case(peaks, cfg, gen, randn, dtype=torch.bfloat16, case=None,
         rec = dict(
             case=f"e2 decode, {case or f'kv heads {kvh}'}",
             dtype=str(dtype), shape=[b, hidden], heads=heads, kv_heads=kvh,
-            head_dim=hd, lengths=MK_LENGTHS, max_abs_err=err,
+            head_dim=hd, lengths=lengths, max_abs_err=err,
             h_mid_gate="f32" if f32 else (
                 "one rounding" if one_rounding else "h_mid_gate"),
             y2_vs_plain_max_abs=float((got[1].float()
@@ -1089,21 +1129,489 @@ def serving_phase(model, name, smi):
     return {"serving": u["launches"], "serving_fused": f["launches"]}
 
 
+# ----------------------------------------------------------------- kv-e9
+# bench.py section (e9) on the port (the dynamic page pool and the prefix
+# cache on the 438M), its gate, and the admission path's drills: long
+# prompts through chunked prefill, copy-on-write resumes, preemption
+
+KV_E9_LEN, KV_E9_PAGE, KV_E9_REQ, KV_E9_NEW = 512, 128, 48, 16
+KV_E9_POOL = 4 * KV_E9_LEN // KV_E9_PAGE  # the static layout holds 4 slots
+# (d): 8 slots of 1536 tokens on a pool of a third of 8 x 12 pages
+KV_LONG = dict(max_slots=8, max_len=1536, page_size=128,
+               prompt_buckets=(32, 128))
+KV_LONG_POOL, KV_LONG_NEW, KV_LONG_SEGMENT = 32, 128, 32
+# (e): pre-append depths of the megakernel and post-append lengths of
+# paged decode over 12 table columns of 128 (max_len 1536), and the bases
+# of RoPE's per-row positions in a chunk of 128
+LONG_DEPTHS = [1, 639, 700, 767, 768, 1023, 1400, 1535]
+LONG_LENGTHS = [n + 1 for n in LONG_DEPTHS]
+ROPE_LONG_BASES = [0, 128, 256, 640, 700, 1024, 1300, 1408]
+
+
+class LogitsRecorder:
+    """Stands in for the model inside an engine and keeps, on the CPU,
+    the logits of every multi-token forward (prefill, chunk and resume
+    dispatches) with the cache length it ran from."""
+
+    def __init__(self, model):
+        self.model, self.calls = model, []
+
+    def __call__(self, ids, caches=None):
+        base = caches[0].length
+        out = self.model(ids, caches=caches)
+        if ids.shape[1] > 1:
+            base = base if isinstance(base, int) else base.cpu().tolist()
+            self.calls.append((base, out.float().cpu()))
+        return out
+
+
+def kv_gate(seed_, dtype, tol):
+    """The admission path's logits on the card against a cache-free f32
+    forward on the CPU: a 2-layer model at the 438M's widths behind an
+    engine (2 slots, max_len 512, page 128, buckets (32, 128)); row 0, a
+    300-token prompt, in chunks of 128 at bases 0 and 128 and a final
+    padded chunk at 256; row 1, its first 200 tokens and 40 of its own,
+    resumed at base 200 (mid-page) after a copy-on-write copy of page 1.
+    Each dispatch's logits at its true positions within ``tol``
+    relative L2."""
+    from paddle_tpu_torch.models import ContinuousBatchingEngine, LlamaConfig
+
+    cfg = LlamaConfig(**dict(CFG_438M, num_hidden_layers=2))
+    card, cpu = card_and_cpu(cfg, seed_, dtype)
+    rng = np.random.RandomState(5)
+    row0 = rng.randint(0, cfg.vocab_size, (300,)).astype(np.int32)
+    row1 = np.concatenate([row0[:200], rng.randint(0, cfg.vocab_size, (40,))
+                           ]).astype(np.int32)
+    eng = ContinuousBatchingEngine(card, max_slots=2, max_len=512,
+                                   page_size=128, prompt_buckets=(32, 128))
+    rec = LogitsRecorder(card)
+    eng.model = rec
+    eng.start(segment=1)
+    reqs = [eng.submit(row0, 2)]
+    eng.step()
+    reqs.append(eng.submit(row1, 2))
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    bases = [b for b, _ in rec.calls]
+    d = eng.stats()["dispatches"]
+    if (bases != [[0], [128], [256], [200]] or d["cow_pages"] != 1
+            or d["chunk"] != 2 or d["final_chunk"] != 1 or d["resume"] != 1
+            or [r.status for r in reqs] != ["ok", "ok"]):
+        raise PhaseFailed(f"kv-e9 gate: dispatches {d} at bases {bases}, "
+                          f"statuses {[r.status for r in reqs]}")
+    got0 = torch.cat([rec.calls[0][1][0], rec.calls[1][1][0],
+                      rec.calls[2][1][0, :44]])
+    got1 = rec.calls[3][1][0, :40]
+    with torch.no_grad():
+        want0 = cpu(torch.tensor(row0[None].astype(np.int64)))[0]
+        want1 = cpu(torch.tensor(row1[None].astype(np.int64)))[0, 200:]
+    rel = [rel_l2(got0, want0), rel_l2(got1, want1)]
+    finite = bool(torch.isfinite(got0).all() and torch.isfinite(got1).all())
+    del card, cpu, eng, rec
+    torch.cuda.empty_cache()
+    if not finite or max(rel) > tol:
+        raise PhaseFailed(f"kv-e9 gate ({dtype}): finite {finite}, rel L2 "
+                          f"{rel} (tolerance {tol})")
+    return dict(dtype=str(dtype), rel_l2_chunks=rel[0],
+                rel_l2_resume=rel[1], tolerance=tol, bases=bases)
+
+
+def kv_dynamic_arm(model, prompts, max_slots, pool=None):
+    """bench.py's ``_kv_run``: e9's 48 requests on an engine of
+    ``max_slots`` slots (max_len 512, page 128, buckets (16, 64), seed 0,
+    segments of 4) over ``pool`` pages; the peak of concurrent requests,
+    the fragmentation at it, and the gates' inputs."""
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, max_slots=max_slots,
+                                   max_len=KV_E9_LEN, page_size=KV_E9_PAGE,
+                                   prompt_buckets=(16, 64), seed=0,
+                                   pool_pages=pool)
+    eng.start(segment=4)
+    reqs = [eng.submit(p, KV_E9_NEW, rid=i) for i, p in enumerate(prompts)]
+    peak, frag = 0, 0.0
+    t0 = time.perf_counter()
+    while eng.has_work():
+        eng.step()
+        active = len(eng.active_requests())
+        if active >= peak:
+            peak, frag = active, eng.kv_stats()["fragmentation_pct"]
+    wall = time.perf_counter() - t0
+    kv = eng.kv_stats()
+    ok = sum(r.status == "ok" and len(r.output()) == KV_E9_NEW for r in reqs)
+    finite = all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
+    return dict(max_slots=max_slots, pool_pages=kv["pages_total"],
+                peak_admitted=peak, fragmentation_pct=frag, wall_s=wall,
+                requests_ok=ok, pages_free=kv["pages_free"],
+                prefix_cached_pages=kv["prefix_cached_pages"],
+                kv_finite=finite)
+
+
+def kv_prefix_arm(model, prompts, cache_on):
+    """bench.py's ``_px_run``: 4 slots, max_len 1024, page 128, buckets
+    (16, 64); a seeding request, then the timed batch of ``prompts`` (2
+    new tokens each). Returns (seconds, kv_stats(), dispatches)."""
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(model, max_slots=4, max_len=2 * KV_E9_LEN,
+                                   page_size=KV_E9_PAGE,
+                                   prompt_buckets=(16, 64), seed=0,
+                                   prefix_cache=cache_on)
+    eng.start(segment=4)
+    eng.submit(prompts[0], 2, rid=1000)
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    d0 = eng.stats()["dispatches"]
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, 2, rid=i) for i, p in enumerate(prompts)]
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if any(r.status != "ok" for r in reqs):
+        raise PhaseFailed(f"kv-e9 prefix sweep (cache {cache_on}): "
+                          f"{[r.status for r in reqs]}")
+    d = {k: v - d0[k] for k, v in eng.stats()["dispatches"].items()}
+    return secs, eng.kv_stats(), d
+
+
+def kv_long_traffic(vocab):
+    """(d)'s 16 prompts in submission order, from RandomState(41): 8 share
+    a 700-token head (a 640-token prefix, five pages, and 60 more tokens)
+    and end in 70-127 tokens of their own, so that a later one diverges
+    mid-page inside a cached page; 4 prompts of their own of 1400 and
+    700-1400 tokens; 4 of 8-119 tokens. The first is a sharing one."""
+    rng = np.random.RandomState(41)
+    head = rng.randint(0, vocab, (700,))
+    share = [np.concatenate([head, rng.randint(0, vocab, (int(u),))])
+             for u in rng.randint(70, 128, 8)]
+    own = [rng.randint(0, vocab, (int(n),))
+           for n in [1400] + list(rng.randint(700, 1401, 3))]
+    short = [rng.randint(0, vocab, (int(n),)) for n in rng.randint(8, 120, 4)]
+    rest = (share[1:], own, short)
+    order = [share[0]] + [group[i] for i in range(len(share) - 1)
+                          for group in rest if i < len(group)]
+    return [p.astype(np.int32) for p in order]
+
+
+def kv_long_run(model, prompts, decode_megakernel, prefix_cache, pool):
+    """(d)'s run: the first prompt admitted and one step taken, then the
+    rest submitted, stepped to the end; launch counts and the process
+    counters zeroed just before and read just after. Returns (engine,
+    requests, launches, counter deltas, seconds)."""
+    from paddle_tpu_torch.core import counters
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    eng = ContinuousBatchingEngine(model, pool_pages=pool,
+                                   prefix_cache=prefix_cache,
+                                   decode_megakernel=decode_megakernel,
+                                   **KV_LONG)
+    before = counters()
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    eng.start(segment=KV_LONG_SEGMENT)
+    reqs = [eng.submit(prompts[0], KV_LONG_NEW, rid=0)]
+    eng.step()
+    reqs += [eng.submit(p, KV_LONG_NEW, rid=i + 1)
+             for i, p in enumerate(prompts[1:])]
+    while eng.has_work():
+        eng.step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    after = counters()
+    delta = {k: after.get(k, 0) - before.get(k, 0)
+             for k in ("serving.kv_preempted", "serving.kv_pool_exhausted",
+                       "serving.kv_cow_copies")}
+    return eng, reqs, launches, delta, secs
+
+
+def kv_partings(model, prompts, reqs, ref_reqs):
+    """Where each greedy stream of ``reqs`` first parts from the
+    reference's, a cache-free forward over the prompt and the common
+    prefix scores both picks by their shortfall from the row's best
+    logit. A parting is a bf16 tie when both shortfalls are within 2 x
+    MODEL_REL_L2 of the logits' std: two routes, each held to
+    MODEL_REL_L2 of the logits, may stray that far apart; a wrong page
+    or base makes a pick no better than a random token, ~3 std short."""
+    parts, short, tols, past = [], [], [], []
+    with torch.no_grad():
+        for i, (p, r, w) in enumerate(zip(prompts, reqs, ref_reqs)):
+            got, want = r.output(), w.output()
+            at = next((j for j, (a, b) in enumerate(zip(got, want))
+                       if a != b), None)
+            parts.append(at)
+            if at is None:
+                continue
+            seq = np.concatenate([p, want[:at]]).astype(np.int64)
+            logits = model(torch.tensor(seq[None], device="cuda"))[0, -1]
+            logits = logits.float()
+            best = logits.max()
+            gap = [float(best - logits[int(t[at])]) for t in (got, want)]
+            tol = 2 * MODEL_REL_L2 * float(logits.std())
+            short.append(gap)
+            tols.append(tol)
+            if max(gap) > tol:
+                past.append(i)
+    return dict(streams_agree=sum(a is None for a in parts) / len(parts),
+                first_index_where_streams_part=parts,
+                shortfall_from_best=short, tolerance=tols,
+                past_tolerance=past)
+
+
+def kv_dispatch_times(eng, peaks):
+    """Where an admission's time goes at the 438M, on (d)'s engine after
+    its run (every slot idle, so the writes land on dump and scratch
+    pages): wall ms of a chunk forward of 1 and 8 rows of 128 tokens at
+    base 640, of a resume forward of 1 row (bucket 128) at base 700, and
+    of a copy-on-write copy of one page across the 12 layers; then the
+    chunk's attention alone, the gathered dense-mask composition (q (8,
+    128, 12, 128) over 12 pages) beside the flash forward on the same
+    contiguous keys at the same offset (every row at base 1408, where
+    the two compute the same function)."""
+    from paddle_tpu_torch.models.generation import _make_paged_cache
+    from paddle_tpu_torch.models.llama import cached_attention
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    rng = np.random.RandomState(3)
+    vocab = eng.model.config.vocab_size
+    ids8 = rng.randint(0, vocab, (8, 128))
+    rows8 = np.arange(8)
+    out = {}
+    with torch.no_grad():
+        out["chunk_8x128_ms"] = eager_ms(
+            lambda: eng._forward(ids8, rows8, np.full((8,), 640, np.int32)),
+            calls=5)
+        out["chunk_1x128_ms"] = eager_ms(
+            lambda: eng._forward(ids8[:1], rows8[:1],
+                                 np.full((1,), 640, np.int32)), calls=5)
+        out["resume_1x128_ms"] = eager_ms(
+            lambda: eng._forward(ids8[:1], rows8[:1],
+                                 np.full((1,), 700, np.int32)), calls=5)
+        out["prefill_1x128_ms"] = eager_ms(
+            lambda: eng._forward(ids8[:1], rows8[:1], 0), calls=5)
+        out["cow_copy_1_page_ms"] = eager_ms(
+            lambda: eng._dispatch_cow([(0, 1)]), calls=5)
+        cfg = eng.model.config
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        shape = (8, 128, cfg.num_attention_heads, cfg.head_dim)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        per_seq = eng._cols
+        tables = torch.tensor(np.random.RandomState(4).randint(
+            0, eng._pool_pages, (8, per_seq)), device="cuda")
+        kp, vp = eng._ks[0], eng._vs[0]
+        base = per_seq * eng.page_size - 128
+        lengths = torch.full((8,), base, dtype=torch.int32, device="cuda")
+
+        def composed():
+            cache = _make_paged_cache(kp, vp, tables, eng.page_size, lengths,
+                                      attn_pages=per_seq)
+            return cached_attention(q, k, v, cache, lengths, 128)
+
+        got = composed()
+        k_all = kp[tables.long()].reshape(8, -1, *kp.shape[2:])
+        v_all = vp[tables.long()].reshape(8, -1, *vp.shape[2:])
+        flash = fa.flash_attention_fwd(q, k_all, v_all, causal=True)[0]
+        out.update(
+            composition_ms=graph_ms(composed, calls=5),
+            flash_same_keys_ms=graph_ms(
+                lambda: fa.flash_attention_fwd(q, k_all, v_all,
+                                               causal=True), calls=5),
+            composition_vs_flash_max_abs=float(
+                (got.float() - flash.float()).abs().max()))
+    flops = 4 * 8 * shape[2] * shape[3] * 128 * (base + 64.5)
+    out["composition_bound_ms"] = bound_ms(
+        4 * q.numel() * 2 + 2 * 8 * per_seq * eng.page_size
+        * kp.shape[2] * kp.shape[3] * 2, flops, peaks)[0]
+    return out
+
+
+def kv_long_kernels(peaks):
+    """(e): RoPE at a chunk's (8, 128, 12, 128) with per-row positions
+    from ROPE_LONG_BASES (up to 1535), both directions; paged decode at
+    LONG_LENGTHS (up to 1536) over 12 table columns and a scratch column;
+    the decode megakernel at pre-append depths LONG_DEPTHS (up to 1535)
+    on the same layout; each against its plain version within the bf16
+    gate and timed as the kernel phase times it. Returns the rows of the
+    kernels line."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models.llama import _rope_tables
+    from paddle_tpu_torch.ops.cuda import decode_attention as da
+    from paddle_tpu_torch.ops.cuda import fused_ops as fo
+
+    gen = seed(7, "cuda")
+
+    def randn(*shape, std=1.0, dtype=None):
+        t = torch.randn(shape, generator=gen, device="cuda") * std
+        return t if dtype is None else t.to(dtype)
+
+    bf16 = torch.bfloat16
+    heads, hd = CFG_438M["num_attention_heads"], 128
+    cos, sin = _rope_tables(hd, CFG_438M["max_position_embeddings"],
+                            10000.0, "cuda")
+    q, k = randn(8, 128, heads, hd, dtype=bf16), randn(8, 128, heads, hd,
+                                                       dtype=bf16)
+    pos = (torch.tensor(ROPE_LONG_BASES, dtype=torch.int32,
+                        device="cuda")[:, None]
+           + torch.arange(128, dtype=torch.int32, device="cuda")[None])
+    err = 0.0
+    for inverse in (False, True):
+        for got, want in zip(fo.fused_rope_at(q, k, cos, sin, pos, inverse),
+                             fo.fused_rope_plain(q, k, cos, sin, pos,
+                                                 inverse)):
+            err = max(err, compare("rope(per-row positions)", got, want))
+    # the cos/sin rows of the distinct positions (the bases' rows overlap)
+    nb = (2 * 2 * q.numel() * 2 + pos.numel() * 4
+          + 2 * int(pos.unique().numel()) * hd * 4)
+    bms, by = bound_ms(nb, 6 * q.numel(), peaks)
+    rope = dict(case="chunk at per-row positions", shape=list(q.shape),
+                bases=ROPE_LONG_BASES, max_position=int(pos.max()),
+                max_abs_err=err,
+                ms=graph_ms(lambda: fo.fused_rope_at(q, k, cos, sin, pos)),
+                plain_ms=graph_ms(lambda: fo.fused_rope_plain(q, k, cos, sin,
+                                                              pos)),
+                library_ms=None, bound_ms=bms, bound_by=by)
+    emit("kernel", name="fused_rope", **rope)
+    paged = paged_row(da, peaks, e2_pool(lambda *s: randn(*s, dtype=bf16),
+                                         heads, heads, hd, per_seq=12,
+                                         lens=LONG_LENGTHS))
+    emit("kernel", name="paged_attention", case="depths to 1536", **paged)
+    torch.cuda.synchronize()
+
+    def mk_randn(*shape, std=1.0):
+        return randn(*shape, std=std)
+
+    mk = megakernel_case(peaks, CFG_438M, gen, mk_randn, bf16,
+                         "438M, depths to 1535", one_rounding=True,
+                         lengths=LONG_DEPTHS, per_seq=12)
+    return {"fused_rope[pos=1535]": rope, "paged_attention[len=1536]": paged,
+            "fused_decode_layer[len=1535]": mk}
+
+
+def kv_e9_phase(model, name, smi, peaks):
+    """bench.py (e9) and the admission path on the card: (a) the gate,
+    (b) e9's dynamic pool against the static layout, (c) e9's prefix
+    sweep, (d) long prompts, copy-on-write and preemption on the 438M,
+    with its dispatches timed, (e) the kernels at the new shapes. Returns
+    (rows of the kernels line, launch counts of (d)'s fused run and of its
+    unfused reference)."""
+    t0 = time.monotonic()
+    vocab = model.config.vocab_size
+    # (a)
+    gate = [kv_gate(40, torch.bfloat16, MODEL_REL_L2),
+            kv_gate(40, torch.float32, F32_MODEL_REL_L2)]
+    emit("kv-e9", part="gate", runs=gate)
+    # (b)
+    rng = np.random.RandomState(31)
+    prompts = [rng.randint(0, vocab, (int(rng.choice([6, 10, 18, 40])),))
+               .astype(np.int32) for _ in range(KV_E9_REQ)]
+    per_seq = KV_E9_LEN // KV_E9_PAGE
+    static = kv_dynamic_arm(model, prompts, KV_E9_POOL // per_seq)
+    dynamic = kv_dynamic_arm(model, prompts, 4 * KV_E9_POOL // per_seq,
+                             KV_E9_POOL)
+    gain = dynamic["peak_admitted"] / static["peak_admitted"]
+    emit("kv-e9", part="dynamic pool", static=static, dynamic=dynamic,
+         kv_admit_gain=gain, gate=2.0)
+    for arm in (static, dynamic):
+        if (arm["requests_ok"] != KV_E9_REQ or not arm["kv_finite"]
+                or arm["pages_free"] + arm["prefix_cached_pages"]
+                != arm["pool_pages"]):
+            raise PhaseFailed(f"kv-e9 dynamic pool: {arm}")
+    if gain < 2.0:
+        raise PhaseFailed(f"kv-e9: kv_admit_gain {gain} < 2")
+    # (c)
+    sys_p = rng.randint(0, vocab, (3 * KV_E9_PAGE,)).astype(np.int32)
+    px = [np.concatenate([sys_p, rng.randint(0, vocab, (12,))
+                          .astype(np.int32)])
+          for _ in range(KV_E9_REQ // 2)]
+    cold_s, _, cold_d = kv_prefix_arm(model, px, False)
+    warm_s, px_kv, warm_d = kv_prefix_arm(model, px, True)
+    speedup = cold_s / warm_s
+    emit("kv-e9", part="prefix sweep", cold_s=cold_s, cached_s=warm_s,
+         prefix_prefill_speedup=speedup,
+         prefix_hit_rate=px_kv["prefix_hit_rate"],
+         prefix_tokens_saved=px_kv["prefix_tokens_saved"],
+         cold_dispatches=cold_d, cached_dispatches=warm_d)
+    if (px_kv["prefix_hit_rate"] <= 0 or speedup < 1.0
+            or px_kv["prefix_tokens_saved"] < (len(px) - 1) * len(sys_p)):
+        raise PhaseFailed(f"kv-e9 prefix sweep: speedup {speedup}, {px_kv}")
+    # (d)
+    long_prompts = kv_long_traffic(vocab)
+    eng, reqs, launches, delta, secs = kv_long_run(
+        model, long_prompts, 1, True, KV_LONG_POOL)
+    stats = eng.stats()
+    unf, unf_reqs, unf_launches, unf_delta, unf_secs = kv_long_run(
+        model, long_prompts, 0, True, KV_LONG_POOL)
+    ref, ref_reqs, _, _, ref_secs = kv_long_run(
+        model, long_prompts, 1, False, None)
+    ties = {arm: kv_partings(model, long_prompts, rs, ref_reqs)
+            for arm, rs in (("fused", reqs), ("unfused", unf_reqs))}
+    emit("kv-e9", part="long prompts", prompt_lengths=[p.size for p in
+                                                       long_prompts],
+         pool_pages=KV_LONG_POOL, seconds=secs, counters=delta,
+         dispatches=stats["dispatches"], segments=stats["segments"],
+         kv=stats["kv"], launches=launches,
+         statuses=[r.status for r in reqs],
+         tokens_per_sec=stats["tokens_per_sec"],
+         unfused=dict(seconds=unf_secs, counters=unf_delta,
+                      dispatches=unf.stats()["dispatches"],
+                      launches=unf_launches),
+         reference=dict(pool_pages=ref._pool_pages, prefix_cache=False,
+                        megakernel=True, seconds=ref_secs),
+         partings=ties, card=name, nvidia_smi=smi)
+    full = [r.status == "ok" and len(r.output()) == KV_LONG_NEW
+            for r in reqs + unf_reqs + ref_reqs]
+    d = stats["dispatches"]
+    bad = [k for k in ("rms_norm", "fused_rope", "flash_attention",
+                       "fused_decode_layer") if launches.get(k, 0) <= 0]
+    untied = {arm: t["past_tolerance"] for arm, t in ties.items()
+              if t["past_tolerance"]}
+    if (not all(full) or delta["serving.kv_preempted"] <= 0
+            or d["cow_pages"] <= 0 or d["chunk"] <= 0
+            or stats["kv"]["prefix_tokens_saved"] <= 0 or bad
+            or launches.get("paged_attention", 0)
+            or unf_delta != delta or unf.stats()["dispatches"] != d
+            or unf_launches.get("paged_attention", 0) <= 0
+            or unf_launches.get("fused_decode_layer", 0) or untied
+            or not all(bool(torch.isfinite(t).all())
+                       for t in eng._ks + eng._vs + unf._ks + unf._vs)):
+        raise PhaseFailed(f"kv-e9 long prompts: ok {sum(full)} of "
+                          f"{len(full)}, counters {delta} / unfused "
+                          f"{unf_delta}, dispatches {d}, launches "
+                          f"{launches} / unfused {unf_launches}, streams "
+                          f"parting past a bf16 tie {untied}")
+    emit("kv-e9", part="dispatch times", card=name, nvidia_smi=smi,
+         **kv_dispatch_times(eng, peaks))
+    del eng, unf, ref
+    torch.cuda.empty_cache()
+    # (e)
+    rows = kv_long_kernels(peaks)
+    emit("kv-e9", part="done", seconds=time.monotonic() - t0)
+    return rows, {"kv-e9": launches, "kv-e9-unfused": unf_launches}
+
+
 FLASH_NAMES = ("flash_attention", "flash_attention_bwd_dkdv",
                "flash_attention_bwd_dq")
 
 
-def e2_pool(randn, heads, kvh, hd, seed=0):
+def e2_pool(randn, heads, kvh, hd, seed=0, per_seq=4, lens=None):
     """Paged decode inputs in the serving engine's pool layout (8 slots,
     max_len 512, page 128: 4 columns + 1 scratch column, 32 real pages +
     the dump page), scattered tables with dump-page tails, lengths of
-    np.random.RandomState(seed).randint(9, 184). Returns (q, k_pages,
+    np.random.RandomState(seed).randint(9, 184); or ``per_seq`` columns
+    (max_len 128 * per_seq) at the lengths ``lens``. Returns (q, k_pages,
     v_pages, tables, lengths, lengths as numpy, pages per sequence)."""
-    b, page, per_seq = 8, 128, 4
+    b, page = 8, 128
     n_pages = b * per_seq + 1
     dump = n_pages - 1
     rng = np.random.RandomState(seed)
-    lens = rng.randint(9, 184, b).astype(np.int32)
+    lens = (rng.randint(9, 184, b) if lens is None
+            else np.asarray(lens)).astype(np.int32)
     perm = rng.permutation(b * per_seq)
     tables = np.full((b, per_seq + 1), dump, np.int32)
     used = 0
@@ -3393,6 +3901,19 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
      "paddle_tpu_torch/csrc/decode_megakernel.cuh",
      "paddle_tpu/ops/pallas/decode_megakernel.py:189", "phi3-serve-fused",
      "fused_decode_layer"),
+    # the admission path's new shapes (kv-e9): RoPE over a chunk at
+    # per-row positions, the megakernel at depths to 1535 from the fused
+    # long-prompt run, paged decode at lengths to 1536 from its unfused
+    # reference
+    ("fused_rope[pos=1535]", "paddle_tpu_torch/csrc/rope.cu",
+     "paddle_tpu/ops/pallas/fused_ops.py:47", "kv-e9", "fused_rope"),
+    ("paged_attention[len=1536]", "paddle_tpu_torch/csrc/decode_attention.cu",
+     "paddle_tpu/ops/pallas/decode_attention.py:58", "kv-e9-unfused",
+     "paged_attention"),
+    ("fused_decode_layer[len=1535]",
+     "paddle_tpu_torch/csrc/decode_megakernel.cuh",
+     "paddle_tpu/ops/pallas/decode_megakernel.py:189", "kv-e9",
+     "fused_decode_layer"),
     # the f32 backward kernels and the RoPE adjoint in f32 (f32-train)
     ("rms_norm_bwd[f32]", "paddle_tpu_torch/csrc/rms_norm.cu",
      "paddle_tpu/ops/pallas/rms_norm.py:100", "f32-train"),
@@ -3451,6 +3972,9 @@ def main():
     model = model_phase()
     torch.cuda.synchronize()
     counts = serving_phase(model, name, smi)
+    kv_rows, kv_counts = kv_e9_phase(model, name, smi, peaks)
+    results.update(kv_rows)
+    counts.update(kv_counts)
     counts["varlen"] = varlen_counts
     del model
     torch.cuda.empty_cache()

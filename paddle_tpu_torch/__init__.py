@@ -4,8 +4,9 @@ Hopper (H100).
 The JAX package ``paddle_tpu`` stays the reference; this package imports
 neither it nor JAX. Its slices so far: serving, the LLaMA model
 (``models.llama``) behind a continuous-batching engine over a paged KV
-pool (``models.serving``), whose decode steps run each decoder layer's
-attention half as one fused kernel; training, the model's ``labels=``
+pool (``models.serving``: chunked prefill, a copy-on-write prefix cache,
+preemption, deadlines and abort), whose decode steps run each decoder
+layer's attention half as one fused kernel; training, the model's ``labels=``
 loss and ``LlamaPretrainingCriterion``, ``optimizer.AdamW`` with f32
 master weights, and ``jit.TrainStep``; and the ``incubate`` fused layers
 with BERT (``models.bert``) built from them. Ten hand-written kernels

@@ -1,3 +1,5 @@
 from .place import resolve_device, seed
+from .resilience import Deadline, bump_counter, counters, reset_counters
 
-__all__ = ["resolve_device", "seed"]
+__all__ = ["Deadline", "bump_counter", "counters", "reset_counters",
+           "resolve_device", "seed"]

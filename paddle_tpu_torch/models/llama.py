@@ -132,7 +132,13 @@ def cached_attention(q, k, v, cache, offset, s):
     Decode (s == 1) runs the paged decode-attention kernel over the
     post-update lengths; a prefill at static offset 0 attends among its
     own tokens through causal flash attention. A multi-token write at a
-    nonzero offset (chunked prefill) is not ported yet."""
+    nonzero offset (a chunk of a chunked prefill, or a prefix-cache
+    resume, at per-row bases that may sit mid-page) takes JAX's route
+    (``paddle_tpu/models/llama.py`` :312-330): the first ``attn_pages``
+    table columns gathered into (B, attn_pages * page, KVH, D), a boolean
+    mask of column <= base + i for row i, and the plain composition of
+    ``scaled_dot_product_attention`` (a dense mask declines the flash
+    kernel on both packages)."""
     cache.update(k, v)
     if s == 1:
         clen = cache.length
@@ -145,9 +151,22 @@ def cached_attention(q, k, v, cache, offset, s):
         return out[:, None]
     if isinstance(offset, int) and offset == 0:
         return scaled_dot_product_attention(q, k, v, is_causal=True)
-    raise NotImplementedError(
-        "multi-token cached attention at a nonzero offset (chunked "
-        "prefill) is not ported yet")
+    tables = cache.tables
+    ap = cache.attn_pages
+    if ap is not None and ap < tables.shape[1]:
+        tables = tables[:, :ap]
+    b = q.shape[0]
+    tables = tables.long()
+    k_all = cache.k_pages[tables].reshape(b, -1, *cache.k_pages.shape[2:])
+    v_all = cache.v_pages[tables].reshape(b, -1, *cache.v_pages.shape[2:])
+    cols = torch.arange(k_all.shape[1], device=q.device)
+    steps = torch.arange(s, device=q.device)
+    if isinstance(offset, int):
+        mask = (cols[None, :] <= (steps[:, None] + offset))[None, None]
+    else:  # per-row bases: a (B, 1, s, K) mask
+        rows = offset.long()[:, None] + steps[None, :]
+        mask = cols[None, None, None, :] <= rows[:, None, :, None]
+    return scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask)
 
 
 def _rope_tables(head_dim, max_pos, theta, device):

@@ -8,20 +8,34 @@ retire and readmit between segments. The JAX engine compiles each of these
 as one fixed-shape program; the port runs them eagerly, one forward per
 step, and keeps the same semantics:
 
-* pools ``(n_pages, page_size, KVH, D)`` per layer: ``max_slots * max_len /
-  page_size`` real pages, then scratch pages, the last of them the DUMP
-  page; page-table rows carry trailing scratch columns; row ``max_slots``
-  is the scratch row that padding rows of an admission group write;
-  ``attn_pages`` caps what attention reads;
-* admission is FIFO, bounded by free slots and free pages (a queue head
-  the pool cannot serve defers the whole queue);
-* prefill runs per prompt bucket, admission groups padded to a power-of-two
-  width, and samples each row's first token at its true last position;
+* pools ``(n_pages, page_size, KVH, D)`` per layer: ``pool_pages``
+  allocatable pages (default one full-length sequence per slot), then
+  scratch pages, the last of them the DUMP page; page-table rows carry
+  trailing scratch columns (a padded tail written past ``max_len`` lands
+  there); row ``max_slots`` is the scratch row that padding rows of an
+  admission group write; ``attn_pages`` caps what attention reads;
+* the pool is DYNAMIC (``models/kv_pool.py``): a slot is granted pages for
+  its prompt at admission and grows page by page before each segment;
+  retirement returns them. Admission is FIFO, bounded by free slots and
+  free pages: a queue head the pool cannot serve defers the whole queue
+  (``serving.kv_pool_exhausted``). When decode growth outruns the pool,
+  prefix-cache leaves are evicted, then the youngest slot is PREEMPTED
+  back to the queue's front (``serving.kv_preempted``) with its emitted
+  tokens folded into its prompt, and resumes with the same stream;
+* prompt prefixes are shared through a :class:`.kv_pool.PrefixCache`: a
+  new request maps the cached full pages read-only and prefills only from
+  the first divergent token (a RESUME at a per-row base); a match ending
+  mid-page copies the covering page first (copy-on-write);
+* prompts up to the largest bucket prefill in one padded forward per
+  bucket (admission groups padded to a power-of-two width); longer
+  prompts take CHUNKED PREFILL: full largest-bucket chunks at per-row
+  bases, rows past their chunks on the scratch row, then one padded final
+  chunk that samples the first token at the true last position; a
+  request's deadline is checked between chunks;
 * a decode segment is ``segment`` steps over all ``max_slots`` rows:
   frozen slots re-emit their token and do not advance, a slot deactivates
   at its length budget and at EOS, idle slots sit at length 1 on dump-page
-  rows;
-* pages grow lazily, page by page, before each segment;
+  rows; deadlines retire requests between segments;
 * the fused decode path is decided once, at construction: with
   ``decode_megakernel=1`` (the JAX ``FLAGS_decode_megakernel`` default)
   and a model that passes ``megakernel_model_supported``, every decode
@@ -30,43 +44,69 @@ step, and keeps the same semantics:
   unfused layers. On the CPU the fused path runs the fused plain version.
 
 Sampling draws from per-request streams (:func:`.generation.stream_seed`
-of engine seed, request id and token index), so a request's tokens do not
-depend on how it was batched.
+of engine seed, request id and token index ``token_base + emitted``), so
+a request's tokens do not depend on how it was batched, chunked or
+preempted.
 
-Not ported yet: chunked prefill, the prefix cache with resume and
-copy-on-write, preemption, the one-deep pipeline, deadlines and abort,
-poison bisection, telemetry, AOT warmup, KV page export and import.
+JAX's free-page quarantine (``_mark_dispatch``/``_mark_executed``/
+``_recycle`` :448-473) has no counterpart here: every page write (prefill,
+chunk, copy, decode) runs on the engine's one stream in program order, so
+a page freed on the host is safe to grant again at once.
+
+Not ported yet: the one-deep pipeline (``pipeline=True`` raises), poison
+bisection, telemetry, AOT warmup, KV page export and import, and the
+``trace``/``tenant``/``hold_kv``/``kv_import`` request fields.
 """
 from __future__ import annotations
 
+import logging
 import time
+import zlib
 from collections import deque
 
 import numpy as np
 import torch
 
+from ..core.resilience import Deadline, bump_counter
 from ..ops.cuda.decode_megakernel import (
     megakernel_model_supported,
     megakernel_scope,
 )
 from .generation import _make_paged_cache, _sample_rows, stream_seed
-from .kv_pool import PagePool
+from .kv_pool import PagePool, PrefixCache
 
 __all__ = ["ContinuousBatchingEngine", "Request"]
+
+logger = logging.getLogger("paddle_tpu_torch.serving")
 
 
 class Request:
     """One generation request inside the scheduler. ``status`` goes from
-    ``pending`` to ``ok``; ``tokens`` accumulates the generated ids."""
+    ``pending`` to ``ok``, ``timed_out`` or ``cancelled``; ``tokens``
+    accumulates the generated ids.
 
-    __slots__ = ("rid", "prompt", "max_new_tokens", "tokens", "status")
+    ``token_base`` is the offset of the request's sampling stream: a
+    failover resume submits the original prompt plus the ``k`` tokens
+    already emitted elsewhere with ``token_base=k``, so the first token
+    sampled here is stream index ``k``. ``preempted`` is set when the
+    engine pulled the request off its slot to free pages; its emitted
+    tokens are then part of ``prompt`` (the first ``folded`` of them), and
+    re-admission needs pages for its whole remaining budget."""
 
-    def __init__(self, rid, prompt, max_new_tokens):
+    __slots__ = ("rid", "prompt", "max_new_tokens", "deadline", "tokens",
+                 "status", "token_base", "preempted", "folded")
+
+    def __init__(self, rid, prompt, max_new_tokens, deadline=None,
+                 token_base=0):
         self.rid = rid
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
+        self.deadline = deadline or Deadline.never()
         self.tokens: list[int] = []
         self.status = "pending"
+        self.token_base = int(token_base)
+        self.preempted = False
+        self.folded = 0
 
     def output(self):
         return np.asarray(self.tokens[:self.max_new_tokens], np.int32)
@@ -83,6 +123,15 @@ def _bucket(n, buckets):
     raise ValueError(f"prompt length {n} exceeds largest bucket {buckets[-1]}")
 
 
+def _stream_id(rid) -> int:
+    """The sampling stream of a request id: the id itself when it is an
+    integer, else the CRC32 of its text (as the JAX engine's)."""
+    try:
+        return int(rid) & 0xFFFFFFFFFFFFFFFF
+    except (TypeError, ValueError):
+        return zlib.crc32(str(rid).encode())
+
+
 class ContinuousBatchingEngine:
     """Mixed-length generation over ``max_slots`` concurrent sequences on
     the model's device.
@@ -91,6 +140,13 @@ class ContinuousBatchingEngine:
 
         eng = ContinuousBatchingEngine(model, max_slots=8, max_len=512)
         outs, stats = eng.run(prompts, max_new_tokens=64, segment=32)
+
+    ``pool_pages`` sizes the shared page pool (default: one full-length
+    sequence per slot; fewer than one raises). ``prefix_cache`` shares
+    prompt prefixes copy-on-write. ``pipeline``: None or False is the
+    serial scheduler; True (the one-deep pipeline) is not ported yet and
+    raises. Prompts past the largest bucket take chunked prefill, which
+    needs ``max_len`` to be a multiple of the largest bucket.
 
     ``decode_megakernel``: 0 keeps the unfused decode layers; 1 (auto)
     takes the fused decode kernel when the model passes the probe.
@@ -106,14 +162,29 @@ class ContinuousBatchingEngine:
     def __init__(self, model, max_slots, max_len, page_size=128,
                  do_sample=False, temperature=1.0, top_k=None, top_p=None,
                  eos_token_id=None, prompt_buckets=(16, 32, 64, 128),
-                 seed=0, decode_megakernel=1):
+                 seed=0, pipeline=None, pool_pages=None, prefix_cache=True,
+                 decode_megakernel=1):
+        if pipeline:
+            raise NotImplementedError(
+                "pipeline=True: the one-deep serving pipeline is not ported "
+                "yet (ROADMAP Queue 1 item 2); pass pipeline=None or False "
+                "for the serial scheduler")
         model.eval()
         cfg = model.config
         self.model = model
         self.device = model.device
         self.max_slots = int(max_slots)
         page_size = min(page_size, max_len)
-        max_len = -(-max_len // page_size) * page_size
+        if max_len % page_size:
+            rounded = -(-max_len // page_size) * page_size
+            logger.warning(
+                "ContinuousBatchingEngine: max_len %d rounded up to %d "
+                "(a multiple of page_size %d); kv_stats() reports the "
+                "effective value", max_len, rounded, page_size)
+            self._max_len_rounded_from = int(max_len)
+            max_len = rounded
+        else:
+            self._max_len_rounded_from = None
         self.max_len = int(max_len)
         self.page_size = int(page_size)
         self.do_sample = bool(do_sample)
@@ -126,12 +197,21 @@ class ContinuousBatchingEngine:
         per_seq = self.max_len // self.page_size
         self._cols = per_seq  # attention-visible table columns
         # scratch pages absorb the padding rows of an admission group
-        # (they write at most one bucket of tokens from base 0)
+        # (they write at most one chunk of tokens from base 0)
         chunk_w = self.prompt_buckets[-1]
         scratch_np = max(chunk_w // self.page_size, 1)
-        n_real = self.max_slots * per_seq
+        n_real = (self.max_slots * per_seq if pool_pages is None
+                  else int(pool_pages))
+        if n_real < per_seq:
+            raise ValueError(
+                f"pool_pages {n_real} cannot hold one full-length "
+                f"sequence ({per_seq} pages of {self.page_size} tokens "
+                f"for max_len {self.max_len})")
         self._pool_pages = n_real
         n_pages = n_real + scratch_np
+        # trailing scratch columns: a resume writes a padded bucket at any
+        # base, and a final chunk a padded chunk, so a padding tail may
+        # spill up to chunk_w tokens past max_len onto scratch pages
         total_cols = per_seq + -(-chunk_w // self.page_size)
         self._nl = cfg.num_hidden_layers
         shape = (n_pages, self.page_size, cfg.num_key_value_heads,
@@ -148,6 +228,10 @@ class ContinuousBatchingEngine:
         self._tables_np[self.max_slots] = n_real + np.minimum(
             np.arange(total_cols, dtype=np.int32), scratch_np - 1)
         self._tables_dev = None
+        self._use_prefix = bool(prefix_cache)
+        self._kv_bytes_per_token = int(
+            self._nl * 2 * cfg.num_key_value_heads * cfg.head_dim
+            * self._ks[0].element_size())
         self._megakernel = (int(decode_megakernel) > 0
                             and type(self)._megakernel_ok
                             and megakernel_model_supported(model))
@@ -171,10 +255,16 @@ class ContinuousBatchingEngine:
                 self._tables_np[:self.max_slots], device=self.device)
         return self._tables_dev
 
+    def _recycle(self, pages):
+        # no quarantine: see the module docstring
+        self._pool.recycle(pages)
+
     def _free_slot_pages(self, slot):
+        """Release the slot's grants (a shared page drops one reference;
+        pages the prefix cache holds survive for later hits)."""
         pages, self._slot_pages[slot] = self._slot_pages[slot], []
         if pages:
-            self._pool.recycle(self._pool.decref(pages))
+            self._recycle(self._pool.decref(pages))
             self._set_table_row(slot)
 
     def _caches(self, tables, length):
@@ -196,11 +286,13 @@ class ContinuousBatchingEngine:
 
     def _sample(self, logits, reqs, offset):
         """Token per row of ``logits``; row i belongs to ``reqs[i]`` (None
-        for idle rows) and draws stream index ``len(tokens) + offset``."""
+        for idle rows) and draws stream index ``token_base + len(tokens)
+        + offset``."""
         seeds = None
         if self.do_sample:
             seeds = [0 if r is None else stream_seed(
-                self._seed, r.rid, len(r.tokens) + offset) for r in reqs]
+                self._seed, _stream_id(r.rid),
+                r.token_base + len(r.tokens) + offset) for r in reqs]
         return _sample_rows(logits, seeds, self.temperature, self.top_k,
                             self.top_p, not self.do_sample)
 
@@ -214,27 +306,44 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds slot capacity {self.max_len}")
-        if prompt.size > chunk_w:
-            raise NotImplementedError(
-                f"prompt of {prompt.size} tokens exceeds the largest bucket "
-                f"{chunk_w}: chunked prefill is not ported yet")
-        b = _bucket(prompt.size, self.prompt_buckets)
-        if b > self.max_len:
+        if prompt.size <= chunk_w:
+            b = _bucket(prompt.size, self.prompt_buckets)
+            if b > self.max_len:
+                raise ValueError(
+                    f"prompt bucket {b} (for a {prompt.size}-token prompt) "
+                    f"exceeds slot capacity {self.max_len}; add a smaller "
+                    f"bucket or raise max_len")
+        elif self.max_len % chunk_w:
+            # the final chunk is padded to chunk_w: the write stays inside
+            # the slot's pages when chunk_w divides the capacity
             raise ValueError(
-                f"prompt bucket {b} (for a {prompt.size}-token prompt) "
-                f"exceeds slot capacity {self.max_len}; add a smaller bucket "
-                f"or raise max_len")
+                f"chunked prefill (prompt {prompt.size} > largest bucket "
+                f"{chunk_w}) requires max_len ({self.max_len}) to be a "
+                f"multiple of the largest bucket")
 
-    def start(self, segment=16):
-        """Reset the scheduler for a new session; ``segment`` is the number
-        of decode steps per ``step()``."""
+    def start(self, segment=16, run_deadline=None):
+        """Reset the scheduler for a new session: slots, queue, pool and
+        prefix cache, counters. ``segment`` is the number of decode steps
+        per ``step()``; ``run_deadline`` (a ``Deadline``) bounds the whole
+        session: past it, unfinished requests retire as ``timed_out``."""
         self._segment_len = int(segment)
+        self._run_deadline = run_deadline or Deadline.never()
         self._queue: deque[Request] = deque()
         self._slot_req: list[Request | None] = [None] * self.max_slots
         self._pool = PagePool(self._pool_pages)
+        self._prefix = (PrefixCache(self._pool, self.page_size,
+                                    self._recycle)
+                        if self._use_prefix else None)
         self._slot_pages: list[list] = [[] for _ in range(self.max_slots)]
         self._tables_np[:self.max_slots] = self._dump_page
         self._tables_dev = None
+        self._slot_adm = [0] * self.max_slots  # admission order per slot
+        self._adm_seq = 0
+        self._resume_base: dict[int, int] = {}
+        self._cow_pair: dict[int, tuple] = {}
+        self.admission_blocked = False  # the pool deferred the queue head
+        self._prefix_lookup_tokens = 0
+        self._prefix_hit_tokens = 0
         self._lengths = np.ones((self.max_slots,), np.int32)  # idle: len 1
         self._cur_tok = np.zeros((self.max_slots,), np.int64)
         # final length a slot's last needed emission reaches
@@ -243,12 +352,22 @@ class ContinuousBatchingEngine:
         self._seg_runs = 0
         self._occ_sum = 0.0
         self._occ_n = 0
+        self._counts = {"ok": 0, "timed_out": 0, "failed": 0,
+                        "cancelled": 0}
+        self._dispatches = {"prefill": 0, "resume": 0, "chunk": 0,
+                            "final_chunk": 0, "cow_pages": 0}
         self._auto_rid = 0
         self._t0 = time.monotonic()
         return self
 
-    def submit(self, prompt, max_new_tokens, rid=None):
-        """Enqueue one request; raises if it can never fit a slot."""
+    def submit(self, prompt, max_new_tokens, deadline_s=None, rid=None,
+               token_base=0):
+        """Enqueue one request; raises ``ValueError`` if it can never fit
+        a slot. ``deadline_s`` is a budget in seconds (or a ``Deadline``)
+        from submission, so queue wait counts. ``token_base=k``: ``prompt``
+        is the original prompt plus ``k`` tokens emitted elsewhere and
+        ``max_new_tokens`` the remaining budget; sampling starts at stream
+        index ``k``. Returns the ``Request``."""
         prompt = np.asarray(prompt).astype(np.int32).ravel()
         self._validate(prompt, max_new_tokens)
         if rid is None:
@@ -256,7 +375,10 @@ class ContinuousBatchingEngine:
             self._auto_rid += 1
         elif isinstance(rid, int) and rid >= self._auto_rid:
             self._auto_rid = rid + 1
-        req = Request(rid, prompt, max_new_tokens)
+        deadline = (deadline_s if isinstance(deadline_s, Deadline)
+                    else Deadline(deadline_s))
+        req = Request(rid, prompt, max_new_tokens, deadline,
+                      token_base=token_base)
         self._queue.append(req)
         return req
 
@@ -264,17 +386,50 @@ class ContinuousBatchingEngine:
         return bool(self._queue) or any(
             r is not None for r in self._slot_req)
 
-    def _retire(self, req, finished, slot):
-        self._slot_req[slot] = None
-        self._lengths[slot] = 1  # the slot returns to the idle pool
-        self._free_slot_pages(slot)
-        req.status = "ok"
-        finished.append(req)
+    def free_slots(self) -> int:
+        return sum(r is None for r in self._slot_req)
+
+    def active_requests(self) -> list:
+        return [r for r in self._slot_req if r is not None]
+
+    def queued_requests(self) -> list:
+        return list(self._queue)
+
+    def abort(self, rid, status="cancelled"):
+        """Pull a request out of the queue or its slot; its partial tokens
+        stay on the handle and its pages return. Returns the ``Request``,
+        or None if it is unknown or already finished."""
+        for req in self._queue:
+            if req.rid == rid:
+                self._queue.remove(req)
+                self._retire(req, status)
+                return req
+        for slot, req in enumerate(self._slot_req):
+            if req is not None and req.rid == rid:
+                self._retire(req, status, slot=slot)
+                return req
+        return None
+
+    def _retire(self, req, status, finished=None, slot=None):
+        if req.status != "pending":
+            return
+        if slot is not None:
+            self._slot_req[slot] = None
+            self._lengths[slot] = 1  # the slot returns to the idle pool
+            self._free_slot_pages(slot)
+        req.status = status
+        self._counts[status] = self._counts.get(status, 0) + 1
+        if finished is not None:
+            finished.append(req)
 
     def _finish_admit(self, slot, req, tok, finished):
-        """Post-prefill bookkeeping: seat the request, count its first
-        token, set the slot's length budget, retire at once on EOS or an
-        exhausted budget."""
+        """Post-prefill bookkeeping of the short, chunked and resume
+        paths: seat the request, count its first token, set the slot's
+        length budget, insert the prompt's full pages into the prefix
+        cache, retire at once on EOS or an exhausted budget. A preempted
+        request re-admits here with its emitted tokens in its prompt;
+        ``len(tokens)`` counts them, so the stream index and the budget
+        stay those of the whole request."""
         self._slot_req[slot] = req
         req.tokens.append(int(tok))
         self._useful += 1
@@ -282,10 +437,34 @@ class ContinuousBatchingEngine:
         self._cur_tok[slot] = int(tok)
         self._limits[slot] = (req.prompt.size + req.max_new_tokens
                               - len(req.tokens))
+        if self._prefix is not None:
+            self._prefix.insert(req.prompt, self._slot_pages[slot])
         if len(req.tokens) >= req.max_new_tokens or (
                 self.eos_token_id is not None
                 and req.tokens[-1] == self.eos_token_id):
-            self._retire(req, finished, slot)
+            self._retire(req, "ok", finished, slot=slot)
+
+    def _forward(self, ids, rows, base):
+        """The model over ``ids`` (g, L) writing the KV of row i into the
+        table row ``rows[i]`` from ``base`` (0, or per-row bases)."""
+        dev = self.device
+        tables = torch.tensor(self._tables_np[rows], device=dev)
+        length = (base if isinstance(base, int)
+                  else torch.tensor(base, dtype=torch.int32, device=dev))
+        with megakernel_scope(False):
+            return self.model(torch.tensor(ids, device=dev),
+                              caches=self._caches(tables, length))
+
+    def _sample_admitted(self, logits, group, true_lens, finished):
+        """Sample each admitted row's first token at its true last
+        position and seat it."""
+        dev = self.device
+        n = len(group)
+        last = logits[torch.arange(n, device=dev),
+                      torch.tensor(true_lens[:n] - 1, device=dev)]
+        tok0 = self._sample(last, [req for _, req in group], 0).cpu().numpy()
+        for i, (slot, req) in enumerate(group):
+            self._finish_admit(slot, req, tok0[i], finished)
 
     @torch.no_grad()
     def _dispatch_prefill(self, group, bucket, finished):
@@ -299,17 +478,118 @@ class ContinuousBatchingEngine:
             padded[i, :req.prompt.size] = req.prompt
             true_lens[i] = req.prompt.size
             rows[i] = slot
-        dev = self.device
-        tables = torch.tensor(self._tables_np[rows], device=dev)
-        with megakernel_scope(False):
-            logits = self.model(torch.tensor(padded, device=dev),
-                                caches=self._caches(tables, 0))
-        n = len(group)
-        last = logits[torch.arange(n, device=dev),
-                      torch.tensor(true_lens[:n] - 1, device=dev)]
-        tok0 = self._sample(last, [req for _, req in group], 0).cpu().numpy()
+        self._dispatches["prefill"] += 1
+        logits = self._forward(padded, rows, 0)
+        self._sample_admitted(logits, group, true_lens, finished)
+
+    @torch.no_grad()
+    def _dispatch_resume(self, group, bucket, finished):
+        """Prefix-resume admission: each row's shared prefix
+        (``_resume_base`` tokens, keyed by request identity) is mapped from
+        the cache; only the divergent tail, padded to ``bucket``, is
+        written from that base (which may sit mid-page: the copy-on-write
+        copy runs first) and the first token sampled at the true last
+        position."""
+        pairs = [self._cow_pair[id(req)] for _, req in group
+                 if id(req) in self._cow_pair]
+        if pairs:
+            self._dispatch_cow(pairs)
+        g = self._group_width(len(group))
+        padded = np.zeros((g, bucket), np.int64)
+        bases = np.zeros((g,), np.int32)
+        true_lens = np.ones((g,), np.int64)
+        rows = np.full((g,), self.max_slots, np.int64)
         for i, (slot, req) in enumerate(group):
-            self._finish_admit(slot, req, tok0[i], finished)
+            m = self._resume_base[id(req)]
+            rem = req.prompt.size - m
+            padded[i, :rem] = req.prompt[m:]
+            bases[i] = m
+            true_lens[i] = rem
+            rows[i] = slot
+        self._dispatches["resume"] += 1
+        logits = self._forward(padded, rows, bases)
+        self._sample_admitted(logits, group, true_lens, finished)
+
+    @torch.no_grad()
+    def _dispatch_cow(self, pairs):
+        """Copy-on-write page copies ``(src, dst)``: ``k[dst] = k[src]``
+        and the same for v in every layer, on the engine's stream, so the
+        resume prefill that appends into ``dst`` runs after it."""
+        dev = self.device
+        src = torch.tensor([s for s, _ in pairs], dtype=torch.long,
+                           device=dev)
+        dst = torch.tensor([d for _, d in pairs], dtype=torch.long,
+                           device=dev)
+        for pool in self._ks + self._vs:
+            pool[dst] = pool[src]
+        self._dispatches["cow_pages"] += len(pairs)
+        bump_counter("serving.kv_cow_copies", len(pairs))
+
+    def _split_expired(self, items):
+        live, expired = [], []
+        for slot, req in items:
+            if req.deadline.expired() or self._run_deadline.expired():
+                expired.append((slot, req))
+            else:
+                live.append((slot, req))
+        return live, expired
+
+    @torch.no_grad()
+    def _chunked_prefill(self, group, finished):
+        """Chunked prefill of prompts past the largest bucket: full
+        ``chunk_w``-token chunks at per-row bases (a row's first at its
+        resume base, page-aligned, when the prefix cache matched), rows
+        past their full chunks on the scratch row, then one padded final
+        chunk that samples the first token. A request whose deadline
+        expires between chunks retires ``timed_out`` with no further
+        chunk dispatched."""
+        chunk_w = self.prompt_buckets[-1]
+        scratch = self.max_slots
+        start = {id(req): self._resume_base.get(id(req), 0)
+                 for _, req in group}
+        n_full = {id(req): (req.prompt.size - start[id(req)] - 1) // chunk_w
+                  for _, req in group}
+        live = list(group)
+        expired = []
+        c = 0
+        while live:
+            live, dead = self._split_expired(live)
+            expired += dead
+            if not live or not any(c < n_full[id(req)] for _, req in live):
+                break
+            g = self._group_width(len(live))
+            chunk_arr = np.zeros((g, chunk_w), np.int64)
+            bases = np.zeros((g,), np.int32)
+            rows = np.full((g,), scratch, np.int64)
+            for i, (slot, req) in enumerate(live):
+                if c < n_full[id(req)]:
+                    b0 = start[id(req)] + c * chunk_w
+                    chunk_arr[i] = req.prompt[b0:b0 + chunk_w]
+                    bases[i] = b0
+                    rows[i] = slot
+            self._dispatches["chunk"] += 1
+            self._forward(chunk_arr, rows, bases)
+            c += 1
+        if live:
+            g = self._group_width(len(live))
+            final_arr = np.zeros((g, chunk_w), np.int64)
+            bases = np.zeros((g,), np.int32)
+            true_rem = np.ones((g,), np.int64)
+            rows = np.full((g,), scratch, np.int64)
+            for i, (slot, req) in enumerate(live):
+                done = start[id(req)] + n_full[id(req)] * chunk_w
+                rem = req.prompt.size - done
+                final_arr[i, :rem] = req.prompt[done:]
+                bases[i] = done
+                true_rem[i] = rem
+                rows[i] = slot
+            self._dispatches["final_chunk"] += 1
+            logits = self._forward(final_arr, rows, bases)
+            self._sample_admitted(logits, live, true_rem, finished)
+        for slot, req in expired:
+            # slot= returns the admission's grants (the request was never
+            # seated)
+            self._retire(req, "timed_out", finished, slot=slot)
 
     @torch.no_grad()
     def _segment_round(self, mask, finished):
@@ -355,75 +635,259 @@ class ContinuousBatchingEngine:
                     or (self.eos_token_id is not None and toks
                         and toks[-1] == self.eos_token_id)
                     or not still_active[slot]):
-                self._retire(req, finished, slot)
-
-    def _plan_admission(self, req):
-        """Pages covering ``req``'s prompt, or None when the pool cannot
-        cover the prompt plus its first segment of decode growth."""
-        P = int(req.prompt.size)
-        page = self.page_size
-        total = -(-P // page)
-        final_len = max(P + req.max_new_tokens - 1, P)
-        want = min(P + self._segment_len, final_len)
-        if self._pool.available() < max(-(-want // page), total):
-            return None
-        return self._pool.alloc(total)
-
-    def _ensure_pages(self):
-        """Grant every live slot the pages its next segment can write. The
-        pool holds a full-length sequence per slot, so this always fits;
-        preemption under a smaller pool is not ported."""
-        need = []
-        for slot, req in enumerate(self._slot_req):
-            if req is None:
-                continue
-            tgt = min(int(self._lengths[slot]) + self._segment_len,
-                      int(self._limits[slot]))
-            short = -(-tgt // self.page_size) - len(self._slot_pages[slot])
-            if short > 0:
-                need.append((slot, short))
-        if sum(n for _, n in need) > self._pool.available():
-            raise RuntimeError("KV page pool exhausted during decode "
-                               "(preemption is not ported)")
-        for slot, n in need:
-            self._slot_pages[slot].extend(self._pool.alloc(n))
-            self._set_table_row(slot)
+                self._retire(req, "ok", finished, slot=slot)
 
     def step(self):
         """One scheduler turn: admit queued requests into free slots (one
-        prefill per prompt bucket), grow pages, run one decode segment.
-        Returns the requests that finished in this turn."""
+        prefill per prompt bucket, one resume per tail bucket, chunked
+        prefill for long prompts), grow or preempt pages, run one decode
+        segment, then retire expired requests. Returns the requests that
+        finished in this turn."""
         finished: list[Request] = []
+        # admission: FIFO, bounded by free slots and free pool pages; a
+        # head the pool cannot serve defers the whole queue (no skipping
+        # ahead: small requests must not starve a big one)
+        self.admission_blocked = False
+        self._resume_base = {}
+        self._cow_pair = {}
+        chunk_w = self.prompt_buckets[-1]
         free = [s for s in range(self.max_slots) if self._slot_req[s] is None]
-        admitting = []
-        while self._queue and len(admitting) < len(free):
+        admitting, long_adm, resume_adm = [], [], []
+        fi = 0
+        while self._queue and fi < len(free):
             req = self._queue[0]
-            pages = self._plan_admission(req)
-            if pages is None:  # the pool is short: the whole queue defers
+            if req.status != "pending":
+                self._queue.popleft()
+                continue
+            plan = self._plan_admission(req)
+            if plan is None:
+                bump_counter("serving.kv_pool_exhausted")
+                self.admission_blocked = True
                 break
             self._queue.popleft()
-            slot = free[len(admitting)]
-            self._slot_pages[slot] = pages
+            slot = free[fi]
+            fi += 1
+            shared, m, cow_src, newp = plan
+            self._slot_pages[slot] = list(shared) + newp
             self._set_table_row(slot)
-            admitting.append((slot, req))
+            self._slot_adm[slot] = self._adm_seq
+            self._adm_seq += 1
+            self._prefix_lookup_tokens += int(req.prompt.size)
+            if m:
+                self._prefix_hit_tokens += m
+                self._resume_base[id(req)] = m
+                if cow_src is not None:
+                    # the divergent page: copy the cached content into the
+                    # slot's private page, then append into the copy
+                    self._cow_pair[id(req)] = (
+                        cow_src, self._slot_pages[slot][len(shared)])
+                if req.prompt.size - m <= chunk_w:
+                    resume_adm.append((slot, req))
+                else:
+                    long_adm.append((slot, req))
+            elif req.prompt.size > chunk_w:
+                long_adm.append((slot, req))
+            else:
+                admitting.append((slot, req))
         by_bucket: dict[int, list] = {}
         for slot, req in admitting:
             by_bucket.setdefault(_bucket(req.prompt.size, self.prompt_buckets),
                                  []).append((slot, req))
         for bucket, grp in by_bucket.items():
             self._dispatch_prefill(grp, bucket, finished)
-        self._ensure_pages()
+        r_by_bucket: dict[int, list] = {}
+        for slot, req in resume_adm:
+            b = _bucket(req.prompt.size - self._resume_base[id(req)],
+                        self.prompt_buckets)
+            r_by_bucket.setdefault(b, []).append((slot, req))
+        for bucket, grp in r_by_bucket.items():
+            self._dispatch_resume(grp, bucket, finished)
+        if long_adm:
+            self._chunked_prefill(long_adm, finished)
+        if self._cow_pair:
+            # every copy is dispatched by now: release the plan's holds on
+            # the copy sources
+            self._recycle(self._pool.decref(
+                [s for s, _ in self._cow_pair.values()]))
+            self._cow_pair = {}
+        # decode growth: every live slot holds the pages its next segment
+        # can write before it runs (may preempt; a decode never fails)
+        self._ensure_pages(finished)
         mask = np.array([r is not None for r in self._slot_req])
         if mask.any():
             self._occ_sum += float(mask.mean())
             self._occ_n += 1
             self._segment_round(mask, finished)
+        # deadlines between segments: an expired slot retires with its
+        # partial output; queued requests that expired while waiting
+        # drain the same way; a run deadline retires everything left
+        for slot in range(self.max_slots):
+            req = self._slot_req[slot]
+            if req is not None and (req.deadline.expired()
+                                    or self._run_deadline.expired()):
+                self._retire(req, "timed_out", finished, slot=slot)
+        if self._queue:
+            waiting: deque[Request] = deque()
+            for req in self._queue:
+                if req.status != "pending":
+                    continue
+                if req.deadline.expired() or self._run_deadline.expired():
+                    self._retire(req, "timed_out", finished)
+                else:
+                    waiting.append(req)
+            self._queue = waiting
         return finished
+
+    # ------------------------------------------------ dynamic page pool
+
+    def _plan_admission(self, req):
+        """Page plan for admitting ``req``: match its prompt against the
+        prefix cache, then reserve pool pages for the unshared part.
+        Returns ``(shared_pages, resume_tokens, cow_src, new_pages)``,
+        with the pool references taken, or None when the pool (after
+        evicting cache leaves) cannot cover the prompt plus its first
+        segment of growth. A preempted request needs its whole remaining
+        budget, so it cannot thrash straight back out."""
+        P = int(req.prompt.size)
+        page = self.page_size
+        chunk_w = self.prompt_buckets[-1]
+        shared, m, cow_src = [], 0, None
+        if self._prefix is not None and P > 1:
+            pages, matched, partial = self._prefix.match(req.prompt)
+            mtok = matched + (partial.r if partial is not None else 0)
+            # the last token always runs through the model: its logits
+            # sample the first token
+            mtok = min(mtok, P - 1)
+            if P - mtok > chunk_w:
+                # a long tail takes the chunked path from a page boundary
+                mtok = (mtok // page) * page
+            full = mtok // page
+            shared = pages[:full]
+            m = mtok
+            if m % page:
+                # a mid-page resume base: the covering cached page is
+                # copied, never written
+                cow_src = pages[full] if full < len(pages) else partial.page
+        total = -(-P // page)
+        new_needed = total - len(shared)
+        remaining = req.max_new_tokens - len(req.tokens)
+        final_len = max(P + remaining - 1, P)
+        want_tokens = (final_len if req.preempted
+                       else min(P + self._segment_len, final_len))
+        check_needed = max(-(-want_tokens // page), total) - len(shared)
+        if self._pool.available() < check_needed:
+            if self._prefix is not None:
+                excl = set(shared)
+                if cow_src is not None:
+                    excl.add(cow_src)
+                self._prefix.evict(
+                    check_needed - self._pool.available(), exclude=excl)
+            if self._pool.available() < check_needed:
+                return None
+        for p in shared:
+            self._pool.incref(p)
+        if cow_src is not None:
+            # hold the copy source until the copy has been dispatched
+            self._pool.incref(cow_src)
+        newp = self._pool.alloc(new_needed) if new_needed else []
+        return shared, m, cow_src, newp
+
+    def _ensure_pages(self, finished):
+        """Grant every live slot the pages its next segment can write.
+        Under pool pressure: evict prefix-cache leaves, then preempt the
+        youngest slot back to the queue, until the rest fit."""
+        # the serial scheduler's growth horizon: one decode segment
+        horizon = self._segment_len
+        while True:
+            need = []
+            for slot, req in enumerate(self._slot_req):
+                if req is None:
+                    continue
+                tgt = min(int(self._lengths[slot]) + horizon,
+                          int(self._limits[slot]))
+                short = (-(-tgt // self.page_size)
+                         - len(self._slot_pages[slot]))
+                if short > 0:
+                    need.append((slot, short))
+            total = sum(n for _, n in need)
+            if not total:
+                return
+            if self._pool.available() < total and self._prefix is not None:
+                self._prefix.evict(total - self._pool.available())
+            if self._pool.available() >= total:
+                for slot, n in need:
+                    self._slot_pages[slot].extend(self._pool.alloc(n))
+                    self._set_table_row(slot)
+                return
+            victims = [s for s, r in enumerate(self._slot_req)
+                       if r is not None]
+            if len(victims) <= 1:
+                # the pool holds one full sequence and a lone slot's own
+                # grants count against its need, so this cannot happen
+                raise RuntimeError(
+                    f"KV page pool of {self._pool_pages} pages cannot grow "
+                    f"a lone slot by {total} pages")
+            self._preempt(max(victims, key=lambda s: self._slot_adm[s]),
+                          finished)
+
+    def _preempt(self, slot, finished):
+        """Pull the request off ``slot`` to free its pages. Its emitted
+        tokens not yet in its prompt are appended to it, so its stream
+        index (``token_base + len(tokens)``) and its budget are unchanged
+        and its continuation is the uninterrupted one; it goes back to the
+        queue's front."""
+        req = self._slot_req[slot]
+        bump_counter("serving.kv_preempted")
+        if len(req.tokens) > req.folded:
+            req.prompt = np.concatenate(
+                [req.prompt, np.asarray(req.tokens[req.folded:], np.int32)])
+            req.folded = len(req.tokens)
+        req.preempted = True
+        self._slot_req[slot] = None
+        self._lengths[slot] = 1
+        self._free_slot_pages(slot)
+        self._queue.appendleft(req)
+
+    # ----------------------------------------------------------- accounting
+
+    def kv_stats(self) -> dict:
+        """Point-in-time KV accounting of this engine: pool occupancy,
+        bytes (a shared page counts once), the unused tail of the pages
+        granted to live slots, and the session's prefix-cache hits."""
+        active = [s for s, r in enumerate(self._slot_req) if r is not None]
+        if active:
+            used = int(self._lengths[active].astype(np.int64).sum())
+            pages = sum(len(self._slot_pages[s]) for s in active)
+            phys = len({p for s in active for p in self._slot_pages[s]})
+        else:
+            used = pages = phys = 0
+        cap_tokens = pages * self.page_size
+        lookups, hits = self._prefix_lookup_tokens, self._prefix_hit_tokens
+        return {
+            "bytes_in_use": phys * self.page_size * self._kv_bytes_per_token,
+            "slot_occupancy": len(active) / self.max_slots,
+            "fragmentation_pct": (100.0 * (1.0 - used / cap_tokens)
+                                  if cap_tokens else 0.0),
+            "bytes_per_token": self._kv_bytes_per_token,
+            "pages_total": self._pool_pages,
+            "pages_free": self._pool.available(),
+            "pages_granted": phys,
+            "pages_pinned_export": 0,  # KV export is not ported yet
+            "prefix_cached_pages": (len(self._prefix)
+                                    if self._prefix is not None else 0),
+            "prefix_hit_rate": (hits / lookups) if lookups else 0.0,
+            "prefix_tokens_saved": hits,
+            "max_len": self.max_len,
+            "max_len_rounded_from": self._max_len_rounded_from,
+            "page_size": self.page_size,
+        }
 
     def stats(self):
         """Session stats; ``tokens_per_sec`` is useful tokens over the
         session's wall time (0.0 for an empty session); ``megakernel``
-        says whether decode steps take the fused kernel."""
+        says whether decode steps take the fused kernel; ``dispatches``
+        counts prefills, resumes, chunks, final chunks and copied pages;
+        ``kv`` is :meth:`kv_stats`."""
         dt = time.monotonic() - self._t0
         return {
             "tokens_per_sec": (self._useful / dt
@@ -434,18 +898,35 @@ class ContinuousBatchingEngine:
             "segments": self._seg_runs,
             "wall_s": dt,
             "megakernel": self._megakernel,
+            "timed_out": self._counts["timed_out"],
+            "failed": self._counts["failed"],
+            "cancelled": self._counts["cancelled"],
+            "dispatches": dict(self._dispatches),
+            "kv": self.kv_stats(),
         }
 
-    def run(self, prompts, max_new_tokens, segment=16):
+    def run(self, prompts, max_new_tokens, segment=16,
+            request_deadline_s=None, timeout_s=None):
         """Generate ``max_new_tokens`` for every prompt (1-D int arrays of
         mixed lengths). Returns (outputs, stats): ``outputs[i]`` is the
-        generated ids of ``prompts[i]``."""
+        generated ids of ``prompts[i]``; ``stats["statuses"]`` each
+        request's status. ``request_deadline_s`` is a budget per request
+        (a scalar, or one entry per prompt; None is unbounded) from this
+        call's start; ``timeout_s`` bounds the whole call. Past either,
+        requests retire ``timed_out`` with the tokens they have."""
         prompts_np = [np.asarray(p).astype(np.int32).ravel() for p in prompts]
         for p in prompts_np:
             self._validate(p, max_new_tokens)
-        self.start(segment=segment)
-        reqs = [self.submit(p, max_new_tokens, rid=i)
-                for i, p in enumerate(prompts_np)]
+        if request_deadline_s is None or not np.iterable(request_deadline_s):
+            request_deadline_s = [request_deadline_s] * len(prompts)
+        if len(request_deadline_s) != len(prompts):
+            raise ValueError(
+                f"request_deadline_s has {len(request_deadline_s)} entries "
+                f"for {len(prompts)} prompts")
+        self.start(segment=segment, run_deadline=Deadline(timeout_s))
+        reqs = [self.submit(p, max_new_tokens, deadline_s=s, rid=i)
+                for i, (p, s) in enumerate(zip(prompts_np,
+                                               request_deadline_s))]
         while self.has_work():
             self.step()
         stats = self.stats()

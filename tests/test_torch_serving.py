@@ -59,8 +59,12 @@ def test_engine_pool_layout_and_pages_return(model):
     assert 0.0 < stats["mean_occupancy"] <= 1.0
     assert set(stats) >= {"tokens_per_sec", "useful_tokens",
                           "mean_occupancy", "segments", "wall_s"}
-    # every grant went back; idle rows alias the dump page
-    assert eng._pool.available() == 12
+    # every grant went back but the full prompt pages the prefix cache
+    # holds (one each of the 20- and 30-token prompts); evicting them
+    # returns the whole pool; idle rows alias the dump page
+    assert eng._pool.available() + len(eng._prefix) == 12
+    assert len(eng._prefix) == 2
+    assert eng._prefix.evict(12) == 2 and eng._pool.available() == 12
     assert (eng._tables_np[:3] == 13).all()
 
 
@@ -101,8 +105,17 @@ def test_engine_validates_requests(model):
                                    page_size=16, prompt_buckets=(32,))
     with pytest.raises(ValueError, match="exceeds slot capacity"):
         eng.run([np.arange(60, dtype=np.int32)], max_new_tokens=10)
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        eng.run([np.arange(40, dtype=np.int32)], max_new_tokens=4)
+    # a prompt past the largest bucket takes chunked prefill (JAX's
+    # behaviour), and needs max_len to be a multiple of the largest bucket
+    outs, stats = eng.run([np.arange(40, dtype=np.int32)], max_new_tokens=4)
+    assert stats["statuses"] == ["ok"] and len(outs[0]) == 4
+    assert stats["dispatches"]["chunk"] == 1
+    assert stats["dispatches"]["final_chunk"] == 1
+    odd = ContinuousBatchingEngine(model, max_slots=2, max_len=48,
+                                   page_size=16, prompt_buckets=(32,))
+    with pytest.raises(ValueError, match="multiple of the largest bucket"):
+        odd.run([np.arange(40, dtype=np.int32)], max_new_tokens=4)
+    odd.run([np.arange(30, dtype=np.int32)], max_new_tokens=4)
     small = ContinuousBatchingEngine(model, max_slots=2, max_len=32,
                                      page_size=16, prompt_buckets=(64,))
     with pytest.raises(ValueError, match="bucket 64"):
