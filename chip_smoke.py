@@ -96,14 +96,26 @@ so that a fault surfaces in the phase that caused it:
 7. serving  the continuous-batching engine on that model: 8 slots, max_len
             512, page 128, buckets (32, 128), 24 requests of 8-119 prompt
             tokens from np.random.RandomState(7), 64 new tokens each,
-            greedy, segments of 32; in two arms on the same model and
-            prompts, unfused (``decode_megakernel=0``) and fused (the
-            default). Launch counts are zeroed just before each arm's run
-            and read just after it: the unfused arm must launch the four
+            greedy, segments of 32, the engine warmed by ``warmup()`` (the
+            decode segment's CUDA graph captured) and two requests; in two
+            arms on the same model and prompts, unfused
+            (``decode_megakernel=0``) and fused (the default), both on the
+            default engine: pipelined, each decode segment one graph
+            replay. Launch counts are zeroed just before each arm's run
+            and read just after it (a replay credits the launches its
+            capture recorded): the unfused arm must launch the four
             forward kernels, the fused arm the megakernel 12 times per
             decode step and paged decode never. Both arms' tokens/s and
             how far their greedy streams agree are printed, not gated.
-7a. kv-e9   bench.py section (e9) and the admission path on the 438M:
+7b. serving-captured  the default engine against the eager serial
+            reference (the serial scheduler, each decode step's launches
+            from Python), in turns, twice each, on e2's
+            traffic: e2 fused and unfused here, and in the phases below
+            phi3-serve fused, mistral-large-serve and f32-serve fused.
+            Each run's tokens/s, wall ms and launches a decode step;
+            gated: every greedy stream identical to the eager run's.
+7a. kv-e9   bench.py section (e9) and the admission path on the 438M,
+            on the engine's default (pipelined) scheduler:
             (a) the gate: a 2-layer model at the 438M's widths behind an
             engine, a 300-token prompt in chunks of 128 at bases 0 and
             128 and a padded final chunk at 256, then a prompt sharing its
@@ -1018,19 +1030,38 @@ def model_phase():
 SERVE_NEW_TOKENS, SERVE_SEGMENT = 64, 32
 
 
-def serving_workload(model, decode_megakernel=1):
+def eager_engine():
+    """The eager serial reference engine class: the serial scheduler with
+    each decode step's launches issued from Python (the engine's private
+    ``_capture_decode`` off), the path the captured, pipelined default is
+    measured and checked against."""
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+
+    class EagerSerialEngine(ContinuousBatchingEngine):
+        _capture_decode = False
+
+        def __init__(self, model, **kw):
+            super().__init__(model, pipeline=False, **kw)
+
+    return EagerSerialEngine
+
+
+def serving_workload(model, decode_megakernel=1, eager=False):
     """The e2 serving run on ``model``: the engine (8 slots, max_len 512,
     page 128, buckets (32, 128); ``decode_megakernel`` 1 takes the fused
-    decode layers, 0 the unfused ones), warmed on two requests, and the 24
+    decode layers, 0 the unfused ones; the default pipelined engine that
+    replays a captured segment, or with ``eager`` the eager serial
+    reference), warmed by ``warmup()`` and on two requests, and the 24
     prompts of 8-119 tokens from np.random.RandomState(7). Returns
     (engine, prompts); run them with ``engine.run(prompts,
     max_new_tokens=SERVE_NEW_TOKENS, segment=SERVE_SEGMENT)``."""
     from paddle_tpu_torch.models import ContinuousBatchingEngine
 
     vocab = model.config.vocab_size
-    eng = ContinuousBatchingEngine(model, max_slots=8, max_len=512,
-                                   page_size=128, prompt_buckets=(32, 128),
-                                   decode_megakernel=decode_megakernel)
+    cls = eager_engine() if eager else ContinuousBatchingEngine
+    eng = cls(model, max_slots=8, max_len=512, page_size=128,
+              prompt_buckets=(32, 128), decode_megakernel=decode_megakernel)
+    eng.warmup(segment=SERVE_SEGMENT)
     rng = np.random.RandomState(7)
     warm = [rng.randint(0, vocab, (n,)).astype(np.int32) for n in (12, 60)]
     eng.run(warm, max_new_tokens=2, segment=SERVE_SEGMENT)
@@ -1044,24 +1075,26 @@ SERVE_UNFUSED_KERNELS = ("rms_norm", "fused_rope", "flash_attention",
 
 
 def serving_arm(model, decode_megakernel, name, smi, phase="serving",
-                fused=None):
+                fused=None, eager=False):
     """One run of e2's traffic (``serving_workload``) on ``model`` with
     the engine's ``decode_megakernel`` (1: the fused decode layers where
     the probe takes the model, 0: unfused); ``fused`` is the decision the
-    engine must make (default: ``decode_megakernel``). Launch counts are
-    zeroed just before the run and read just after it. Gated: every
-    request finishes with SERVE_NEW_TOKENS tokens, the pools stay finite,
-    and only kernels of the model's dtype launch (an f32 launch counted
-    as ``<kernel>[f32]``): fused, the megakernel once a layer a decode
-    step and paged decode never; unfused, the four serving kernels and no
-    megakernel. Returns (engine, prompts, outputs, record)."""
+    engine must make (default: ``decode_megakernel``); ``eager`` runs the
+    eager serial reference engine. Launch counts are zeroed just before
+    the run and read just after it (a graph replay credits the launches
+    its capture recorded). Gated: every request finishes with
+    SERVE_NEW_TOKENS tokens, the pools stay finite, and only kernels of
+    the model's dtype launch (an f32 launch counted as ``<kernel>[f32]``):
+    fused, the megakernel once a layer a decode step and paged decode
+    never; unfused, the four serving kernels and no megakernel. Returns
+    (engine, prompts, outputs, record)."""
     from paddle_tpu_torch.ops.cuda import launch_counts
 
     fused = bool(decode_megakernel) if fused is None else fused
     tag = "[f32]" if model.dtype == torch.float32 else ""
     arm = "fused" if fused else "unfused"
     vocab = model.config.vocab_size
-    eng, prompts = serving_workload(model, decode_megakernel)
+    eng, prompts = serving_workload(model, decode_megakernel, eager)
     torch.cuda.synchronize()
     launch_counts.clear()
     outs, stats = eng.run(prompts, max_new_tokens=SERVE_NEW_TOKENS,
@@ -1073,9 +1106,13 @@ def serving_arm(model, decode_megakernel, name, smi, phase="serving",
                         and o.max() < vocab) for o in outs)
     finite = all(bool(torch.isfinite(t).all()) for t in eng._ks + eng._vs)
     rec = dict(arm=arm, dtype=str(model.dtype), megakernel=stats["megakernel"],
+               engine="eager serial" if eager else "captured pipelined",
+               pipelined=stats["pipelined"],
                requests=len(outs), finished=finished,
                new_tokens=SERVE_NEW_TOKENS,
                tokens_per_sec=stats["tokens_per_sec"], wall_s=stats["wall_s"],
+               wall_ms_per_decode_step=1e3 * stats["wall_s"] / steps,
+               host_gap_ms=stats["host_gap_ms"],
                useful_tokens=stats["useful_tokens"],
                segments=stats["segments"], decode_steps=steps,
                mean_occupancy=stats["mean_occupancy"], launches=counts,
@@ -1109,6 +1146,8 @@ def serving_phase(model, name, smi):
     arm's launch counts."""
     _, prompts, u_outs, u = serving_arm(model, 0, name, smi)
     _, _, f_outs, f = serving_arm(model, 1, name, smi)
+    captured_phase("e2 fused", model, 1, name, smi)
+    captured_phase("e2 unfused", model, 0, name, smi)
     parts = [next((i for i, (a, b) in enumerate(zip(u_, f_)) if a != b), None)
              for u_, f_ in zip(u_outs, f_outs)]
     gaps, scales = [], []
@@ -1127,6 +1166,44 @@ def serving_phase(model, name, smi):
          first_index_where_streams_part=parts,
          top2_gap_where_streams_part=gaps, logit_std_there=scales)
     return {"serving": u["launches"], "serving_fused": f["launches"]}
+
+
+CAPTURED_TURNS = 2
+
+
+def captured_phase(cell, model, decode_megakernel, name, smi, fused=None):
+    """serving-captured: e2's traffic on ``model`` through the default
+    engine (pipelined, each decode segment one replay of its captured CUDA
+    graph) and the eager serial reference (the serial scheduler, every
+    launch from Python), in turns, CAPTURED_TURNS times each, every run
+    through ``serving_arm``'s gates. Prints each run's tokens/s, wall ms
+    and launches a decode step. Gated: every greedy stream of every run
+    identical to the first eager run's."""
+    t0 = time.monotonic()
+    runs = []
+    for _ in range(CAPTURED_TURNS):
+        for eager in (False, True):
+            _, _, outs, rec = serving_arm(model, decode_megakernel, name,
+                                          smi, "serving-captured", fused,
+                                          eager)
+            runs.append((rec["engine"], outs, rec))
+    ref = next(outs for engine, outs, _ in runs if engine == "eager serial")
+    agree = [sum(bool((a == b).all()) for a, b in zip(outs, ref)) / len(ref)
+             for _, outs, _ in runs]
+    summary = [dict(engine=engine,
+                    tokens_per_sec=rec["tokens_per_sec"],
+                    wall_ms_per_decode_step=rec["wall_ms_per_decode_step"],
+                    kernel_launches_per_decode_step=rec[
+                        "kernel_launches_per_decode_step"],
+                    segments=rec["segments"], host_gap_ms=rec["host_gap_ms"],
+                    streams_equal_to_first_eager=a)
+               for (engine, _, rec), a in zip(runs, agree)]
+    emit("serving-captured", cell=cell, runs=summary,
+         seconds=time.monotonic() - t0, card=name, nvidia_smi=smi)
+    if min(agree) < 1.0:
+        raise PhaseFailed(f"serving-captured ({cell}): greedy streams "
+                          f"differ from the eager serial run's: {agree}")
+    return summary
 
 
 # ----------------------------------------------------------------- kv-e9
@@ -3172,7 +3249,8 @@ def head_dims_phase(peaks):
     return results
 
 
-def llama_serve_phase(phase, cfg, gate_layers, seeds, name, smi, arms):
+def llama_serve_phase(phase, cfg, gate_layers, seeds, name, smi, arms,
+                      captured=None):
     """A LLaMA at ``cfg``'s published widths in bf16 (random N(0, 0.02)
     weights from ``seed(seeds[0])``) behind the engine on e2's traffic
     (``serving_workload``: 8 slots, max_len 512, page 128, buckets (32,
@@ -3182,8 +3260,10 @@ def llama_serve_phase(phase, cfg, gate_layers, seeds, name, smi, arms):
     ``gate_layers``-layer model of the same widths (from
     ``seed(seeds[1])``), bf16 on the card against f32 on the CPU, a
     bucket-128 prefill of 2 prompts and 4 decode steps through the paged
-    cache, logits within MODEL_REL_L2. Returns each arm's ``serving_arm``
-    record, by its arm name ("fused", "unfused")."""
+    cache, logits within MODEL_REL_L2. ``captured`` (decode_megakernel,
+    fused, cell) runs ``captured_phase`` on the model after the arms.
+    Returns each arm's ``serving_arm`` record, by its arm name ("fused",
+    "unfused")."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
@@ -3215,6 +3295,9 @@ def llama_serve_phase(phase, cfg, gate_layers, seeds, name, smi, arms):
         _, _, _, rec = serving_arm(model, decode_megakernel, name, smi,
                                    phase, fused)
         recs[rec["arm"]] = rec
+    if captured is not None:
+        decode_megakernel, fused, cell = captured
+        captured_phase(cell, model, decode_megakernel, name, smi, fused)
     lcfg = model.config
     emit(phase, layers=lcfg.num_hidden_layers,
          params=sum(p.numel() for p in model.parameters()),
@@ -3235,7 +3318,8 @@ def phi3_serve_phase(name, smi):
     weights pass its VMEM budget), then decode_megakernel=0, which keeps
     paged decode at 96 on the path. Returns (unfused, fused) counts."""
     recs = llama_serve_phase("phi3-serve", CFG_PHI3, 2, (0, 20), name,
-                             smi, ((1, True), (0, False)))
+                             smi, ((1, True), (0, False)),
+                             captured=(1, True, "phi3-serve fused"))
     return recs["unfused"]["launches"], recs["fused"]["launches"]
 
 
@@ -3261,7 +3345,9 @@ def mistral_large_serve_phase(name, smi):
     takes the flash forward at group 12. Returns the run's counts."""
     cfg = {**CFG_MISTRAL_LARGE, "num_hidden_layers": MISTRAL_LARGE_LAYERS}
     rec = llama_serve_phase("mistral-large-serve", cfg, 1, (50, 51),
-                            name, smi, ((1, False),))["unfused"]
+                            name, smi, ((1, False),),
+                            captured=(1, False, "mistral-large-serve"))[
+                                "unfused"]
     counts, steps = rec["launches"], rec["decode_steps"]
     layers = MISTRAL_LARGE_LAYERS
     if counts.get("paged_attention", 0) != layers * steps:
@@ -3815,7 +3901,10 @@ def f32_serve_phase(name, smi):
          seconds=time.monotonic() - t0, card=name, nvidia_smi=smi)
     counts = (runs["f32 unfused"][0][1]["launches"],
               runs["f32 fused"][0][1]["launches"])
-    del card, bf16, runs, engines
+    del runs, engines
+    torch.cuda.empty_cache()
+    captured_phase("f32-serve fused", card, 1, name, smi)
+    del card, bf16
     torch.cuda.empty_cache()
     return counts
 

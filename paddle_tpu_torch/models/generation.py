@@ -41,11 +41,34 @@ def stream_seed(seed, stream, index) -> int:
 
 def _sample_rows(logits, seeds, temperature, top_k, top_p, greedy):
     """Next token of each row of ``logits`` (N, V). Greedy is argmax (the
-    first index on ties, as ``jnp.argmax``); otherwise temperature, then
-    top-k, then top-p filtering (masked logits -1e30, as the JAX rule),
-    then a Gumbel-max draw with row i's noise from ``seeds[i]``."""
+    first index on ties, as ``jnp.argmax``); otherwise
+    :func:`_sample_with_noise` on noise that :func:`_fill_noise` draws for
+    row i from ``seeds[i]``."""
     if greedy:
         return torch.argmax(logits, dim=-1)
+    noise = torch.empty(logits.shape, dtype=torch.float32,
+                        device=logits.device)
+    _fill_noise(noise, seeds)
+    return _sample_with_noise(logits, noise, temperature, top_k, top_p)
+
+
+def _fill_noise(noise, seeds):
+    """Row i of ``noise`` (N, V) f32: V uniform draws of a generator
+    seeded ``seeds[i]`` (None skips the row). The serving engine fills its
+    decode segment's noise with this, before a captured segment that
+    cannot seed a generator itself."""
+    for i, s in enumerate(seeds):
+        if s is None:
+            continue
+        g = torch.Generator(device=noise.device)
+        g.manual_seed(s)
+        noise[i].uniform_(generator=g)
+
+
+def _sample_with_noise(logits, noise, temperature, top_k, top_p):
+    """Temperature, then top-k, then top-p filtering (masked logits -1e30,
+    as the JAX rule), then a Gumbel-max draw from ``noise`` (N, V) uniform
+    f32. No host sync, so a CUDA graph can capture it."""
     lg = logits.float() / max(temperature, 1e-5)
     if top_k is not None and top_k > 0:
         kth = torch.sort(lg, dim=-1).values[..., -top_k][..., None]
@@ -56,11 +79,6 @@ def _sample_rows(logits, seeds, temperature, top_k, top_p, greedy):
         cut_idx = torch.sum(cum < top_p, dim=-1, keepdim=True)
         cutoff = torch.gather(desc, -1, cut_idx)
         lg = torch.where(lg < cutoff, torch.full_like(lg, -1e30), lg)
-    noise = torch.empty_like(lg)
-    for i, s in enumerate(seeds):
-        g = torch.Generator(device=lg.device)
-        g.manual_seed(s)
-        noise[i].uniform_(generator=g)
     gumbel = -torch.log(-torch.log(noise.clamp(1e-20, 1.0 - 1e-7)))
     return torch.argmax(lg + gumbel, dim=-1)
 

@@ -1,12 +1,15 @@
 """Continuous batching over the paged KV pool: the serving scheduler.
 
 Counterpart of ``ContinuousBatchingEngine`` in
-``paddle_tpu/models/serving.py`` :274, serial scheduler. Requests of mixed
+``paddle_tpu/models/serving.py`` :274, with its default scheduler, the
+one-deep pipeline (``_pipelined_round`` :1662). Requests of mixed
 lengths are admitted into fixed SLOTS of a shared page pool; decode runs
 in SEGMENTS of single-token steps over all slots at per-slot depths; slots
 retire and readmit between segments. The JAX engine compiles each of these
-as one fixed-shape program; the port runs them eagerly, one forward per
-step, and keeps the same semantics:
+as one fixed-shape program. The port runs admission eagerly and each
+decode segment, on the card, as one replay of a CUDA graph captured once
+per engine and segment length (JAX's compiled ``segment`` :617); on the
+CPU the same segment runs eagerly. The semantics are JAX's:
 
 * pools ``(n_pages, page_size, KVH, D)`` per layer: ``pool_pages``
   allocatable pages (default one full-length sequence per slot), then
@@ -36,6 +39,13 @@ step, and keeps the same semantics:
   frozen slots re-emit their token and do not advance, a slot deactivates
   at its length budget and at EOS, idle slots sit at length 1 on dump-page
   rows; deadlines retire requests between segments;
+* the PIPELINE (the default; ``pipeline=False`` is the serial scheduler):
+  segment N+1 is dispatched from segment N's device outputs (its final
+  tokens, lengths and active mask stay in the graph's buffers) while the
+  host does segment N's bookkeeping. Host-only changes of the mask
+  (admission, abort, a deadline, preemption) drain the pipeline first;
+  growth covers two segments (``_growth_horizon``). On the CPU "in
+  flight" means computed and not yet consumed: the same code decides;
 * the fused decode path is decided once, at construction: with
   ``decode_megakernel=1`` (the JAX ``FLAGS_decode_megakernel`` default)
   and a model that passes ``megakernel_model_supported``, every decode
@@ -45,34 +55,51 @@ step, and keeps the same semantics:
 
 Sampling draws from per-request streams (:func:`.generation.stream_seed`
 of engine seed, request id and token index ``token_base + emitted``), so
-a request's tokens do not depend on how it was batched, chunked or
-preempted.
+a request's tokens do not depend on how it was batched, chunked,
+preempted or speculated. A captured segment cannot seed generators: its
+uniform noise is drawn before each replay, on the engine's stream, by the
+same helper that the eager sampler uses.
 
 JAX's free-page quarantine (``_mark_dispatch``/``_mark_executed``/
-``_recycle`` :448-473) has no counterpart here: every page write (prefill,
-chunk, copy, decode) runs on the engine's one stream in program order, so
-a page freed on the host is safe to grant again at once.
+``_recycle`` :448-473) has no counterpart here. Under the pipeline a page
+freed on the host may still be written by a segment in flight (an aborted
+slot stays active in it; a frozen slot rewrites its own cell). It is safe
+to grant again at once, because every device write and read of a page
+(prefill, chunk, copy, graph replay, noise fill, table upload) runs on the
+engine's one stream in program order: a new owner's writes come after the
+stale segment's, and an owner reads only positions it wrote itself (or
+cached prompt pages, which no segment writes: decode writes lie past the
+prompt).
 
-Not ported yet: the one-deep pipeline (``pipeline=True`` raises), poison
-bisection, telemetry, AOT warmup, KV page export and import, and the
-``trace``/``tenant``/``hold_kv``/``kv_import`` request fields.
+Not ported yet: poison bisection (a launch failure propagates), telemetry,
+capture of the prefill, chunk, resume and copy dispatches (they run
+eagerly), KV page export and import, and the ``trace``/``tenant``/
+``hold_kv``/``kv_import`` request fields.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 import zlib
-from collections import deque
+from collections import Counter, deque
 
 import numpy as np
 import torch
 
 from ..core.resilience import Deadline, bump_counter
+from ..ops.cuda import _build
 from ..ops.cuda.decode_megakernel import (
     megakernel_model_supported,
     megakernel_scope,
 )
-from .generation import _make_paged_cache, _sample_rows, stream_seed
+from .generation import (
+    _fill_noise,
+    _make_paged_cache,
+    _sample_rows,
+    _sample_with_noise,
+    stream_seed,
+)
 from .kv_pool import PagePool, PrefixCache
 
 __all__ = ["ContinuousBatchingEngine", "Request"]
@@ -132,6 +159,36 @@ def _stream_id(rid) -> int:
         return zlib.crc32(str(rid).encode())
 
 
+class _DecodeSegment:
+    """One segment length's decode program over the engine's static
+    buffers: ``out`` (2 * seg + 3, max_slots) int64 receives the emitted
+    tokens, the was-active mask and the final tokens, lengths and mask;
+    ``noise`` (seg, max_slots, vocab) f32 the sampled engine's uniform
+    draws; ``graph`` its CUDA graph (None where it runs eagerly) and
+    ``launches`` the kernel launches one replay makes; ``host`` two host
+    copies of ``out`` used in turn (pinned on the card, each with the
+    event of its copy), so that a dispatch never overwrites outputs that
+    the host has not read yet."""
+
+    __slots__ = ("seg", "out", "noise", "graph", "launches", "host",
+                 "events", "turn")
+
+    def __init__(self, seg, slots, vocab, device, do_sample):
+        self.seg = seg
+        self.out = torch.zeros((2 * seg + 3, slots), dtype=torch.int64,
+                               device=device)
+        self.noise = (torch.zeros((seg, slots, vocab), dtype=torch.float32,
+                                  device=device) if do_sample else None)
+        self.graph = None
+        self.launches = Counter()
+        cuda = device.type == "cuda"
+        self.host = [torch.zeros(self.out.shape, dtype=torch.int64,
+                                 pin_memory=cuda) for _ in range(2)]
+        self.events = [torch.cuda.Event() if cuda else None
+                       for _ in range(2)]
+        self.turn = 0
+
+
 class ContinuousBatchingEngine:
     """Mixed-length generation over ``max_slots`` concurrent sequences on
     the model's device.
@@ -139,18 +196,27 @@ class ContinuousBatchingEngine:
     Usage::
 
         eng = ContinuousBatchingEngine(model, max_slots=8, max_len=512)
+        eng.warmup(segment=32)   # optional: capture the decode segment
         outs, stats = eng.run(prompts, max_new_tokens=64, segment=32)
 
     ``pool_pages`` sizes the shared page pool (default: one full-length
     sequence per slot; fewer than one raises). ``prefix_cache`` shares
-    prompt prefixes copy-on-write. ``pipeline``: None or False is the
-    serial scheduler; True (the one-deep pipeline) is not ported yet and
-    raises. Prompts past the largest bucket take chunked prefill, which
+    prompt prefixes copy-on-write. ``pipeline``: None (the default) or
+    True runs the one-deep pipeline, as JAX's engine does under
+    ``FLAGS_serving_pipeline``'s default (the port has no flag registry);
+    False the serial scheduler (dispatch, wait, consume, one segment at a
+    time). Prompts past the largest bucket take chunked prefill, which
     needs ``max_len`` to be a multiple of the largest bucket.
 
     ``decode_megakernel``: 0 keeps the unfused decode layers; 1 (auto)
     takes the fused decode kernel when the model passes the probe.
     ``stats()["megakernel"]`` reports the decision.
+
+    On a CUDA model every decode segment is one replay of a CUDA graph,
+    captured at :meth:`warmup` or at the first segment of its length, on
+    the engine's own stream; the graph holds the model's weights and the
+    pools by address, so they must be updated in place, never replaced.
+    A capture that fails raises.
     """
 
     # The fused decode kernel adds the residual and the post-attention norm
@@ -158,17 +224,17 @@ class ContinuousBatchingEngine:
     # (a tensor-parallel shard needs a reduction before the residual) must
     # opt out.
     _megakernel_ok = True
+    # A CUDA engine replays each decode segment as a captured graph. A
+    # subclass that sets this False runs the segment's launches eagerly:
+    # the reference that the captured segment is measured and checked
+    # against.
+    _capture_decode = True
 
     def __init__(self, model, max_slots, max_len, page_size=128,
                  do_sample=False, temperature=1.0, top_k=None, top_p=None,
                  eos_token_id=None, prompt_buckets=(16, 32, 64, 128),
                  seed=0, pipeline=None, pool_pages=None, prefix_cache=True,
                  decode_megakernel=1):
-        if pipeline:
-            raise NotImplementedError(
-                "pipeline=True: the one-deep serving pipeline is not ported "
-                "yet (ROADMAP Queue 1 item 2); pass pipeline=None or False "
-                "for the serial scheduler")
         model.eval()
         cfg = model.config
         self.model = model
@@ -194,6 +260,7 @@ class ContinuousBatchingEngine:
         self.eos_token_id = eos_token_id
         self.prompt_buckets = tuple(sorted(prompt_buckets))
         self._seed = int(seed)
+        self._pipeline = True if pipeline is None else bool(pipeline)
         per_seq = self.max_len // self.page_size
         self._cols = per_seq  # attention-visible table columns
         # scratch pages absorb the padding rows of an admission group
@@ -214,11 +281,20 @@ class ContinuousBatchingEngine:
         # spill up to chunk_w tokens past max_len onto scratch pages
         total_cols = per_seq + -(-chunk_w // self.page_size)
         self._nl = cfg.num_hidden_layers
+        self._vocab = cfg.vocab_size
+        # the engine's own stream: every device read and write of the
+        # pools and the decode state runs on it in program order (see the
+        # module docstring), and memory allocated on it is reused by its
+        # work alone
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if cuda else None
         shape = (n_pages, self.page_size, cfg.num_key_value_heads,
                  cfg.head_dim)
-        self._ks = [torch.zeros(shape, dtype=model.dtype, device=self.device)
-                    for _ in range(self._nl)]
-        self._vs = [torch.zeros_like(k) for k in self._ks]
+        with self._on_stream():
+            self._ks = [torch.zeros(shape, dtype=model.dtype,
+                                    device=self.device)
+                        for _ in range(self._nl)]
+            self._vs = [torch.zeros_like(k) for k in self._ks]
         # a table cell not backed by a granted page aliases the DUMP page
         # (the last scratch page): writes there are garbage by
         # construction and attention never reads them
@@ -227,7 +303,6 @@ class ContinuousBatchingEngine:
                                   self._dump_page, np.int32)
         self._tables_np[self.max_slots] = n_real + np.minimum(
             np.arange(total_cols, dtype=np.int32), scratch_np - 1)
-        self._tables_dev = None
         self._use_prefix = bool(prefix_cache)
         self._kv_bytes_per_token = int(
             self._nl * 2 * cfg.num_key_value_heads * cfg.head_dim
@@ -235,6 +310,25 @@ class ContinuousBatchingEngine:
         self._megakernel = (int(decode_megakernel) > 0
                             and type(self)._megakernel_ok
                             and megakernel_model_supported(model))
+        # the decode segment's static device state: the slot rows of the
+        # page table, each slot's last token, length, active flag and
+        # length budget. A sync dispatch uploads them from the host; a
+        # segment leaves its final tokens, lengths and mask in them, which
+        # a speculative dispatch reads as they are
+        m = self.max_slots
+        with self._on_stream():
+            self._d_tables = torch.full((m, total_cols), self._dump_page,
+                                        dtype=torch.int32, device=self.device)
+            self._d_tok = torch.zeros((m,), dtype=torch.int64,
+                                      device=self.device)
+            self._d_lengths = torch.ones((m,), dtype=torch.int32,
+                                         device=self.device)
+            self._d_active = torch.zeros((m,), dtype=torch.bool,
+                                         device=self.device)
+            self._d_limits = torch.full((m,), self.max_len,
+                                        dtype=torch.int32, device=self.device)
+        self._tables_dirty = True
+        self._programs: dict[int, _DecodeSegment] = {}
         self.start()
 
     # --------------------------------------------------- page-table state
@@ -246,14 +340,38 @@ class ContinuousBatchingEngine:
         pages = self._slot_pages[slot]
         row[:len(pages)] = pages
         row[len(pages):] = self._dump_page
-        self._tables_dev = None
+        self._tables_dirty = True
 
-    def _tables_device(self):
-        """Device copy of the slot rows, uploaded again after a grant."""
-        if self._tables_dev is None:
-            self._tables_dev = torch.tensor(
-                self._tables_np[:self.max_slots], device=self.device)
-        return self._tables_dev
+    def _upload(self, dst, array):
+        """Copy host ``array`` into the device buffer ``dst`` on the
+        engine's stream without waiting for it: through a pinned copy of
+        the array that the host allocator keeps until the copy ran, so
+        the host may rewrite ``array`` at once."""
+        src = torch.from_numpy(np.ascontiguousarray(array))
+        if dst.is_cuda:
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
+
+    def _on_stream(self):
+        """The engine's stream as the current one (nothing on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    @contextlib.contextmanager
+    def _device_turn(self):
+        """Run the enclosed engine work on the engine's stream, after the
+        caller's stream's earlier work (the model's weights), and make the
+        caller's stream wait for it in turn, without a host sync."""
+        if self._stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        with torch.cuda.stream(self._stream):
+            yield
+        caller.wait_stream(self._stream)
 
     def _recycle(self, pages):
         # no quarantine: see the module docstring
@@ -284,15 +402,13 @@ class ContinuousBatchingEngine:
 
     # ----------------------------------------------------------- sampling
 
-    def _sample(self, logits, reqs, offset):
-        """Token per row of ``logits``; row i belongs to ``reqs[i]`` (None
-        for idle rows) and draws stream index ``token_base + len(tokens)
-        + offset``."""
+    def _sample(self, logits, reqs):
+        """Token per row of ``logits``; row i belongs to ``reqs[i]`` and
+        draws stream index ``token_base + len(tokens)``."""
         seeds = None
         if self.do_sample:
-            seeds = [0 if r is None else stream_seed(
-                self._seed, _stream_id(r.rid),
-                r.token_base + len(r.tokens) + offset) for r in reqs]
+            seeds = [stream_seed(self._seed, _stream_id(r.rid),
+                                 r.token_base + len(r.tokens)) for r in reqs]
         return _sample_rows(logits, seeds, self.temperature, self.top_k,
                             self.top_p, not self.do_sample)
 
@@ -336,7 +452,7 @@ class ContinuousBatchingEngine:
                         if self._use_prefix else None)
         self._slot_pages: list[list] = [[] for _ in range(self.max_slots)]
         self._tables_np[:self.max_slots] = self._dump_page
-        self._tables_dev = None
+        self._tables_dirty = True
         self._slot_adm = [0] * self.max_slots  # admission order per slot
         self._adm_seq = 0
         self._resume_base: dict[int, int] = {}
@@ -357,6 +473,17 @@ class ContinuousBatchingEngine:
         self._dispatches = {"prefill": 0, "resume": 0, "chunk": 0,
                             "final_chunk": 0, "cow_pages": 0}
         self._auto_rid = 0
+        # pipeline state: at most ONE dispatched, unconsumed segment;
+        # ``_dirty`` marks host changes of the mask that the device cannot
+        # see (abort, deadline retirement, preemption): the next turn
+        # drains and dispatches from the host view
+        self._inflight = None
+        self._dirty = False
+        # host gap: from the end of one segment's bookkeeping to the next
+        # dispatch
+        self._gap_sum = 0.0
+        self._gap_n = 0
+        self._t_host0 = None
         self._t0 = time.monotonic()
         return self
 
@@ -383,8 +510,12 @@ class ContinuousBatchingEngine:
         return req
 
     def has_work(self) -> bool:
-        return bool(self._queue) or any(
-            r is not None for r in self._slot_req)
+        """Queued or seated requests, or a segment still in flight (after
+        the last live request is aborted mid-pipeline, one more ``step()``
+        consumes it)."""
+        return (bool(self._queue)
+                or any(r is not None for r in self._slot_req)
+                or self._inflight is not None)
 
     def free_slots(self) -> int:
         return sum(r is None for r in self._slot_req)
@@ -407,6 +538,11 @@ class ContinuousBatchingEngine:
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.rid == rid:
                 self._retire(req, status, slot=slot)
+                if self._inflight is not None:
+                    # the segment in flight still decodes this slot: its
+                    # emissions are dropped at consume, and the next
+                    # dispatch starts from the repaired host mask
+                    self._dirty = True
                 return req
         return None
 
@@ -462,7 +598,7 @@ class ContinuousBatchingEngine:
         n = len(group)
         last = logits[torch.arange(n, device=dev),
                       torch.tensor(true_lens[:n] - 1, device=dev)]
-        tok0 = self._sample(last, [req for _, req in group], 0).cpu().numpy()
+        tok0 = self._sample(last, [req for _, req in group]).cpu().numpy()
         for i, (slot, req) in enumerate(group):
             self._finish_admit(slot, req, tok0[i], finished)
 
@@ -591,22 +727,69 @@ class ContinuousBatchingEngine:
             # seated)
             self._retire(req, "timed_out", finished, slot=slot)
 
+    # ------------------------------------------------- the decode segment
+
+    def _program(self, seg):
+        """The decode program of segment length ``seg``, built at first
+        use: on a CUDA engine that captures, its graph is captured now."""
+        prog = self._programs.get(seg)
+        if prog is None:
+            prog = _DecodeSegment(seg, self.max_slots, self._vocab,
+                                  self.device, self.do_sample)
+            if self._stream is not None and type(self)._capture_decode:
+                self._capture(prog)
+            self._programs[seg] = prog
+        return prog
+
+    def _capture(self, prog):
+        """Capture ``prog``'s segment as one CUDA graph on the engine's
+        stream. The segment runs once eagerly first, on idle slots (every
+        row on the dump page, inactive), so that the paged-decode and
+        megakernel workspaces and cuBLAS's exist for this stream; the
+        decode state is restored after, and the table uploaded again at
+        the next dispatch. That run's launches count as launches; the
+        capture's do not: they are recorded as the graph's, and each
+        replay credits them to ``launch_counts``."""
+        state = (self._d_tok, self._d_lengths, self._d_active,
+                 self._d_limits)
+        saved = [t.clone() for t in state]
+        self._d_tables.fill_(self._dump_page)
+        self._d_active.zero_()
+        self._tables_dirty = True
+        self._segment_body(prog)
+        before = Counter(_build.launch_counts)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream):
+            self._segment_body(prog)
+        prog.launches = Counter(_build.launch_counts) - before
+        _build.launch_counts.clear()
+        _build.launch_counts.update(before)
+        prog.graph = graph
+        for t, value in zip(state, saved):
+            t.copy_(value)
+
     @torch.no_grad()
-    def _segment_round(self, mask, finished):
-        """One decode segment over all slots (``mask`` marks the live
-        ones), then the host bookkeeping: append emissions, retire."""
-        dev = self.device
-        tables = self._tables_device()
-        limits = torch.tensor(self._limits, device=dev)
-        tok = torch.tensor(self._cur_tok, device=dev)
-        lengths = torch.tensor(self._lengths, device=dev)
-        active = torch.tensor(mask, device=dev)
+    def _segment_body(self, prog):
+        """``prog.seg`` decode steps over all slots from the static state:
+        frozen slots re-emit their token and do not advance, a slot
+        deactivates at its budget and at EOS. Writes ``prog.out`` and
+        leaves the final tokens, lengths and mask in the state buffers.
+        Nothing here syncs the host, so a CUDA graph can capture it."""
+        seg = prog.seg
+        tables, limits = self._d_tables, self._d_limits
+        tok, lengths, active = self._d_tok, self._d_lengths, self._d_active
         emitted, was_active = [], []
         with megakernel_scope(self._megakernel):
-            for i in range(self._segment_len):
+            for i in range(seg):
                 logits = self.model(tok[:, None],
                                     caches=self._caches(tables, lengths))
-                nxt = self._sample(logits[:, -1], self._slot_req, i)
+                last = logits[:, -1]
+                if self.do_sample:
+                    nxt = _sample_with_noise(last, prog.noise[i],
+                                             self.temperature, self.top_k,
+                                             self.top_p)
+                else:
+                    nxt = torch.argmax(last, dim=-1)
                 nxt = torch.where(active, nxt, tok)  # frozen slots re-emit
                 new_lengths = torch.where(active, lengths + 1, lengths)
                 # deactivate at the per-slot budget: a slot never advances
@@ -617,16 +800,92 @@ class ContinuousBatchingEngine:
                 emitted.append(nxt)
                 was_active.append(active)
                 tok, lengths, active = nxt, new_lengths, new_active
+        out = prog.out
+        out[:seg] = torch.stack(emitted)
+        out[seg:2 * seg] = torch.stack(was_active)
+        out[2 * seg] = tok
+        out[2 * seg + 1] = lengths
+        out[2 * seg + 2] = active
+        self._d_tok.copy_(tok)
+        self._d_lengths.copy_(lengths)
+        self._d_active.copy_(active)
+
+    def _stage_noise(self, prog, offset):
+        """Fill ``prog.noise`` for the seated slots: step i of slot s draws
+        from its request's stream at index ``token_base + len(tokens) +
+        offset + i`` (``offset`` skips the emissions of a segment still
+        in flight), as the eager sampler draws it."""
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                continue
+            base = req.token_base + len(req.tokens) + offset
+            sid = _stream_id(req.rid)
+            _fill_noise(prog.noise[:, slot],
+                        [stream_seed(self._seed, sid, base + i)
+                         for i in range(prog.seg)])
+
+    def _dispatch_segment(self, mask, speculative=False):
+        """Dispatch one decode segment without waiting for it. A sync
+        dispatch uploads the host view (tokens, lengths, ``mask``, budgets)
+        first; a speculative one runs from the previous segment's final
+        state, left in the buffers, and skips its emissions in the
+        sampling streams. Returns the handle that :meth:`_consume` reads."""
+        now = time.monotonic()
+        if self._t_host0 is not None:
+            self._gap_sum += now - self._t_host0
+            self._gap_n += 1
+            self._t_host0 = None
+        seg = self._segment_len
+        prog = self._program(seg)
+        if self.do_sample:
+            self._stage_noise(prog, seg if speculative else 0)
+        if self._tables_dirty:
+            self._upload(self._d_tables, self._tables_np[:self.max_slots])
+            self._tables_dirty = False
+        if not speculative:
+            self._upload(self._d_tok, self._cur_tok)
+            self._upload(self._d_lengths, self._lengths)
+            self._upload(self._d_active, mask)
+            self._upload(self._d_limits, self._limits)
+        if prog.graph is not None:
+            prog.graph.replay()
+            _build.launch_counts.update(prog.launches)
+        else:
+            self._segment_body(prog)
+        turn = prog.turn
+        prog.turn ^= 1
+        host, event = prog.host[turn], prog.events[turn]
+        host.copy_(prog.out, non_blocking=event is not None)
+        if event is not None:
+            event.record(self._stream)
         self._seg_runs += 1
-        emitted = torch.stack(emitted).cpu().numpy()
-        was_active = torch.stack(was_active).cpu().numpy()
-        still_active = active.cpu().numpy()
-        self._lengths = lengths.cpu().numpy()
-        self._cur_tok = tok.cpu().numpy()
-        for slot in np.flatnonzero(mask):
+        return {"host": host, "event": event, "seg": seg,
+                "mask": np.array(mask, dtype=bool)}
+
+    def _consume(self, h, finished):
+        """Wait for one dispatched segment's outputs and do its host
+        bookkeeping: mirror lengths and tokens, append emissions, retire
+        finished slots."""
+        if h["event"] is not None:
+            h["event"].synchronize()
+        out = h["host"].numpy()
+        seg = h["seg"]
+        emitted, was_active = out[:seg], out[seg:2 * seg]
+        still_active = out[2 * seg + 2]
+        self._cur_tok = out[2 * seg].copy()
+        self._lengths = out[2 * seg + 1].astype(np.int32)
+        # slots freed while this segment was in flight (abort, deadline)
+        # stay at the idle length: the device view still carries the dead
+        # request's advance
+        for slot, req in enumerate(self._slot_req):
+            if req is None:
+                self._lengths[slot] = 1
+        for slot in np.flatnonzero(h["mask"]):
             req = self._slot_req[slot]
+            if req is None:
+                continue
             toks = req.tokens
-            for s in range(self._segment_len):
+            for s in range(seg):
                 if not was_active[s, slot] or len(toks) >= req.max_new_tokens:
                     break
                 toks.append(int(emitted[s, slot]))
@@ -636,14 +895,67 @@ class ContinuousBatchingEngine:
                         and toks[-1] == self.eos_token_id)
                     or not still_active[slot]):
                 self._retire(req, "ok", finished, slot=slot)
+        self._t_host0 = time.monotonic()
+
+    def _drain_pipeline(self, finished):
+        """Consume the segment in flight, if any, so that the host view of
+        slots and lengths is current: before admission, and before any
+        change of the mask the device cannot see."""
+        h, self._inflight = self._inflight, None
+        self._dirty = False
+        if h is not None:
+            self._consume(h, finished)
+
+    def _segment_round(self, mask, finished):
+        """The serial turn: dispatch one segment, wait, consume."""
+        if mask.any():
+            self._consume(self._dispatch_segment(mask), finished)
+
+    def _pipelined_round(self, mask, finished):
+        """One overlapped turn: dispatch the next segment before consuming
+        the previous one, so the device computes segment N+1 while the
+        host does segment N's bookkeeping. The speculative dispatch runs
+        from segment N's final state on the device: retirements the device
+        decided (EOS, budget) ride its mask; host-only changes drain first
+        (``step``)."""
+        prev = self._inflight
+        if prev is None:
+            self._inflight = self._dispatch_segment(mask)
+            return
+        seg = self._segment_len
+        # speculate only when some slot can outlive the segment in flight
+        # (EOS aside): otherwise every masked slot retires when ``prev`` is
+        # consumed and the speculative segment would be waste
+        spec_worthy = any(
+            self._slot_req[s] is not None
+            and len(self._slot_req[s].tokens) + seg
+            < self._slot_req[s].max_new_tokens
+            for s in np.flatnonzero(mask))
+        if not spec_worthy:
+            self._drain_pipeline(finished)
+            return
+        self._inflight = self._dispatch_segment(mask, speculative=True)
+        self._consume(prev, finished)
 
     def step(self):
         """One scheduler turn: admit queued requests into free slots (one
         prefill per prompt bucket, one resume per tail bucket, chunked
         prefill for long prompts), grow or preempt pages, run one decode
-        segment, then retire expired requests. Returns the requests that
-        finished in this turn."""
+        segment (overlapped with the previous segment's bookkeeping when
+        pipelined), then retire expired requests. Returns the requests
+        that finished in this turn (one segment behind the device when
+        pipelined)."""
+        with self._device_turn():
+            return self._step()
+
+    def _step(self):
         finished: list[Request] = []
+        # admission and mask repair need a current host view: consume the
+        # segment in flight first (a prefill rewrites a freed slot's
+        # pages; the segment in flight was built on the old mask)
+        if self._inflight is not None and (
+                self._dirty or (self._queue and self.free_slots() > 0)):
+            self._drain_pipeline(finished)
         # admission: FIFO, bounded by free slots and free pool pages; a
         # head the pool cannot serve defers the whole queue (no skipping
         # ahead: small requests must not starve a big one)
@@ -717,15 +1029,28 @@ class ContinuousBatchingEngine:
         if mask.any():
             self._occ_sum += float(mask.mean())
             self._occ_n += 1
-            self._segment_round(mask, finished)
+            if self._pipeline:
+                self._pipelined_round(mask, finished)
+            else:
+                self._segment_round(mask, finished)
+        elif self._inflight is not None:
+            # nothing live in the host view, a segment still in flight
+            # (every slot retired at the last consume): drain it
+            self._drain_pipeline(finished)
         # deadlines between segments: an expired slot retires with its
         # partial output; queued requests that expired while waiting
         # drain the same way; a run deadline retires everything left
+        retired_slot = False
         for slot in range(self.max_slots):
             req = self._slot_req[slot]
             if req is not None and (req.deadline.expired()
                                     or self._run_deadline.expired()):
                 self._retire(req, "timed_out", finished, slot=slot)
+                retired_slot = True
+        if retired_slot and self._inflight is not None:
+            # the device cannot see a deadline: drain and dispatch from the
+            # host view next turn
+            self._dirty = True
         if self._queue:
             waiting: deque[Request] = deque()
             for req in self._queue:
@@ -739,6 +1064,12 @@ class ContinuousBatchingEngine:
         return finished
 
     # ------------------------------------------------ dynamic page pool
+
+    def _growth_horizon(self) -> int:
+        """Positions the next dispatch may write past a slot's host-view
+        length: one segment, or two when pipelined (the segment in flight
+        and the speculative one)."""
+        return self._segment_len * (2 if self._pipeline else 1)
 
     def _plan_admission(self, req):
         """Page plan for admitting ``req``: match its prompt against the
@@ -773,7 +1104,7 @@ class ContinuousBatchingEngine:
         remaining = req.max_new_tokens - len(req.tokens)
         final_len = max(P + remaining - 1, P)
         want_tokens = (final_len if req.preempted
-                       else min(P + self._segment_len, final_len))
+                       else min(P + self._growth_horizon(), final_len))
         check_needed = max(-(-want_tokens // page), total) - len(shared)
         if self._pool.available() < check_needed:
             if self._prefix is not None:
@@ -793,11 +1124,12 @@ class ContinuousBatchingEngine:
         return shared, m, cow_src, newp
 
     def _ensure_pages(self, finished):
-        """Grant every live slot the pages its next segment can write.
+        """Grant every live slot the pages its next dispatch can write.
         Under pool pressure: evict prefix-cache leaves, then preempt the
-        youngest slot back to the queue, until the rest fit."""
-        # the serial scheduler's growth horizon: one decode segment
-        horizon = self._segment_len
+        youngest slot back to the queue (draining the pipeline first),
+        until the rest fit. JAX's branch that flushes its free-page
+        quarantine has no counterpart (see the module docstring)."""
+        horizon = self._growth_horizon()
         while True:
             need = []
             for slot, req in enumerate(self._slot_req):
@@ -838,6 +1170,14 @@ class ContinuousBatchingEngine:
         queue's front."""
         req = self._slot_req[slot]
         bump_counter("serving.kv_preempted")
+        if self._inflight is not None:
+            # the segment in flight still decodes this slot: consume it
+            # first (its emissions for the slot are regenerated alike
+            # after re-admission)
+            self._dirty = True
+            self._drain_pipeline(finished)
+            if self._slot_req[slot] is not req or req.status != "pending":
+                return  # retired while draining: its pages are back
         if len(req.tokens) > req.folded:
             req.prompt = np.concatenate(
                 [req.prompt, np.asarray(req.tokens[req.folded:], np.int32)])
@@ -884,10 +1224,16 @@ class ContinuousBatchingEngine:
 
     def stats(self):
         """Session stats; ``tokens_per_sec`` is useful tokens over the
-        session's wall time (0.0 for an empty session); ``megakernel``
-        says whether decode steps take the fused kernel; ``dispatches``
-        counts prefills, resumes, chunks, final chunks and copied pages;
-        ``kv`` is :meth:`kv_stats`."""
+        session's wall time (0.0 for an empty session), so an engine not
+        warmed (:meth:`warmup`) counts its first segment's capture in it;
+        ``segments`` counts every dispatched segment, speculative ones
+        included; ``host_gap_ms`` is the mean host time from finishing one
+        segment's bookkeeping to the next dispatch (``host_gap_total_s``
+        the session's total; pipelined, that work overlaps the device's);
+        ``pipelined`` says which scheduler runs; ``megakernel`` whether
+        decode steps take the fused kernel; ``dispatches`` counts
+        prefills, resumes, chunks, final chunks and copied pages; ``kv`` is
+        :meth:`kv_stats`."""
         dt = time.monotonic() - self._t0
         return {
             "tokens_per_sec": (self._useful / dt
@@ -897,6 +1243,10 @@ class ContinuousBatchingEngine:
                                if self._occ_n else 0.0),
             "segments": self._seg_runs,
             "wall_s": dt,
+            "host_gap_ms": (1e3 * self._gap_sum / self._gap_n
+                            if self._gap_n else 0.0),
+            "host_gap_total_s": self._gap_sum,
+            "pipelined": self._pipeline,
             "megakernel": self._megakernel,
             "timed_out": self._counts["timed_out"],
             "failed": self._counts["failed"],
@@ -904,6 +1254,43 @@ class ContinuousBatchingEngine:
             "dispatches": dict(self._dispatches),
             "kv": self.kv_stats(),
         }
+
+    def group_widths(self):
+        """Every admission group width: {1, 2, 4, ..., max_slots}."""
+        out = []
+        w = 1
+        while w < self.max_slots:
+            out.append(w)
+            w <<= 1
+        out.append(self.max_slots)
+        return tuple(out)
+
+    def warmup(self, segment=None):
+        """Build what the decode path needs before the first request: on
+        the card the kernel library (built once a checkout, cached on disk
+        by its sources' digest) and the CUDA graph of a decode segment of
+        ``segment`` steps (default: the last ``start(segment=...)``, else
+        16) for this engine's sampling mode. Later sessions with that
+        segment length replay it; an engine not warmed captures at its
+        first segment instead. Returns ``{"programs": graphs newly
+        captured, "cached": graphs already present, "seconds": wall}``; on
+        the CPU nothing is captured (programs 0).
+
+        JAX's ``cache_dir`` (its persistent compilation cache) has no
+        counterpart: the library is already cached on disk, and a CUDA
+        graph does not outlive its process. The prefill, chunk, resume and
+        copy dispatches run eagerly and are not captured here."""
+        t0 = time.monotonic()
+        seg = int(segment if segment is not None else self._segment_len)
+        stats = {"programs": 0, "cached": 0}
+        if self._stream is not None:
+            _build.library()
+            if type(self)._capture_decode:
+                stats["cached" if seg in self._programs else "programs"] += 1
+                with self._device_turn():
+                    self._program(seg)
+        stats["seconds"] = time.monotonic() - t0
+        return stats
 
     def run(self, prompts, max_new_tokens, segment=16,
             request_deadline_s=None, timeout_s=None):

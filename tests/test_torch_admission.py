@@ -269,7 +269,7 @@ def engines(models):
     finally:
         paddle.set_flags(flags)
     before = resilience.counters()
-    eng = ContinuousBatchingEngine(tm, **ENGINE)
+    eng = ContinuousBatchingEngine(tm, pipeline=False, **ENGINE)
     reqs = _drive(eng, prompts)
     after = resilience.counters()
     port_run = (reqs, eng.kv_stats(),

@@ -11,7 +11,10 @@ bias-dropout-residual-
 LayerNorm kernel at BERT-base's shape, in f32, at odd widths and off
 alignment; the segment-masked flash kernels with seq_lens, packed ids and
 a pair), the refusals of what the kernels do not take, a tiny model
-served fused and unfused, a tiny model trained on the card, the incubate
+served fused and unfused, its decode segments replayed from captured
+CUDA graphs against the eager serial engine (streams, launches credited
+per replay, a capture mid-session, an abort in flight and the reuse of
+its pages), a tiny model trained on the card, the incubate
 layer and a small BERT trained on the card.
 
 Every test here needs a GPU and skips without one (the marker ``cuda``).
@@ -688,6 +691,9 @@ def test_tiny_model_serves_fused_and_unfused_on_card(gen):
         eng = ContinuousBatchingEngine(card, max_slots=2, max_len=128,
                                        page_size=16, prompt_buckets=(16, 64),
                                        decode_megakernel=mode)
+        # the capture's eager warm-up segment launches too: before the
+        # counts are zeroed
+        eng.warmup(segment=3)
         launch_counts.clear()
         outs, stats = eng.run(prompts, max_new_tokens=6, segment=3)
         torch.cuda.synchronize()
@@ -702,6 +708,147 @@ def test_tiny_model_serves_fused_and_unfused_on_card(gen):
         else:
             assert launch_counts["fused_decode_layer"] == 0
             assert launch_counts["paged_attention"] > 0
+
+
+def _tiny_card_model():
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256)
+    return LlamaForCausalLM(cfg, dtype=torch.bfloat16,
+                            generator=seed(0, "cuda"))
+
+
+def _eager_serial_engine():
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+
+    class EagerSerial(ContinuousBatchingEngine):
+        _capture_decode = False
+
+    return EagerSerial
+
+
+@pytest.mark.parametrize("mode", [1, 0])
+def test_captured_segment_credits_an_eager_segments_launches(gen, mode):
+    """A decode segment's graph records the launches of its capture, and
+    each replay credits them: they equal the launches of the same segment
+    run eagerly, and a run's fused launches are layers x decode steps
+    with speculative segments counted."""
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    card = _tiny_card_model()
+    eng = ContinuousBatchingEngine(card, max_slots=2, max_len=128,
+                                   page_size=16, prompt_buckets=(16, 64),
+                                   decode_megakernel=mode)
+    assert eng.warmup(segment=3)["programs"] == 1
+    again = eng.warmup(segment=3)
+    assert again["programs"] == 0 and again["cached"] == 1
+    prog = eng._programs[3]
+    assert prog.graph is not None and sum(prog.launches.values()) > 0
+    launch_counts.clear()
+    with eng._device_turn():
+        eng._segment_body(prog)
+    torch.cuda.synchronize()
+    assert dict(launch_counts) == dict(prog.launches)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 256, (n,)).astype(np.int32)
+               for n in (5, 30, 12, 64, 3)]
+    launch_counts.clear()
+    _, stats = eng.run(prompts, max_new_tokens=9, segment=3)
+    torch.cuda.synchronize()
+    steps = stats["segments"] * 3
+    assert stats["pipelined"]
+    name = "fused_decode_layer" if mode else "paged_attention"
+    assert launch_counts[name] == 2 * steps
+
+
+@pytest.mark.parametrize("do_sample", [False, True])
+def test_captured_pipelined_engine_matches_eager_serial_on_card(gen,
+                                                                do_sample):
+    """The default engine (pipelined, decode segments replayed from
+    captured graphs) emits the eager serial engine's streams bit for bit,
+    greedy and sampled from per-request streams, fused and unfused."""
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+
+    card = _tiny_card_model()
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, 256, (n,)).astype(np.int32)
+               for n in (5, 30, 12, 64, 3, 17, 9)]
+    kw = dict(max_slots=3, max_len=128, page_size=16, prompt_buckets=(16, 64),
+              do_sample=do_sample, top_k=20, top_p=0.9, seed=4)
+    for mode in (1, 0):
+        want, _ = _eager_serial_engine()(
+            card, pipeline=False, decode_megakernel=mode, **kw).run(
+            prompts, max_new_tokens=12, segment=4)
+        got, stats = ContinuousBatchingEngine(
+            card, decode_megakernel=mode, **kw).run(
+            prompts, max_new_tokens=12, segment=4)
+        assert stats["pipelined"] and stats["statuses"] == ["ok"] * 7
+        for i, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(g, w, err_msg=f"{mode} {i}")
+
+
+def test_capture_mid_session_keeps_the_streams_on_card(gen):
+    """A capture while a speculative segment is in flight (``warmup`` of
+    another segment length mid-session) restores the decode state the
+    next replay continues from: the streams equal the eager serial
+    engine's."""
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+
+    card = _tiny_card_model()
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, 256, (n,)).astype(np.int32)
+               for n in (5, 30, 12)]
+    kw = dict(max_slots=3, max_len=128, page_size=16, prompt_buckets=(16, 64))
+    want, _ = _eager_serial_engine()(card, pipeline=False, **kw).run(
+        prompts, max_new_tokens=20, segment=4)
+    eng = ContinuousBatchingEngine(card, **kw)
+    eng.start(segment=4)
+    reqs = [eng.submit(p, 20, rid=i) for i, p in enumerate(prompts)]
+    eng.step()
+    eng.step()
+    assert eng._inflight is not None
+    assert eng.warmup(segment=5)["programs"] == 1
+    while eng.has_work():
+        eng.step()
+    for i, (r, w) in enumerate(zip(reqs, want)):
+        np.testing.assert_array_equal(r.output(), w, err_msg=f"{i}")
+
+
+def test_abort_in_flight_then_reuse_the_freed_pages_on_card(gen):
+    """On the card a segment in flight really runs after the host freed
+    the aborted slot's pages: the request granted those pages next still
+    emits its stream from a fresh engine."""
+    from paddle_tpu_torch.models import ContinuousBatchingEngine
+
+    card = _tiny_card_model()
+    rng = np.random.RandomState(2)
+    p_long, p_next = (rng.randint(0, 256, (n,)).astype(np.int32)
+                      for n in (20, 9))
+    kw = dict(max_slots=1, max_len=128, page_size=16, prompt_buckets=(16, 64),
+              pool_pages=8, prefix_cache=False)
+    eng = ContinuousBatchingEngine(card, **kw)
+    eng.start(segment=8)
+    eng.submit(p_long, 100, rid=0)
+    eng.step()
+    eng.step()
+    assert eng._inflight is not None
+    freed = list(eng._slot_pages[0])
+    eng.abort(0)
+    nxt = eng.submit(p_next, 30, rid=1)
+    eng.step()
+    assert set(eng._slot_pages[0]) <= set(freed)
+    while eng.has_work():
+        eng.step()
+    fresh = ContinuousBatchingEngine(card, **kw)
+    fresh.start(segment=8)
+    want = fresh.submit(p_next, 30, rid=1)
+    while fresh.has_work():
+        fresh.step()
+    np.testing.assert_array_equal(nxt.output(), want.output())
 
 
 def test_tiny_model_trains_on_card_through_the_backward_kernels(gen):

@@ -1,6 +1,7 @@
 """The port's dynamic page pool, prefix cache, preemption, deadlines and
-abort, drilled on its own engine (the JAX engine comparison is in
-test_torch_admission.py).
+abort, drilled on its own serial engine (``pipeline=False``; the JAX
+engine comparison is in test_torch_admission.py, the pipelined engine's
+drills in test_torch_pipeline.py).
 
 The drills mirror ``tests/test_kv_pool.py`` on the same tiny LLaMA
 shape, built by the port from a seed on the CPU: each stream is held to
@@ -54,6 +55,7 @@ def _engine(model, **kw):
     kw.setdefault("page_size", 32)
     kw.setdefault("prompt_buckets", (16, 32, 64))
     kw.setdefault("seed", 7)
+    kw.setdefault("pipeline", False)
     return ContinuousBatchingEngine(model, **kw)
 
 
@@ -396,12 +398,18 @@ def test_pool_must_hold_one_full_sequence(model):
         _engine(model, pool_pages=2)          # < per_seq (128/32 = 4)
 
 
-def test_pipeline_is_not_ported(model):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        _engine(model, pipeline=True)
-    for serial in (None, False):
-        assert _engine(model, pipeline=serial).run(
-            [np.arange(5, dtype=np.int32)], 3)[1]["statuses"] == ["ok"]
+def test_pipeline_default_and_true_run_pipelined(model):
+    """The pipeline is the default scheduler, as in JAX: the engine built
+    without ``pipeline`` and with ``pipeline=True`` runs it, and
+    ``pipeline=False`` the serial scheduler; all serve."""
+    for pipeline, want in (("default", True), (True, True), (False, False)):
+        kw = {} if pipeline == "default" else {"pipeline": pipeline}
+        eng = ContinuousBatchingEngine(model, max_slots=4, max_len=128,
+                                       page_size=32, prompt_buckets=(16,),
+                                       **kw)
+        _, stats = eng.run([np.arange(5, dtype=np.int32)], 3)
+        assert stats["statuses"] == ["ok"]
+        assert stats["pipelined"] is want
 
 
 def test_token_base_offsets_the_sampling_stream(model):

@@ -1,34 +1,39 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's serving time goes, on one GPU, fused and
-unfused.
+"""Where the PyTorch port's serving time goes, on one GPU: fused and
+unfused, each on the default engine (pipelined, every decode segment one
+replay of a captured CUDA graph) and on the eager serial reference.
 
     python3 tools/torch_serving_profile.py
-        [--model llama-438m|phi3|mistral-large] [--arms unfused,fused]
-        [--root DIR]
+        [--model llama-438m|phi3|mistral-large]
+        [--arms unfused,fused,unfused-eager,fused-eager] [--root DIR]
 
 Runs chip_smoke.py's serving workload (``serving_workload``: the 438M
 LLaMA in bf16, random weights from a seed; 8 slots, max_len 512, page 128,
 buckets (32, 128); 24 requests of 8-119 prompt tokens from
 np.random.RandomState(7), 64 new tokens each, greedy, segments of 32) in
-two arms on one model: unfused (``decode_megakernel=0``) and fused (each
-decoder layer's attention half one megakernel launch). Each arm runs the
-workload twice after the engine's warm run: once plain, for the wall time
-and tokens/s, and once under torch.profiler, for the device time by
-kernel. Prints one JSON object with, per arm: wall and device time per
-decode step (prefill included, spread over the decode steps), the
-device's idle share of the profiled run, device time grouped into the
-port's kernels, GEMMs and the rest, and kernel launches per decode step.
+arms on one model: unfused (``decode_megakernel=0``) and fused (each
+decoder layer's attention half one megakernel launch), on the default
+engine, and with ``-eager`` on chip_smoke.py's eager serial reference
+engine (the serial scheduler, each decode step's launches issued from
+Python). Each arm runs the workload twice after the engine's warm-up
+(``warmup()`` and a warm run): once plain, for the wall time and
+tokens/s, and once under torch.profiler, for the device time by kernel.
+Prints one JSON object with, per arm: wall and device time per decode
+step (prefill included, spread over the decode steps), the device's idle
+share of the profiled run, device time grouped into the port's kernels,
+GEMMs and the rest, the kernels the device ran a decode step, and the
+host's launch calls a decode step (kernel and graph launches).
 ``--model phi3`` runs chip_smoke.py's phi3-serve model instead (32 layers
 at Phi-3-mini's widths, ``CFG_PHI3``), whose fused arm takes the decode
 megakernel at head dim 96; ``--model mistral-large`` its
 mistral-large-serve model (``CFG_MISTRAL_LARGE``, 96 heads of 128 on 8 kv
 heads, cut to ``MISTRAL_LARGE_LAYERS`` = 4 of 88 layers), which decodes
 unfused in both arms (the probe declines hidden 12288), so it runs the
-unfused arm alone unless ``--arms`` says otherwise. ``--arms`` picks the
+unfused arms alone unless ``--arms`` says otherwise. ``--arms`` picks the
 arms (comma-separated). ``--root DIR`` imports ``paddle_tpu_torch`` from
-DIR (a parent tree unpacked under a directory that .gitignore lists),
-with this checkout's chip_smoke.py driving it, so that two trees can be
-profiled in one call.
+DIR (a parent tree unpacked under a directory that .gitignore lists,
+whose engine has ``warmup()``), with this checkout's chip_smoke.py
+driving it, so that two trees can be profiled in one call.
 """
 from __future__ import annotations
 
@@ -68,8 +73,9 @@ def group_of(name):
     return "other"
 
 
-def profile_arm(cs, model, fused):
-    eng, prompts = cs.serving_workload(model, decode_megakernel=int(fused))
+def profile_arm(cs, model, fused, eager):
+    eng, prompts = cs.serving_workload(model, decode_megakernel=int(fused),
+                                       eager=eager)
     run = dict(max_new_tokens=cs.SERVE_NEW_TOKENS, segment=cs.SERVE_SEGMENT)
     torch.cuda.synchronize()
     _, stats = eng.run(prompts, **run)
@@ -82,8 +88,10 @@ def profile_arm(cs, model, fused):
         _, pstats = eng.run(prompts, **run)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    groups, kernels, busy_us, launches = {}, {}, 0.0, 0
+    groups, kernels, busy_us, launches, host_calls = {}, {}, 0.0, 0, 0
     for e in prof.key_averages():
+        if e.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch")):
+            host_calls += e.count
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             us = float(getattr(e, "self_device_time_total", 0.0))
             busy_us += us
@@ -96,6 +104,8 @@ def profile_arm(cs, model, fused):
     steps = stats["segments"] * cs.SERVE_SEGMENT
     psteps = pstats["segments"] * cs.SERVE_SEGMENT
     return {
+        "engine": "eager serial" if eager else "captured pipelined",
+        "pipelined": stats["pipelined"],
         "megakernel": stats["megakernel"],
         "tokens_per_sec": stats["tokens_per_sec"], "wall_s": stats["wall_s"],
         "decode_steps": steps,
@@ -107,6 +117,7 @@ def profile_arm(cs, model, fused):
         "device_idle_share": (1.0 - busy_us / 1e6 / prof_wall
                               if busy_us else None),
         "kernel_launches_per_decode_step": launches / psteps,
+        "host_launch_calls_per_decode_step": host_calls / psteps,
         "fused_decode_layer_share": groups.get("fused_decode_layer", 0.0)
         / busy_us if busy_us else None,
         "device_s_by_group": {k: v / 1e6 for k, v in sorted(
@@ -122,7 +133,8 @@ def main():
                                             "mistral-large"),
                         default="llama-438m")
     parser.add_argument("--arms", default=None,
-                        help="comma-separated, of unfused and fused")
+                        help="comma-separated, of unfused, fused, "
+                             "unfused-eager and fused-eager")
     parser.add_argument("--root", type=Path, default=ROOT)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -142,11 +154,13 @@ def main():
                              "num_hidden_layers": cs.MISTRAL_LARGE_LAYERS},
            }[args.model]
     arms = (args.arms.split(",") if args.arms else
-            ["unfused"] if args.model == "mistral-large"
-            else ["unfused", "fused"])
+            ["unfused", "unfused-eager"] if args.model == "mistral-large"
+            else ["unfused", "unfused-eager", "fused", "fused-eager"])
     model = LlamaForCausalLM(LlamaConfig(**cfg), dtype=torch.bfloat16,
                              generator=seed(0, "cuda"))
-    out = {arm: profile_arm(cs, model, arm == "fused") for arm in arms}
+    out = {arm: profile_arm(cs, model, arm.startswith("fused"),
+                            arm.endswith("-eager"))
+           for arm in arms}
     print(json.dumps({"card": torch.cuda.get_device_name(0),
                       "nvidia_smi": cs.smi_line(), "model": args.model,
                       "root": str(args.root), "arms": out}), flush=True)
