@@ -86,6 +86,21 @@ so that a fault surfaces in the phase that caused it:
             the step's time beside the per-document loop of the unmasked
             kernels, the dense-mask SDPA and ``varlen_attn``; a
             torch.profiler split; each [seg] kernel timed at this shape.
+5a. adam-kernel  the multi-tensor Adam kernel (csrc/multi_tensor_adam.cu)
+            against its plain version through the optimizer (the same
+            groups, clips and state; ``plain_optimizer``), 3 steps on
+            seeded gradients, on five parameter lists: the 438M's under
+            AdamW(multi_precision) (bf16, f32 masters and moments), the
+            1.28B's under bench.py (b2)'s AdamW (acc_dtype bf16: bf16
+            moment1), the 438M's in f32 (no master), in f32 with
+            acc_dtype bf16, and odd sizes in bf16 under Adam without
+            multi_precision (coupled decay, two groups, a global-norm
+            clip that bites in each); f32 values within 1e-6 relative,
+            bf16 stores within one bf16 ulp, one launch a step; then the
+            launch alone: a CUDA graph replay against the eager launch
+            bit for bit, its time (a graph), the plain version's, its
+            bound (bytes an element: 28 with f32 moments and masters) and
+            ``torch._fused_adamw_`` over the same elements in f32.
 6. model    the 438M LLaMA (random N(0, 0.02) weights from a seed) in bf16
             on the card against the same weights in f32 on the CPU through
             the plain versions: one bucket-128 prefill of 2 prompts and 4
@@ -162,6 +177,20 @@ so that a fault surfaces in the phase that caused it:
             memory, losses (finite, falling, the first near ln 32000), and
             the launches of the path's seven kernels in one step, zeroed
             just before it and read just after.
+9a. llama-large-train  bench.py section (b2) as written: the 1.28B LLaMA
+            (CFG_LLAMA_LARGE: hidden 2048, 24 layers, 16 heads, use_
+            recompute, tied embeddings) in bf16, AdamW(lr 1e-4,
+            multi_precision, acc_dtype="bfloat16"), TrainStep(model,
+            lambda loss: loss, opt) stepped as step(ids, None, None, ids),
+            batch 2 x seq 2048 ids from np.random.RandomState(0): first a
+            2-layer copy's loss and gradients with and without recompute,
+            bit for bit; then a warm-up step with its launches counted
+            and 4 steps timed by CUDA events: step ms, tokens/s, MFU,
+            peak memory, losses (finite, falling, the first within 1.0
+            of ln 32000); gated on every training kernel's exact count a
+            step (flash forward and RoPE 2 L, RMSNorm forward 4 L + 1
+            with recompute's second forward, the backward kernels L or
+            2 L + 1, the update once) and nothing else.
 10. incubate FusedBiasDropoutResidualLayerNorm(768, dropout 0.1) in bf16 on
             (32, 128, 768): three forward and backward passes, which must
             launch the kernel three times (counts zeroed just before,
@@ -177,8 +206,9 @@ so that a fault surfaces in the phase that caused it:
             step ms, tokens/s, MFU, peak memory, losses (finite, falling,
             the first near ln 30522 + ln 2, each within 5e-2 relative of
             the same steps in f32 on the card through the plain versions
-            only), and one step's launches: flash forward, dK/dV and dQ
-            12 each; RMSNorm and RoPE none.
+            only, the update's included), and one step's launches: flash
+            forward, dK/dV and dQ 12 each, the update once; RMSNorm and
+            RoPE none.
 13. head-dims  the kernels at the widths off 64 and 128, each against
             its plain version within the kernel gate and timed beside its
             bound, the plain version and F.scaled_dot_product_attention:
@@ -266,8 +296,8 @@ so that a fault surfaces in the phase that caused it:
             step ms, tokens/s, MFU against the bf16 peak and the f32 FMA
             peak, peak memory, losses (finite, falling, the first within
             1.0 of ln 32000), and one step's launches: the seven [f32]
-            training kernels at 25/25/12/12/12/12/12 and nothing else;
-            then the three f32 phases' seconds.
+            training kernels at 25/25/12/12/12/12/12, the update once and
+            nothing else; then the three f32 phases' seconds.
 22. kernels one JSON line listing every ported kernel, with the unfused
             serving arm's launches for the serving kernels, the fused
             arm's for the megakernel, the LLaMA training step's for the
@@ -281,8 +311,11 @@ so that a fault surfaces in the phase that caused it:
             arm for fused_decode_layer[f32], f32-train's for the four
             [f32] backward rows, and kv-e9's long-prompt run for
             fused_rope[pos=1535] and fused_decode_layer[len=1535] (its
-            unfused arm's for paged_attention[len=1536]); before it,
-            the whole script's time.
+            unfused arm's for paged_attention[len=1536]),
+            llama-large-train's for multi_tensor_adam (timed at the
+            1.28B's parameters) and f32-train's for
+            multi_tensor_adam[f32] (timed at the 438M's in f32); before
+            it, the whole script's time.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero, and so
@@ -2118,7 +2151,7 @@ def grad_phase(base=CFG_438M, phase="grad", dtype=torch.bfloat16):
 
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope", "fused_rope_bwd",
                  "flash_attention", "flash_attention_bwd_dkdv",
-                 "flash_attention_bwd_dq")
+                 "flash_attention_bwd_dq", "multi_tensor_adam")
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1536, 5
@@ -2221,10 +2254,364 @@ def train_phase(name, smi, peaks, base=CFG_438M, phase="train",
     if f32:
         layers = cfg.num_hidden_layers
         want = {k + tag: (2 * layers + 1 if k.startswith("rms_norm")
-                          else layers) for k in TRAIN_KERNELS}
+                          else 1 if k == "multi_tensor_adam" else layers)
+                for k in TRAIN_KERNELS}
         if counts != want or others:
             raise PhaseFailed(f"{phase}: launches {counts} (want {want}), "
                               f"others {others}")
+    return counts
+
+
+# ---- the optimizer's update: the multi-tensor Adam kernel
+# (csrc/multi_tensor_adam.cu), and bench.py section (b2)
+
+# kernel against plain: f32 work values to 1e-6 relative (the same IEEE
+# operations in the same order; powf may differ by an ulp), bf16 work
+# values (Adam without multi_precision, as JAX runs it in bf16) and bf16
+# moment1 stores within one bf16 ulp
+ADAM_F32_TOL, ADAM_BF16_TOL = (1e-9, 1e-6), (1e-6, 2.0 ** -8)
+ADAM_STEPS = 3
+# bench.py (b2) (bench.py:240-262): the 1.28B LLaMA with recompute, tied
+# embeddings, the fused lm-head CE and AdamW(acc_dtype="bfloat16")
+CFG_LLAMA_LARGE = dict(vocab_size=32000, hidden_size=2048,
+                       intermediate_size=5504, num_hidden_layers=24,
+                       num_attention_heads=16, max_position_embeddings=2048,
+                       use_recompute=True, tie_word_embeddings=True)
+LARGE_BATCH, LARGE_SEQ, LARGE_STEPS = 2, 2048, 4
+# odd sizes for the Adam case: off the 8-element vector and the chunk
+ADAM_ODD_SHAPES = [(1,), (7,), (33, 129), (16387,), (3 * 16384 + 5,),
+                   (4099, 3), (2048, 64), (513,)]
+
+
+def plain_optimizer(cls):
+    """``cls`` (Adam or AdamW) with its update through the plain version on
+    every device: the same parameter groups, clips, state and launch
+    groups, no kernel."""
+    from paddle_tpu_torch.ops.cuda.multi_tensor_adam import (
+        multi_tensor_adam_plain,
+    )
+
+    class Plain(cls):
+        def _update(self, indices, grads, slots, state):
+            for members, group in self._launch_groups(indices, slots):
+                multi_tensor_adam_plain(
+                    group, [grads[k] for k in members], state,
+                    beta1=self._beta1, beta2=self._beta2,
+                    epsilon=self._epsilon, coupled=self._coupled)
+
+    Plain.__name__ = "Plain" + cls.__name__
+    return Plain
+
+
+def llama_shapes(cfg):
+    """The parameter shapes of ``LlamaForCausalLM`` at ``cfg`` (a dict)."""
+    h, i, v = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    heads = cfg["num_attention_heads"]
+    kv = (cfg.get("num_key_value_heads") or heads) * (h // heads)
+    layer = [(h, h), (h, kv), (h, kv), (h, h), (h, i), (h, i), (i, h), (h,),
+             (h,)]
+    return ([(v, h)] + layer * cfg["num_hidden_layers"] + [(h,)]
+            + ([] if cfg.get("tie_word_embeddings") else [(h, v)]))
+
+
+def adam_cases():
+    """(case, shapes, parameter dtype, optimizer class name, optimizer
+    keywords, groups): the 438M's parameters under b-438M's AdamW; the
+    1.28B's under bench.py (b2)'s; the 438M's in f32 (no master); in f32
+    with acc_dtype bf16; odd sizes in bf16 under Adam without
+    multi_precision (bf16 work values), coupled decay, two groups (the
+    second at half the rate and its own decay) and a global-norm clip that
+    bites."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    mp = dict(learning_rate=1e-4, multi_precision=True)
+    return [
+        ("llama-438m", llama_shapes(CFG_438M), torch.bfloat16, "AdamW", mp,
+         None),
+        ("llama-1.28b", llama_shapes(CFG_LLAMA_LARGE), torch.bfloat16,
+         "AdamW", dict(mp, acc_dtype="bfloat16"), None),
+        ("f32", llama_shapes(CFG_438M), torch.float32, "AdamW", mp, None),
+        ("acc-bf16", llama_shapes(CFG_438M), torch.float32, "AdamW",
+         dict(learning_rate=1e-4, acc_dtype="bfloat16"), None),
+        ("adam-groups", ADAM_ODD_SHAPES, torch.bfloat16, "Adam",
+         dict(learning_rate=1e-3, weight_decay=0.01,
+              grad_clip=ClipGradByGlobalNorm(1e-2)),
+         [dict(), dict(learning_rate=0.5, weight_decay=0.1)]),
+    ]
+
+
+def adam_grads(shapes, dtype, step):
+    """Step ``step``'s gradients, drawn from a seed of their own."""
+    gen = torch.Generator(device="cuda").manual_seed(100 + step)
+    return [(1e-2 * torch.randn(s, generator=gen, device="cuda")).to(dtype)
+            for s in shapes]
+
+
+def adam_optimizer(cls, params, kw, groups):
+    if groups is None:
+        return cls(parameters=params, **kw)
+    half = len(params) // 2
+    return cls(parameters=[dict(g, params=ps) for g, ps in
+                           zip(groups, (params[:half], params[half:]))], **kw)
+
+
+def adam_state(opt, group):
+    """Every state tensor of the launch group, in a fixed order."""
+    return [t for ts in (group.params, group.masters, group.moment1,
+                         group.moment2) for t in ts if t is not None]
+
+
+def adam_case(peaks, case, shapes, dtype, cls_name, kw, groups):
+    """The update kernel against its plain version (``plain_optimizer``)
+    on the same parameters and gradients, ADAM_STEPS steps through the
+    optimizer; then the launch alone: a graph replay against the eager
+    call bit for bit, its time (a CUDA graph), the plain version's, and
+    ``torch._fused_adamw_``'s over the same elements in f32."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda import multi_tensor_adam as mta
+
+    cls = getattr(topt, cls_name)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    init = [(0.02 * torch.randn(s, generator=gen, device="cuda")).to(dtype)
+            for s in shapes]
+    sides = []
+    for c in (cls, plain_optimizer(cls)):
+        ps = [torch.nn.Parameter(p.clone()) for p in init]
+        sides.append((ps, adam_optimizer(c, ps, kw, groups)))
+    del init
+    launch_counts.clear()
+    for step in range(1, ADAM_STEPS + 1):
+        gs = adam_grads(shapes, dtype, step)
+        for ps, opt in sides:
+            for p, g in zip(ps, gs):
+                p.grad = g
+            opt.step()
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    (kps, kopt), (pps, popt) = sides
+    (kgroups,), (pgroups,) = kopt._groups.values(), popt._groups.values()
+    if len(kgroups) != 1:
+        raise PhaseFailed(f"adam-kernel {case}: {len(kgroups)} launch groups")
+    (_, group), (_, pgroup) = kgroups[0], pgroups[0]
+    f32 = group.work_dtype == torch.float32
+    atol, rtol = ADAM_F32_TOL if f32 else ADAM_BF16_TOL
+    err = 0.0
+    for a, b in zip(adam_state(kopt, group), adam_state(popt, pgroup)):
+        tol = (atol, rtol) if a.dtype == group.work_dtype else ADAM_BF16_TOL
+        err = max(err, compare(f"adam-kernel {case}", a, b, *tol))
+    tag = "[f32]" if dtype == torch.float32 else ""
+    if counts != {"multi_tensor_adam" + tag: ADAM_STEPS}:
+        raise PhaseFailed(f"adam-kernel {case}: launches {counts}")
+    n_slots = max(group.slots) + 1
+    state = kopt._state_bufs[group.device][:2 + n_slots]
+    clip_scales = state[2:].tolist()
+    if groups is not None and not (n_slots == len(groups)
+                                   and max(clip_scales) < 1):
+        raise PhaseFailed(f"adam-kernel {case}: the clip does not bite in "
+                          f"each group: scales {clip_scales}")
+    pstate = popt._state_bufs[group.device][:2 + n_slots]
+    gs = adam_grads(shapes, dtype, ADAM_STEPS + 1)
+    args = dict(beta1=kopt._beta1, beta2=kopt._beta2, epsilon=kopt._epsilon,
+                coupled=kopt._coupled)
+    numel = sum(p.numel() for p in kps)
+    calls, replays = (2, 2) if numel > 5e8 else (5, 4)
+    plain_ms = graph_ms(lambda: mta.multi_tensor_adam_plain(
+        pgroup, gs, pstate, **args), calls=calls, replays=replays)
+    del sides, pps, popt, pgroups, pgroup
+    torch.cuda.empty_cache()
+    # a graph replay of the launch gives the eager launch's bits
+    mta.multi_tensor_adam(group, gs, state, **args)  # the pointer column
+    snap = [t.clone() for t in adam_state(kopt, group)]
+    mta.multi_tensor_adam(group, gs, state, **args)
+    eager = [t.clone() for t in adam_state(kopt, group)]
+    for t, s in zip(adam_state(kopt, group), snap):
+        t.copy_(s)
+    del snap
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        mta.multi_tensor_adam(group, gs, state, **args)
+    g.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(adam_state(kopt, group),
+                                                  eager))
+    del eager, g
+    if not same:
+        raise PhaseFailed(f"adam-kernel {case}: a graph replay differs "
+                          f"from the eager launch")
+    ms = graph_ms(lambda: mta.multi_tensor_adam(group, gs, state, **args),
+                  calls=calls, replays=replays)
+    del kps, kopt
+    torch.cuda.empty_cache()
+    # the library yardstick: one fused AdamW over the same elements in f32
+    lib = [[torch.zeros(s, device="cuda") for s in shapes] for _ in range(4)]
+    steps_t = [torch.ones((), device="cuda") for _ in shapes]
+    library_ms = graph_ms(lambda: torch._fused_adamw_(
+        lib[0], lib[1], lib[2], lib[3], [], steps_t, lr=1e-4, beta1=0.9,
+        beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+        maximize=False), calls=calls, replays=replays)
+    del lib, steps_t
+    torch.cuda.empty_cache()
+    p_b = 4 if dtype == torch.float32 else 2
+    m_b = 2 if group.m1_dtype == torch.bfloat16 else 4
+    w_b = 4 if f32 else 2
+    per = (p_b + (8 + p_b if group.has_master else 2 * p_b) + 2 * m_b
+           + 2 * w_b)
+    bms, by = bound_ms(per * numel, 18 * numel, peaks, flop_rate=peaks[2])
+    row = dict(case=case, tensors=len(shapes), numel=numel,
+               dtype=str(dtype), master=group.has_master,
+               moment1=str(group.m1_dtype), work=str(group.work_dtype),
+               bytes_per_element=per, max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
+               bound_by=by, bound_share=bms / ms, graph_bits=same,
+               clip_scales=clip_scales, launches=counts)
+    emit("adam-kernel", **row)
+    return row
+
+
+def adam_kernel_phase(peaks):
+    """Phase adam-kernel: ``adam_case`` for each of ``adam_cases()``.
+    Returns the kernels line's rows: the 1.28B's (bf16 masters, bf16
+    moment1) and the 438M's in f32."""
+    t0 = time.monotonic()
+    rows = {case[0]: adam_case(peaks, *case) for case in adam_cases()}
+    emit("adam-kernel", seconds=time.monotonic() - t0)
+    return {"multi_tensor_adam": rows["llama-1.28b"],
+            "multi_tensor_adam[f32]": rows["f32"]}
+
+
+def recompute_gate(cfg, ids):
+    """2 layers at ``cfg``'s widths, bf16 on the card: the labels loss and
+    every gradient with ``use_recompute=True`` equal the run without it
+    bit for bit."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    runs, weights = [], None
+    for rec in (True, False):
+        c = LlamaConfig(**{**cfg, "num_hidden_layers": 2,
+                           "use_recompute": rec})
+        model = LlamaForCausalLM(c, device="cuda", dtype=torch.bfloat16,
+                                 generator=seed(3, "cuda"))
+        if weights is None:
+            weights = model.state_dict()
+        else:
+            model.load_state_dict(weights)
+        loss = model(ids, None, None, ids)
+        loss.backward()
+        runs.append((loss.detach(), {k: p.grad for k, p in
+                                     model.named_parameters()}))
+        del model
+    (la, ga), (lb, gb) = runs
+    torch.cuda.synchronize()
+    differ = [k for k in ga if not torch.equal(ga[k], gb[k])]
+    same = bool(torch.equal(la, lb)) and not differ
+    emit("llama-large-train", recompute_gate_layers=2, loss=float(la),
+         loss_without=float(lb), bits_equal=same, grads_differ=differ)
+    if not same:
+        raise PhaseFailed(f"llama-large-train: recompute changes the loss "
+                          f"({float(la)} vs {float(lb)}) or {differ}")
+
+
+def llama_large_workload():
+    """bench.py section (b2)'s training step on the card: the 1.28B LLaMA
+    (CFG_LLAMA_LARGE) in bf16 (random weights from seed 0),
+    AdamW(learning_rate=1e-4, multi_precision=True, acc_dtype="bfloat16"),
+    ``TrainStep(model, lambda loss: loss, opt)``, and batch LARGE_BATCH x
+    LARGE_SEQ ids from np.random.RandomState(0). Returns (model,
+    optimizer, step, ids); a step is ``step(ids, None, None, ids)``."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig(**CFG_LLAMA_LARGE)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                             generator=seed(0, "cuda"))
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True, acc_dtype="bfloat16")
+    step = TrainStep(model, lambda loss: loss, opt)
+    ids = torch.tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LARGE_BATCH, LARGE_SEQ)), device="cuda")
+    return model, opt, step, ids
+
+
+def llama_large_train_phase(name, smi, peaks):
+    """bench.py section (b2) as written: the 1.28B LLaMA (CFG_LLAMA_LARGE:
+    recompute, tied embeddings) in bf16, AdamW(learning_rate=1e-4,
+    multi_precision=True, acc_dtype="bfloat16"), ``TrainStep(model, lambda
+    loss: loss, opt)`` with the labels passed positionally (the fused
+    lm-head CE), batch 2 x seq 2048 ids from np.random.RandomState(0); a
+    warm-up step, whose launches are counted, and LARGE_STEPS steps timed
+    by CUDA events. Gated: finite losses, the first within 1.0 of ln
+    32000, falling; each training kernel at its exact count a step, with
+    recompute's second forward (flash forward and RoPE 2 L, RMSNorm
+    forward 4 L + 1), and the update once; first, ``recompute_gate``."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+
+    t0 = time.monotonic()
+    ids = torch.tensor(np.random.RandomState(0).randint(
+        0, CFG_LLAMA_LARGE["vocab_size"], (LARGE_BATCH, LARGE_SEQ)),
+        device="cuda")
+    recompute_gate(CFG_LLAMA_LARGE, ids)
+    del ids
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, step, ids = llama_large_workload()
+    cfg = model.config
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    launch_counts.clear()
+    losses = [float(step(ids, None, None, ids))]
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(LARGE_STEPS + 1)]
+    timed = []
+    events[0].record()
+    for i in range(LARGE_STEPS):
+        timed.append(step(ids, None, None, ids))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    losses += [float(x) for x in timed]
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(LARGE_STEPS)]
+    steady = float(np.median(step_ms))
+    tokens_per_sec = LARGE_BATCH * LARGE_SEQ / (steady / 1e3)
+    layers = cfg.num_hidden_layers
+    flops_per_token = (6 * n_params
+                       + 12 * layers * cfg.hidden_size * LARGE_SEQ)
+    mfu = tokens_per_sec * flops_per_token / peaks[1]
+    want = {"rms_norm": 4 * layers + 1, "rms_norm_bwd": 2 * layers + 1,
+            "fused_rope": 2 * layers, "fused_rope_bwd": layers,
+            "flash_attention": 2 * layers,
+            "flash_attention_bwd_dkdv": layers,
+            "flash_attention_bwd_dq": layers, "multi_tensor_adam": 1}
+    emit("llama-large-train", params=n_params, batch=LARGE_BATCH,
+         seq=LARGE_SEQ, steps=LARGE_STEPS, step_ms=step_ms,
+         step_ms_median=steady, tokens_per_sec=tokens_per_sec,
+         flops_per_token=flops_per_token, mfu=mfu,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         losses=losses, launches_per_step=counts, card=name, nvidia_smi=smi,
+         seconds=time.monotonic() - t0)
+    first, last = losses[0], losses[-1]
+    if not all(np.isfinite(losses)):
+        raise PhaseFailed(f"llama-large-train: a loss is not finite: "
+                          f"{losses}")
+    if abs(first - np.log(cfg.vocab_size)) > 1.0:
+        raise PhaseFailed(f"llama-large-train: first loss {first:.4f} is "
+                          f"more than 1.0 from ln {cfg.vocab_size}")
+    if not last < first:
+        raise PhaseFailed(f"llama-large-train: loss did not fall: {losses}")
+    if counts != want:
+        raise PhaseFailed(f"llama-large-train: launches a step {counts}, "
+                          f"want {want}")
+    del model, opt, step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -2990,7 +3377,7 @@ def bert_grad_phase():
 
 BERT_BATCH, BERT_SEQ = 32, 128
 BERT_KERNELS = ("flash_attention", "flash_attention_bwd_dkdv",
-                "flash_attention_bwd_dq")
+                "flash_attention_bwd_dq")  # L a step each; the update once
 BERT_ABSENT = ("rms_norm", "rms_norm_bwd", "fused_rope", "fused_rope_bwd",
                "bias_dropout_residual_ln")
 
@@ -3024,8 +3411,9 @@ def bert_train_workload():
 def bert_reference_losses(cfg, state, ids, labels, steps):
     """The same steps from the same weights in f32 on the card through
     the plain versions only: an all-ones attention mask sends attention
-    to the composition route (no kernel of the port runs, which the
-    launch counts confirm) and AdamW updates f32 weights directly."""
+    to the composition route and AdamW updates the f32 weights through
+    its plain version (no kernel of the port runs, which the launch counts
+    confirm)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (
         BertForPretraining,
@@ -3039,8 +3427,9 @@ def bert_reference_losses(cfg, state, ids, labels, steps):
     model.load_state_dict(state)
     crit = BertPretrainingCriterion()
     step = TrainStep(model, lambda mlm, nsp, lab: crit(mlm, nsp, *lab),
-                     AdamW(learning_rate=1e-4, parameters=model.parameters(),
-                           multi_precision=True))
+                     plain_optimizer(AdamW)(
+                         learning_rate=1e-4, parameters=model.parameters(),
+                         multi_precision=True))
     ones = torch.ones(ids.shape, dtype=torch.int64, device="cuda")
     launch_counts.clear()
     losses = [float(step(ids, labels=labels, attention_mask=ones))
@@ -3102,7 +3491,8 @@ def bert_train_phase(name, smi, peaks):
                           f"plain run's {ref} by up to {max(ref_rel):.3g} "
                           f"relative")
     want = {k: cfg.num_hidden_layers for k in BERT_KERNELS}
-    got = {k: counts.get(k, 0) for k in (*BERT_KERNELS, *BERT_ABSENT)}
+    want["multi_tensor_adam"] = 1
+    got = {k: counts.get(k, 0) for k in (*want, *BERT_ABSENT)}
     if got != {**want, **{k: 0 for k in BERT_ABSENT}}:
         raise PhaseFailed(f"bert-train: launches per step {got}, want "
                           f"{want} and none of {BERT_ABSENT}")
@@ -4014,6 +4404,13 @@ KERNELS = [  # name, source, the Pallas kernel it replaces, the path
     ("flash_attention_bwd_dq[f32]",
      "paddle_tpu_torch/csrc/flash_attention_bwd_dq_f32.cu",
      "paddle_tpu/ops/pallas/flash_attention.py:245", "f32-train"),
+    # the optimizer's update: no Pallas kernel; JAX's one XLA program for
+    # the whole update (_build_update). Launches from bench.py (b2)'s step
+    # and f32-train's
+    ("multi_tensor_adam", "paddle_tpu_torch/csrc/multi_tensor_adam.cu",
+     "paddle_tpu/optimizer/optimizer.py:251", "llama-large-train"),
+    ("multi_tensor_adam[f32]", "paddle_tpu_torch/csrc/multi_tensor_adam.cu",
+     "paddle_tpu/optimizer/optimizer.py:251", "f32-train"),
 ]
 
 
@@ -4058,6 +4455,11 @@ def main():
     flash_segments_phase(peaks)
     seg_kernels, varlen_counts = varlen_phase(peaks)
     results.update(seg_kernels)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    results.update(adam_kernel_phase(peaks))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     model = model_phase()
     torch.cuda.synchronize()
     counts = serving_phase(model, name, smi)
@@ -4073,6 +4475,7 @@ def main():
     counts["train"] = train_phase(name, smi, peaks)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    counts["llama-large-train"] = llama_large_train_phase(name, smi, peaks)
     counts["incubate"] = incubate_phase()
     bert_grad_phase()
     torch.cuda.synchronize()

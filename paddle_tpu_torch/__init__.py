@@ -7,15 +7,19 @@ neither it nor JAX. Its slices so far: serving, the LLaMA model
 pool (``models.serving``: chunked prefill, a copy-on-write prefix cache,
 preemption, deadlines and abort), whose decode steps run each decoder
 layer's attention half as one fused kernel; training, the model's ``labels=``
-loss and ``LlamaPretrainingCriterion``, ``optimizer.AdamW`` with f32
-master weights, and ``jit.TrainStep``; and the ``incubate`` fused layers
-with BERT (``models.bert``) built from them. Ten hand-written kernels
-under ``ops/cuda`` carry them: RMSNorm forward and backward, RoPE and its
-adjoint, flash attention forward, dK/dV and dQ, paged decode attention,
-the decode megakernel, and bias + dropout + residual + LayerNorm. Entry
-points run on the GPU unless given ``device="cpu"``.
+loss and ``LlamaPretrainingCriterion``, per-layer recompute
+(``distributed.fleet.recompute``), ``optimizer.Adam``/``AdamW`` with
+JAX's surface (``optimizer.lr`` schedules, ``nn.clip``, parameter groups,
+f32 master weights, ``acc_dtype``, state dicts) and ``jit.TrainStep``;
+and the ``incubate`` fused layers with BERT (``models.bert``) built from
+them. Eleven hand-written kernels under ``ops/cuda`` carry them: RMSNorm
+forward and backward, RoPE and its adjoint, flash attention forward, dK/dV
+and dQ, paged decode attention, the decode megakernel, bias + dropout +
+residual + LayerNorm, and the multi-tensor Adam update. Entry points run
+on the GPU unless given ``device="cpu"``.
 """
-from . import incubate, jit, optimizer
+from . import distributed, incubate, jit, nn, optimizer
 from .core.place import resolve_device, seed
 
-__all__ = ["incubate", "jit", "optimizer", "resolve_device", "seed"]
+__all__ = ["distributed", "incubate", "jit", "nn", "optimizer",
+           "resolve_device", "seed"]

@@ -4,6 +4,14 @@ The port keeps the JAX package's parameter names and its ``(in, out)``
 Linear layout, so loading is a copy by name: the parameter dict of
 ``paddle_tpu``'s ``Layer.raw_state()`` (``nn/layer_base.py`` :357), with
 each array turned into numpy by the caller, goes straight in.
+
+The optimizer's state follows the same way: a JAX ``TrainStep``'s
+``state_dict()`` (``moment1@name``, ``moment2@name``, ``master@name``,
+``@step_count``) or an optimizer's (``slot@index``, ``master@index``,
+``@step_count``, ``LR_Scheduler``), its arrays as numpy arrays, loads
+into the port's ``TrainStep.set_state_dict`` or
+``Optimizer.set_state_dict`` as it is, and the port resumes JAX's
+trajectory from there.
 """
 from __future__ import annotations
 

@@ -12,8 +12,13 @@ as one fused kernel launch (``ops/cuda/decode_megakernel.py``; JAX
 ``LlamaDecoderLayer._fused_decode_forward`` :457). Parameter
 names match the JAX model's, so ``models.convert`` loads its
 ``raw_state()`` by name. Activations are (batch, seq, hidden); attention
-runs in (B, S, H, D). Per-layer recompute (``use_recompute``) and the
-vocab-sharded loss branch are not ported yet.
+runs in (B, S, H, D). ``use_recompute`` checkpoints each decoder layer
+(``distributed/fleet/recompute.py``), as JAX's ``LlamaModel.forward``
+:508-516 does; the vocab-sharded loss branch is not ported yet. Every
+forward takes JAX's ``attn_mask`` at JAX's position: a given mask sends
+attention down the plain composition of
+``scaled_dot_product_attention`` (``is_causal=attn_mask is None``), and a
+paged cache ignores it, as in JAX.
 
 The port updates the KV pools in place (the JAX cache returns new
 arrays): ``PagedKVCache.update`` writes into ``k_pages``/``v_pages`` and
@@ -29,6 +34,7 @@ import torch
 from torch import nn
 
 from ..core.place import placed
+from ..distributed.fleet.recompute import recompute
 from ..nn.layers import Embedding, Linear, RMSNorm
 from ..ops.cuda.decode_attention import paged_attention
 from ..ops.cuda.decode_megakernel import (
@@ -63,6 +69,12 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    # JAX's last four fields: use_recompute checkpoints each decoder layer;
+    # the other three are stored and read by nothing, as in JAX
+    use_recompute: bool = False
+    sequence_parallel: bool = False
+    use_flash_attention: bool = True
+    dtype: str = "float32"
 
     def __post_init__(self):
         if self.num_key_value_heads is None:
@@ -200,7 +212,7 @@ class LlamaAttention(nn.Module):
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 
-    def forward(self, hidden_states, cache=None):
+    def forward(self, hidden_states, attn_mask=None, cache=None):
         cfg = self.config
         b, s, _ = hidden_states.shape
         h, kv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -211,7 +223,8 @@ class LlamaAttention(nn.Module):
         if cache is None:
             q, k = rotary_position_embedding(q, k, self.rope_cos,
                                              self.rope_sin)
-            out = scaled_dot_product_attention(q, k, v, is_causal=True)
+            out = scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                               is_causal=attn_mask is None)
         else:
             offset = cache.length
             steps = torch.arange(s, device=q.device)
@@ -257,11 +270,12 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, config.rms_norm_eps, device=device,
             dtype=dtype)
 
-    def forward(self, hidden_states, cache=None):
+    def forward(self, hidden_states, attn_mask=None, cache=None):
         if cache is not None and self._megakernel_step(hidden_states, cache):
             return self._fused_decode_forward(hidden_states, cache)
         hidden_states = hidden_states + self.self_attn(
-            self.input_layernorm(hidden_states), cache=cache)
+            self.input_layernorm(hidden_states), attn_mask=attn_mask,
+            cache=cache)
         return hidden_states + self.mlp(
             self.post_attention_layernorm(hidden_states))
 
@@ -312,10 +326,15 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=device, dtype=dtype)
 
-    def forward(self, input_ids, caches=None):
+    def forward(self, input_ids, attn_mask=None, caches=None):
         hidden = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
-            hidden = layer(hidden, None if caches is None else caches[i])
+            if caches is not None:
+                hidden = layer(hidden, attn_mask=attn_mask, cache=caches[i])
+            elif self.config.use_recompute:
+                hidden = recompute(layer, hidden, attn_mask=attn_mask)
+            else:
+                hidden = layer(hidden, attn_mask=attn_mask)
         return self.norm(hidden)
 
 
@@ -348,7 +367,7 @@ class LlamaForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.model.embed_tokens.weight.dtype
 
-    def forward(self, input_ids, caches=None, labels=None):
+    def forward(self, input_ids, attn_mask=None, caches=None, labels=None):
         """(B, S) token ids -> (B, S, vocab) logits. With ``caches`` (one
         :class:`PagedKVCache` per layer) the new tokens' KV is written
         into the caches, which advance in place. With ``labels`` (B, S),
@@ -357,7 +376,7 @@ class LlamaForCausalLM(nn.Module):
         if labels is not None and caches is not None:
             raise ValueError("labels= is a training-path argument; decode "
                              "caches don't apply")
-        hidden = self.model(input_ids, caches)
+        hidden = self.model(input_ids, attn_mask=attn_mask, caches=caches)
         if labels is not None:
             if self.lm_head is None:
                 return causal_lm_loss(hidden, self.model.embed_tokens.weight,

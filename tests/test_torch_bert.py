@@ -38,6 +38,20 @@ from paddle_tpu_torch.models import (
 )
 from paddle_tpu_torch.optimizer import AdamW
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's torch work, its module fixtures' included, on one
+    intra-op thread: where pytest-xdist's workers share the cores, each
+    worker's thread pool otherwise spin-waits against the others', and
+    small ops run several times slower. The tolerances hold on any number
+    of threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
 TINY = dict(max_position_embeddings=128)

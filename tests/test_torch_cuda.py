@@ -1027,3 +1027,111 @@ def test_tiny_bert_trains_on_card_through_the_flash_kernels(gen):
     for k in ("flash_attention", "flash_attention_bwd_dkdv",
               "flash_attention_bwd_dq"):
         assert launch_counts[k] == 4 * cfg.num_hidden_layers, k
+
+
+# the update's launch groups: (parameter dtype, f32 masters, moment1 dtype,
+# coupled L2)
+ADAM_CASES = [(torch.bfloat16, True, torch.float32, False),
+              (torch.bfloat16, True, torch.bfloat16, False),
+              (torch.bfloat16, False, torch.bfloat16, True),
+              (torch.bfloat16, False, torch.float32, False),
+              (torch.float32, False, torch.float32, True),
+              (torch.float32, False, torch.bfloat16, False)]
+
+
+def _adam_group(gen, pdt, master, mdt, sizes):
+    """Parameters of ``sizes`` (the last one 1 element off 16-byte
+    alignment), f32 masters or none, random moments (moment2 > 0), lr
+    multipliers, decay coefficients and clip slots cycling through
+    their cases; returns (group, grads per step) on the card."""
+    from paddle_tpu_torch.ops.cuda.multi_tensor_adam import AdamTensors
+
+    work = torch.float32 if master else pdt
+    ps, ws, ms, vs = [], [], [], []
+    for k, shape in enumerate(sizes):
+        n = int(np.prod(shape))
+        off = 1 if k == len(sizes) - 1 else 0
+        p = _randn(gen, n + off, dtype=pdt)[off:].view(shape)
+        ps.append(p)
+        ws.append(p.float().clone() if master else None)
+        ms.append((0.01 * _randn(gen, *shape, dtype=torch.float32)).to(mdt))
+        vs.append((1e-4 * torch.rand(shape, generator=gen, device="cuda"))
+                  .to(work))
+    grads = [[_randn(gen, p.numel() + 1, dtype=pdt)[1:].view(p.shape)
+              if k == len(sizes) - 1 else _randn(gen, *p.shape, dtype=pdt)
+              for k, p in enumerate(ps)] for _ in range(3)]
+    n = len(sizes)
+    group = AdamTensors(ps, ws, ms, vs, [(1.0, 0.5, 2.0)[k % 3]
+                                         for k in range(n)],
+                        [(0.0, 0.01, 0.1)[k % 3] for k in range(n)],
+                        [(-1, 0, 1)[k % 3] for k in range(n)])
+    return group, grads
+
+
+def _clone_group(group):
+    from paddle_tpu_torch.ops.cuda.multi_tensor_adam import AdamTensors
+
+    def c(ts):
+        return [None if t is None else t.clone() for t in ts]
+
+    return AdamTensors(c(group.params), c(group.masters), c(group.moment1),
+                       c(group.moment2), group.lr_mults, group.coeffs,
+                       group.slots)
+
+
+@pytest.mark.parametrize("pdt,master,mdt,coupled", ADAM_CASES)
+def test_multi_tensor_adam_kernel(gen, pdt, master, mdt, coupled):
+    """Three steps of the update kernel against its plain version on the
+    same state: sizes off the chunk and the 8-element vector (1, 7, 8,
+    33 x 129, a chunk + 3, three chunks) and a tensor off 16-byte
+    alignment, clipped and unclipped tensors, lr multipliers, decay on and
+    off. One launch a step. f32 work values within 1e-6 relative (the same
+    IEEE operations in the same order), bf16 ones within one bf16 ulp."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda import multi_tensor_adam as mta
+
+    sizes = [(1,), (7,), (8,), (33, 129), (mta.CHUNK + 3,),
+             (3 * mta.CHUNK,), (4099,)]
+    group, grads = _adam_group(gen, pdt, master, mdt, sizes)
+    ref = _clone_group(group)
+    state = torch.tensor([1e-3, 0.0, 0.5, 0.25], device="cuda")
+    launch_counts.clear()
+    for t, gs in enumerate(grads, start=1):
+        state[1] = t
+        mta.multi_tensor_adam(group, gs, state, coupled=coupled)
+        mta.multi_tensor_adam_plain(ref, gs, state, coupled=coupled)
+    torch.cuda.synchronize()
+    tag = "[f32]" if pdt == torch.float32 else ""
+    assert launch_counts == {"multi_tensor_adam" + tag: 3}
+    tol = (dict(rtol=1e-6, atol=1e-9) if group.work_dtype == torch.float32
+           else dict(rtol=2.0 ** -8, atol=1e-6))
+    for got, want in ((group.params, ref.params),
+                      (group.masters, ref.masters),
+                      (group.moment1, ref.moment1),
+                      (group.moment2, ref.moment2)):
+        for a, b in zip(got, want):
+            if a is not None:
+                assert torch.isfinite(a.float()).all()
+                torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+def test_multi_tensor_adam_refuses_what_it_does_not_take(gen):
+    """f16 parameters, a gradient of another dtype or not contiguous, a
+    state vector not f32: raised before any launch."""
+    from paddle_tpu_torch.ops.cuda import multi_tensor_adam as mta
+
+    state = torch.tensor([1e-3, 1.0], device="cuda")
+    p = _randn(gen, 64, dtype=torch.float16)
+    g16 = mta.AdamTensors([p], [None], [torch.zeros_like(p)],
+                          [torch.zeros_like(p)], [1.0], [0.0], [-1])
+    with pytest.raises(TypeError):
+        mta.multi_tensor_adam(g16, [p.clone()], state)
+    q = _randn(gen, 8, 8)
+    grp = mta.AdamTensors([q], [None], [torch.zeros_like(q)],
+                          [torch.zeros_like(q)], [1.0], [0.0], [-1])
+    with pytest.raises(ValueError):
+        mta.multi_tensor_adam(grp, [q.float()], state)
+    with pytest.raises(ValueError):
+        mta.multi_tensor_adam(grp, [_randn(gen, 8, 8).t()], state)
+    with pytest.raises(TypeError):
+        mta.multi_tensor_adam(grp, [q.clone()], state.double())

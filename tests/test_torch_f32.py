@@ -34,6 +34,20 @@ import torch
 
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM, PagedKVCache
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's torch work, its module fixtures' included, on one
+    intra-op thread: where pytest-xdist's workers share the cores, each
+    worker's thread pool otherwise spin-waits against the others', and
+    small ops run several times slower. The tolerances hold on any number
+    of threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # one decoder layer at the 438M widths (chip_smoke.py CFG_438M); the vocab
 # is cut so that the head stays small
 CFG = dict(vocab_size=256, hidden_size=1536, intermediate_size=4096,

@@ -43,6 +43,20 @@ from paddle_tpu_torch.models import (
     LlamaPretrainingCriterion,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's torch work, its module fixtures' included, on one
+    intra-op thread: where pytest-xdist's workers share the cores, each
+    worker's thread pool otherwise spin-waits against the others', and
+    small ops run several times slower. The tolerances hold on any number
+    of threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # one decoder layer at the 438M widths (chip_smoke.py CFG_438M); the vocab
 # is cut so that the head stays small
 CFG = dict(vocab_size=256, hidden_size=1536, intermediate_size=4096,
@@ -322,7 +336,8 @@ def test_f32_llama_trains_on_card_through_the_f32_kernels(gen):
     """A small LLaMA in f32 (the default dtype), 3 ``TrainStep`` steps of
     AdamW on the card: finite, falling losses, and every launch one of the
     seven training kernels' ``[f32]`` forms, each at its count a step
-    (RMSNorm 2 L + 1 each way, the others L)."""
+    (RMSNorm 2 L + 1 each way, the others L), or the update's multi-tensor
+    kernel in f32, once a step."""
     from paddle_tpu_torch import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.ops.cuda import launch_counts
@@ -345,5 +360,6 @@ def test_f32_llama_trains_on_card_through_the_f32_kernels(gen):
     layers = cfg.num_hidden_layers
     want = {k + "[f32]": layers for k in F32_TRAIN_KERNELS}
     want["rms_norm[f32]"] = want["rms_norm_bwd[f32]"] = 2 * layers + 1
+    want["multi_tensor_adam[f32]"] = 1
     assert counts == want
     assert all(np.isfinite(losses)) and losses[2] < losses[0], losses

@@ -33,6 +33,20 @@ from paddle_tpu_torch import incubate
 from paddle_tpu_torch.models import params_from_paddle_tpu
 from paddle_tpu_torch.ops.cuda import fused_ops as fo
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's torch work, its module fixtures' included, on one
+    intra-op thread: where pytest-xdist's workers share the cores, each
+    worker's thread pool otherwise spin-waits against the others', and
+    small ops run several times slower. The tolerances hold on any number
+    of threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 OP_TOL = dict(atol=1e-5, rtol=1e-5)
 OP_GRAD_TOL = dict(atol=2e-5, rtol=2e-5)
 OUT_TOL = dict(atol=1e-5, rtol=1e-4)

@@ -42,6 +42,20 @@ from paddle_tpu_torch.models import (
 from paddle_tpu_torch.models import llama as llama_mod
 from paddle_tpu_torch.ops.cuda import decode_megakernel as mk
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's torch work, its module fixtures' included, on one
+    intra-op thread: where pytest-xdist's workers share the cores, each
+    worker's thread pool otherwise spin-waits against the others', and
+    small ops run several times slower. The tolerances hold on any number
+    of threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = RTOL = 1e-5
 MIN_GAP = 1e-4
 CFG = dict(vocab_size=128, hidden_size=64, intermediate_size=128,

@@ -31,6 +31,20 @@ import torch
 from paddle_tpu.ops.pallas import rms_norm as jrn
 from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's torch work, its module fixtures' included, on one
+    intra-op thread: where pytest-xdist's workers share the cores, each
+    worker's thread pool otherwise spin-waits against the others', and
+    small ops run several times slower. The tolerances hold on any number
+    of threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = RTOL = 1e-5
 THREADS = 256  # the backward's block
 REG_VECS, MAX_VECS = 6, 16  # vectors a lane: sums in registers; at most

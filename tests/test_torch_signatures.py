@@ -42,6 +42,20 @@ from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import fused_ops as fo
 from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's torch work, its module fixtures' included, on one
+    intra-op thread: where pytest-xdist's workers share the cores, each
+    worker's thread pool otherwise spin-waits against the others', and
+    small ops run several times slower. The tolerances hold on any number
+    of threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SAME = dict(atol=1e-6, rtol=1e-6)
 KERNEL = dict(atol=1e-5, rtol=1e-5)
 
@@ -429,3 +443,130 @@ def test_row_and_position_entries_match_plain():
     for got, want in zip(fo.fused_rope(q, k, cos, sin),
                          fo.fused_rope_at(q, k, cos, sin, arange)):
         _close(got, want.numpy(), SAME)
+
+
+# ---- the training surface: the LLaMA forwards' attn_mask, LlamaConfig, the
+# optimizers, the schedulers and the clips (names, order and defaults)
+
+def _params(fn):
+    """(name, kind, default) of each parameter, ``self`` dropped."""
+    import inspect
+
+    return [(p.name, p.kind, p.default)
+            for p in inspect.signature(fn).parameters.values()
+            if p.name != "self"]
+
+
+def _surface():
+    """(name, JAX callable, port callable) of every signature that the
+    training surface shares with JAX."""
+    import paddle_tpu as paddle
+    from paddle_tpu.models import llama as jl
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import llama as tl
+    from paddle_tpu_torch.optimizer import lr as tlr
+
+    out = [(f"{c}.forward", getattr(jl, c).forward, getattr(tl, c).forward)
+           for c in ("LlamaAttention", "LlamaDecoderLayer", "LlamaModel",
+                     "LlamaForCausalLM")]
+    out += [(c, getattr(paddle.optimizer, c).__init__,
+             getattr(topt, c).__init__)
+            for c in ("Optimizer", "Adam", "AdamW")]
+    out += [(c, getattr(paddle.optimizer.lr, c).__init__,
+             getattr(tlr, c).__init__) for c in paddle.optimizer.lr.__all__]
+    out += [(c, getattr(paddle.nn.clip, c).__init__, getattr(tnn.clip, c)
+             .__init__) for c in ("ClipGradByValue", "ClipGradByNorm",
+                                  "ClipGradByGlobalNorm")]
+    out += [("clip_grad_norm_", paddle.nn.clip.clip_grad_norm_,
+             tnn.clip_grad_norm_),
+            ("ReduceOnPlateau.step", paddle.optimizer.lr.ReduceOnPlateau.step,
+             tlr.ReduceOnPlateau.step),
+            ("Optimizer.clear_grad", paddle.optimizer.Optimizer.clear_grad,
+             topt.Optimizer.clear_grad)]
+    return out
+
+
+SURFACE = [name for name, _, _ in _surface()]
+
+
+@pytest.mark.parametrize("name", SURFACE)
+def test_training_surface_signatures_match_jax(name):
+    """Each shared callable takes JAX's parameters, in JAX's order, with
+    JAX's defaults."""
+    _, jax_fn, port_fn = next(s for s in _surface() if s[0] == name)
+    assert _params(port_fn) == _params(jax_fn)
+
+
+def test_llama_config_fields_match_jax():
+    """``LlamaConfig`` takes JAX's keywords in JAX's order with JAX's
+    defaults, ``use_recompute`` and the three fields read by nothing
+    included."""
+    import dataclasses
+
+    from paddle_tpu.models import LlamaConfig as JaxConfig
+    from paddle_tpu_torch.models import LlamaConfig
+
+    want = [(n, d) for n, _, d in _params(JaxConfig.__init__)]
+    got = [(f.name, f.default) for f in dataclasses.fields(LlamaConfig)]
+    assert got == want
+    cfg = LlamaConfig(hidden_size=64, num_attention_heads=4,
+                      use_recompute=True, sequence_parallel=True,
+                      use_flash_attention=False, dtype="bfloat16")
+    assert (cfg.use_recompute, cfg.sequence_parallel,
+            cfg.use_flash_attention, cfg.dtype) == (True, True, False,
+                                                    "bfloat16")
+
+
+@pytest.fixture(scope="module")
+def llama_pair():
+    """A tiny LLaMA (seq 32, so that JAX's attention takes its XLA
+    composition) built by JAX from a seed and carried into the port."""
+    import paddle_tpu as paddle
+    from paddle_tpu.models import LlamaConfig as JaxConfig
+    from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+    from paddle_tpu_torch.models import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        params_from_paddle_tpu,
+    )
+
+    cfg = dict(vocab_size=64, hidden_size=64, intermediate_size=128,
+               num_hidden_layers=2, num_attention_heads=2,
+               max_position_embeddings=64)
+    paddle.seed(0)
+    jm = JaxLlama(JaxConfig(**cfg))
+    tm = LlamaForCausalLM(LlamaConfig(**cfg), device="cpu")
+    params_from_paddle_tpu({k: np.asarray(v) for k, v in
+                            jm.raw_state()[0].items()}, tm)
+    ids = np.random.RandomState(3).randint(0, 64, (2, 32)).astype(np.int32)
+    return jm, tm, ids
+
+
+def test_llama_positional_labels_match_jax(llama_pair):
+    """``model(ids, None, None, ids)``: JAX's positions (attn_mask, caches,
+    labels) give the labels loss on both sides, 1e-5 relative."""
+    import paddle_tpu as paddle
+
+    jm, tm, ids = llama_pair
+    want = float(jm(paddle.to_tensor(ids), None, None, paddle.to_tensor(ids)))
+    got = tm(torch.from_numpy(ids).long(), None, None,
+             torch.from_numpy(ids).long())
+    np.testing.assert_allclose(float(got.detach()), want, rtol=1e-5)
+
+
+def test_llama_dense_attn_mask_matches_jax(llama_pair):
+    """A boolean (B, 1, S, S) mask, causal with the second row's last 9
+    keys padded, passed positionally: logits as JAX's (both take the
+    composition of ``scaled_dot_product_attention``), 1e-5."""
+    import paddle_tpu as paddle
+
+    jm, tm, ids = llama_pair
+    s = ids.shape[1]
+    mask = np.tril(np.ones((s, s), dtype=bool))[None, None].repeat(2, 0)
+    mask[1, :, :, s - 9:] = False
+    mask[1, :, s - 9:, s - 9:] = np.eye(9, dtype=bool)  # no empty row
+    want = jm(paddle.to_tensor(ids), paddle.to_tensor(mask))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    _close(got, np.asarray(want._value), KERNEL)

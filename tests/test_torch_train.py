@@ -37,6 +37,20 @@ from paddle_tpu_torch.models import (
 )
 from paddle_tpu_torch.optimizer import AdamW
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's torch work, its module fixtures' included, on one
+    intra-op thread: where pytest-xdist's workers share the cores, each
+    worker's thread pool otherwise spin-waits against the others', and
+    small ops run several times slower. The tolerances hold on any number
+    of threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(vocab_size=128, hidden_size=128, intermediate_size=256,
            num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
            max_position_embeddings=128)
@@ -228,3 +242,31 @@ def test_adamw_multi_precision_matches_jax():
         np.testing.assert_array_equal(
             tp.detach().float().numpy(),
             np.asarray(jp._value.astype(np.float32)))
+
+
+def test_recompute_is_bit_for_bit_and_matches_jax_recompute():
+    """``use_recompute=True`` checkpoints each decoder layer: the port's
+    labels loss and every gradient equal its own run without recompute bit
+    for bit (the backward reruns the same forward), and JAX's recompute
+    model's within GRAD_TOL; under ``no_grad`` the layers just run."""
+    jm, tm = _pair(use_recompute=True)
+    plain = LlamaForCausalLM(LlamaConfig(**CFG), device="cpu",
+                             dtype=torch.float32)
+    plain.load_state_dict(tm.state_dict())
+    ids = _ids(4)
+    jl = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(ids))
+    jl.backward()
+    losses = []
+    for model in (tm, plain):
+        loss = model(torch.tensor(ids), labels=torch.tensor(ids))
+        loss.backward()
+        losses.append(loss.detach())
+    assert tm.config.use_recompute and not plain.config.use_recompute
+    assert torch.equal(losses[0], losses[1])
+    again = dict(plain.named_parameters())
+    for k, p in tm.named_parameters():
+        assert torch.equal(p.grad, again[k].grad), k
+    np.testing.assert_allclose(float(losses[0]), float(jl), rtol=1e-5)
+    _check_grads(tm, _jax_grads(jm))
+    with torch.no_grad():
+        assert torch.equal(tm(torch.tensor(ids)), plain(torch.tensor(ids)))

@@ -30,6 +30,20 @@ from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import fused_ops as fo
 from paddle_tpu_torch.ops.cuda import rms_norm as rn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """This module's torch work, its module fixtures' included, on one
+    intra-op thread: where pytest-xdist's workers share the cores, each
+    worker's thread pool otherwise spin-waits against the others', and
+    small ops run several times slower. The tolerances hold on any number
+    of threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = dict(atol=2e-5, rtol=2e-5)
 
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's training step spends its time, on one GPU.
 
-    python3 tools/torch_train_profile.py [--model llama-438m|bert-base|phi3-4l]
+    python3 tools/torch_train_profile.py [--model llama-438m|bert-base|phi3-4l|
+                                                  llama-1.28b]
                                          [--dtype bf16|f32]
 
 Runs one of chip_smoke.py's training workloads: ``llama-438m`` (the
@@ -13,9 +14,12 @@ bench.py section (c2), BERT-base in bf16 with dropout 0, the same AdamW,
 TrainStep over BertPretrainingCriterion, batch 32 x seq 128 ids and
 labels from np.random.RandomState(0)) or ``phi3-4l`` (chip_smoke.py's
 phi3-train: ``train_workload`` at Phi-3-mini's widths, ``CFG_PHI3`` cut to
-``PHI3_TRAIN_LAYERS`` layers). ``--dtype f32`` builds the LLaMA
+``PHI3_TRAIN_LAYERS`` layers) or ``llama-1.28b`` (``llama_large_workload``:
+bench.py section (b2), the 1.28B LLaMA with recompute and tied embeddings,
+AdamW with acc_dtype bf16, labels passed positionally to the model's own
+loss; batch 2 x seq 2048). ``--dtype f32`` builds the 438M and Phi-3
 workloads in f32 (chip_smoke.py's f32-train: the f32 kernels, TF32 off);
-BERT runs in bf16 only. Times it as chip_smoke.py times it
+BERT and the 1.28B run in bf16 only. Times it as chip_smoke.py times it
 (``timed_steps``: one warm-up step, then the median of five steps timed
 with CUDA events), then runs two steps under torch.profiler. Prints one
 JSON object: the step time, the device's busy and idle share of the
@@ -24,7 +28,9 @@ GEMMs, CE/softmax, LayerNorm, the optimizer (every kernel launched inside
 ``optimizer.step``), elementwise and the rest, and the path's kernels'
 launches per step (the wrappers' counts, ``[f32]`` launches under the
 kernel's name: the RMSNorm backward is two device kernels, the blocks'
-partial column sums and their sum).
+partial column sums and their sum), and each instantiation of the port's
+kernels that ran, by its device name (which RMSNorm kernel a width takes,
+for one).
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 PROFILED = 2
+TIMED = 5  # steps timed by CUDA events after the warm-up, as chip_smoke.py
 # kernel-name fragment -> the port's kernel; the first match wins (an f32
 # twin's name holds its bf16 kernel's). The RoPE kernel's two directions
 # are one template, told apart by its last argument as the profiler spells
@@ -49,7 +56,8 @@ OURS = (("rms_norm_bwd", "rms_norm_bwd"), ("rms_norm_fwd", "rms_norm"),
         ("flash_bwd_dkdv", "flash_attention_bwd_dkdv"),
         ("flash_bwd_dq", "flash_attention_bwd_dq"),
         ("flash_fwd", "flash_attention"),
-        ("bdrln_fwd", "bias_dropout_residual_ln"))
+        ("bdrln_fwd", "bias_dropout_residual_ln"),
+        ("multi_tensor_adam", "multi_tensor_adam"))
 PATH_KERNELS = {label for _, label in OURS} | {"fused_rope",
                                                "fused_rope_bwd"}
 OPTIMIZER = "optimizer.step"
@@ -91,12 +99,13 @@ def kernels_under(evt):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model",
-                        choices=("llama-438m", "bert-base", "phi3-4l"),
+                        choices=("llama-438m", "bert-base", "phi3-4l",
+                                 "llama-1.28b"),
                         default="llama-438m")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
     args = parser.parse_args()
-    if args.model == "bert-base" and args.dtype != "bf16":
-        parser.error("bert-base runs in bf16 only")
+    if args.model in ("bert-base", "llama-1.28b") and args.dtype != "bf16":
+        parser.error(f"{args.model} runs in bf16 only")
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -112,8 +121,17 @@ def main():
         "phi3-4l": lambda: chip_smoke.train_workload(
             {**chip_smoke.CFG_PHI3,
              "num_hidden_layers": chip_smoke.PHI3_TRAIN_LAYERS},
-            dtype)}[args.model]
-    _, opt, step, ids, labels = workload()
+            dtype)}.get(args.model)
+    if args.model == "llama-1.28b":
+        _, opt, step, ids = chip_smoke.llama_large_workload()
+
+        def call():
+            return step(ids, None, None, ids)
+    else:
+        _, opt, step, ids, labels = workload()
+
+        def call():
+            return step(ids, labels=labels)
     batch, seqlen = ids.shape
     step_fn = opt.step
 
@@ -122,9 +140,16 @@ def main():
             step_fn()
 
     opt.step = traced_step
-    step(ids, labels=labels)
+    call()
     torch.cuda.synchronize()
-    step_ms = float(np.median(chip_smoke.timed_steps(step, ids, labels)[1]))
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED + 1)]
+    events[0].record()
+    for i in range(TIMED):
+        call()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    step_ms = float(np.median([events[i].elapsed_time(events[i + 1])
+                               for i in range(TIMED)]))
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -132,7 +157,7 @@ def main():
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(PROFILED):
-            step(ids, labels=labels)
+            call()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     launches = {k: launch_counts[k + tag] / PROFILED
@@ -146,7 +171,7 @@ def main():
             busy_us += us
             g = group_of(e.key)
             groups[g] = groups.get(g, 0.0) + us
-            kernels[e.key[:90]] = (us, e.count)
+            kernels[e.key[:160]] = (us, e.count)
     # kernels launched inside optimizer.step leave their name groups for
     # the optimizer's own
     for e in prof.events():
@@ -174,6 +199,12 @@ def main():
              "launches_per_step": n / PROFILED}
             for k, (us, n) in sorted(kernels.items(),
                                      key=lambda kv: -kv[1][0])[:15]],
+        # every instantiation of the port's kernels that ran, by name
+        "path_kernels": [
+            {"kernel": k, "ms_per_step": us / 1e3 / PROFILED,
+             "launches_per_step": n / PROFILED}
+            for k, (us, n) in sorted(kernels.items())
+            if group_of(k) in PATH_KERNELS],
     }), flush=True)
     return 0
 
